@@ -1,0 +1,195 @@
+"""Functional NN core (counterpart of multimodal_dmm_tpu/models/nn.py).
+
+Parameters are plain dicts of tensors, in the same tree as the JAX
+package's, but in PyTorch's layouts:
+
+- linear ``w`` is (out, in), applied with ``F.linear``;
+- conv2d ``w`` is OIHW; deconv2d ``w`` is ``ConvTranspose2d``'s
+  (in, out, kH, kW);
+- activations are NCHW.
+
+Initialisers draw from the JAX package's distributions (torch's defaults:
+U(-1/sqrt(fan_in), 1/sqrt(fan_in)), or xavier-uniform where the
+reference asks for it) from an explicit ``torch.Generator``.
+"""
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def _uniform(gen, shape, bound):
+    return (torch.rand(shape, generator=gen, dtype=torch.float32)
+            * (2 * bound) - bound)
+
+
+# ---------------------------------------------------------------------------
+# Linear / MLP heads
+# ---------------------------------------------------------------------------
+
+def linear_init(gen, in_dim, out_dim, xavier=False):
+    bound = (math.sqrt(6.0 / (in_dim + out_dim)) if xavier
+             else 1.0 / math.sqrt(in_dim))
+    return {"w": _uniform(gen, (out_dim, in_dim), bound),
+            "b": _uniform(gen, (out_dim,), 1.0 / math.sqrt(in_dim))}
+
+
+def linear_apply(p, x):
+    return F.linear(x, p["w"], p["b"])
+
+
+def embedding_init(gen, num, dim):
+    """torch nn.Embedding default: N(0, 1)."""
+    return {"w": torch.randn((num, dim), generator=gen)}
+
+
+def embedding_apply(p, idx):
+    return p["w"][idx]
+
+
+def gaussian_mlp_init(gen, in_dim, out_dim, h_dim):
+    """Linear + ReLU -> (mean, softplus std)."""
+    return {"in_to_h": linear_init(gen, in_dim, h_dim),
+            "h_to_mean": linear_init(gen, h_dim, out_dim),
+            "h_to_std": linear_init(gen, h_dim, out_dim)}
+
+
+def gaussian_mlp_apply(p, x, min_std=1e-3):
+    h = F.relu(linear_apply(p["in_to_h"], x))
+    mean = linear_apply(p["h_to_mean"], h)
+    std = F.softplus(linear_apply(p["h_to_std"], h)) + min_std
+    return mean, std
+
+
+def categorical_mlp_init(gen, in_dim, out_dim, h_dim):
+    """Linear + ReLU -> softmax probabilities."""
+    return {"in_to_h": linear_init(gen, in_dim, h_dim),
+            "h_to_out": linear_init(gen, h_dim, out_dim)}
+
+
+def categorical_mlp_apply(p, x):
+    h = F.relu(linear_apply(p["in_to_h"], x))
+    return (torch.softmax(linear_apply(p["h_to_out"], h), dim=-1),)
+
+
+# ---------------------------------------------------------------------------
+# Gated transition function (GaussianGTF)
+# ---------------------------------------------------------------------------
+
+GTF_LAYERS = ("gate_1", "gate_2", "z_lin", "nonlin_1", "nonlin_2",
+              "z_to_std")
+
+
+def gtf_init(gen, z_dim, h_dim):
+    shapes = {"gate_1": (z_dim, h_dim), "gate_2": (h_dim, z_dim),
+              "z_lin": (z_dim, z_dim), "nonlin_1": (z_dim, h_dim),
+              "nonlin_2": (h_dim, z_dim), "z_to_std": (z_dim, z_dim)}
+    return {name: linear_init(gen, *shapes[name]) for name in GTF_LAYERS}
+
+
+def gtf_apply(p, z, min_std=0.0):
+    gate = torch.sigmoid(linear_apply(
+        p["gate_2"], F.relu(linear_apply(p["gate_1"], z))))
+    z_lin = linear_apply(p["z_lin"], z)
+    z_nonlin = linear_apply(p["nonlin_2"],
+                            F.relu(linear_apply(p["nonlin_1"], z)))
+    z_std = F.softplus(linear_apply(p["z_to_std"], z_nonlin)) + min_std
+    return (1 - gate) * z_lin + gate * z_nonlin, z_std
+
+
+def gtf_pack(p):
+    """Concatenate the three z-side projections (gate_1, nonlin_1, z_lin)
+    into one product and stack the two second-stage ones, so a time loop
+    runs three products per step; ``gtf_apply_packed(gtf_pack(p), z)``
+    equals ``gtf_apply(p, z)``."""
+    return {
+        "w1": torch.cat([p["gate_1"]["w"], p["nonlin_1"]["w"],
+                         p["z_lin"]["w"]], dim=0),
+        "b1": torch.cat([p["gate_1"]["b"], p["nonlin_1"]["b"],
+                         p["z_lin"]["b"]]),
+        "w2": torch.stack([p["gate_2"]["w"], p["nonlin_2"]["w"]]),
+        "b2": torch.stack([p["gate_2"]["b"], p["nonlin_2"]["b"]]),
+        "w3": p["z_to_std"]["w"], "b3": p["z_to_std"]["b"],
+        "h_dim": int(p["gate_1"]["w"].shape[0]),
+    }
+
+
+def gtf_apply_packed(pk, z, min_std=0.0):
+    h_dim = pk["h_dim"]
+    a1 = F.linear(z, pk["w1"], pk["b1"])
+    g1 = F.relu(a1[..., :h_dim])
+    n1 = F.relu(a1[..., h_dim:2 * h_dim])
+    z_lin = a1[..., 2 * h_dim:]
+    gate = torch.sigmoid(F.linear(g1, pk["w2"][0], pk["b2"][0]))
+    z_nonlin = F.linear(n1, pk["w2"][1], pk["b2"][1])
+    z_std = F.softplus(F.linear(z_nonlin, pk["w3"], pk["b3"])) + min_std
+    return (1 - gate) * z_lin + gate * z_nonlin, z_std
+
+
+# ---------------------------------------------------------------------------
+# Convolutions (NCHW)
+# ---------------------------------------------------------------------------
+
+def conv2d_init(gen, c_in, c_out, ksize=3, xavier=True):
+    fan_in = c_in * ksize * ksize
+    fan_out = c_out * ksize * ksize
+    bound = (math.sqrt(6.0 / (fan_in + fan_out)) if xavier
+             else 1.0 / math.sqrt(fan_in))
+    return {"w": _uniform(gen, (c_out, c_in, ksize, ksize), bound),
+            "b": _uniform(gen, (c_out,), 1.0 / math.sqrt(fan_in))}
+
+
+def conv2d_apply(p, x, stride=2, padding=1):
+    """x: (N, C, H, W) -> (N, C', H', W')."""
+    return F.conv2d(x, p["w"], p["b"], stride=stride, padding=padding)
+
+
+def deconv2d_init(gen, c_in, c_out, ksize=4, xavier=True):
+    """``ConvTranspose2d`` weight (in, out, kH, kW); xavier bounds use
+    fan_in = in*k*k as torch computes them on that layout."""
+    fan_in = c_in * ksize * ksize
+    fan_out = c_out * ksize * ksize
+    bound = (math.sqrt(6.0 / (fan_in + fan_out)) if xavier
+             else 1.0 / math.sqrt(fan_out))
+    return {"w": _uniform(gen, (c_in, c_out, ksize, ksize), bound),
+            "b": _uniform(gen, (c_out,), 1.0 / math.sqrt(fan_out))}
+
+
+def deconv2d_apply(p, x, stride=2, padding=1):
+    """out_size = (in - 1) * stride - 2 * padding + ksize."""
+    return F.conv_transpose2d(x, p["w"], p["b"], stride=stride,
+                              padding=padding)
+
+
+# ---------------------------------------------------------------------------
+# BatchNorm with explicit running state
+# ---------------------------------------------------------------------------
+
+def batchnorm_init(c, eps=1e-5, momentum=0.1):
+    return ({"scale": torch.ones(c), "bias": torch.zeros(c)},
+            {"mean": torch.zeros(c), "var": torch.ones(c),
+             "eps": eps, "momentum": momentum})
+
+
+def batchnorm_apply(p, state, x, train):
+    """x: (N, C, ...). In training, normalise by the batch statistics and
+    return the running state moved by ``momentum`` towards them (unbiased
+    variance); in evaluation, normalise by the running state. Returns
+    (out, new_state); the input state is not modified."""
+    if train:
+        axes = [0] + list(range(2, x.dim()))
+        out = F.batch_norm(x, None, None, p["scale"], p["bias"],
+                           training=True, eps=state["eps"])
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=axes, correction=0)
+            n = x.numel() // x.shape[1]
+            unbiased = var * n / max(n - 1, 1)
+            mom = state["momentum"]
+            new_state = dict(state)
+            new_state["mean"] = (1 - mom) * state["mean"] + mom * mean
+            new_state["var"] = (1 - mom) * state["var"] + mom * unbiased
+        return out, new_state
+    out = F.batch_norm(x, state["mean"], state["var"], p["scale"],
+                       p["bias"], training=False, eps=state["eps"])
+    return out, state
