@@ -14,10 +14,10 @@ imports nothing of JAX or of the JAX package. Phases:
    (3, 25), (5, 1)), with their times and the card's bound;
 4. the Weizmann BFVI training step at full width (weights from --seed,
    a synthetic batch of T = B = 25, KLD multiplier 1 as at the end of the
-   trainer's anneal): --steps optimizer steps through the kernels, with
-   their launch counts and the median step time, then one step's loss
-   and gradients on the kernels against the same step on the plain
-   versions.
+   trainer's anneal): one step's loss and gradients on the kernels
+   against the same step on the plain versions, then --steps optimizer
+   steps through the kernels, with their launch counts and the median
+   step time.
 
 Any failed check raises, so the script exits non-zero before its last
 line. The line before the last is a JSON object with one entry per
@@ -282,8 +282,8 @@ def check_step_against_plain(trainer, inputs, targets, mask, seed):
       cannot agree to STEP_GRAD_TOL: the forward kernel's rounding (about
       1e-6 in z) flips ReLUs downstream of the sampled z, starting with
       the video decoder's first layer, and each flip moves one row of a
-      weight gradient by one sample's whole term. How many flip changes
-      from run to run (PERF.md). A second plain run shows that the plain
+      weight gradient by one sample's whole term. How many flip depends
+      on the weights (PERF.md). A second plain run shows that the plain
       path itself is deterministic.
     """
     torch.backends.cudnn.deterministic = True
@@ -378,6 +378,9 @@ def main():
         % (T_MAIN, model.z_dim))
     inputs, targets, mask = synthetic_batch(args.seed, dev)
     n_data = float(mask.sum().item())
+    # At the seed's weights, before any update, so that the comparison
+    # is the same in every run.
+    check_step_against_plain(trainer, inputs, targets, mask, args.seed)
 
     before = {k: v.detach().clone() for k, v in
               trainer.params["trans"]["bwd"]["gate_1"].items()}
@@ -418,7 +421,6 @@ def main():
         % (ms, len(times), B_DATA / (ms / 1e3), card))
     log("  peak device memory: %.2f GB"
         % (torch.cuda.max_memory_allocated() / 1e9))
-    check_step_against_plain(trainer, inputs, targets, mask, args.seed)
 
     if args.profile:
         from torch.profiler import profile, ProfilerActivity

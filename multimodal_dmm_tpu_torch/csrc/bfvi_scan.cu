@@ -67,15 +67,17 @@ __device__ __forceinline__ float sign_(float x) {
 }
 __device__ __forceinline__ float pow_m15_(float x) { return 1.f / (x * sqrtf(x)); }
 
-// acc[r] += sum_{j < NW} X[r, k + j] * w[j] for r < R (NW % 4 == 0).
+// acc[r] += sum_{j < NW} X[r, k + j] * w[j] for r < R (NW % 4 == 0). The
+// rows are the inner loop, so consecutive FMAs go to different
+// accumulators; each accumulator still sums over k in ascending order.
 template <int KMAX, int NW>
 __device__ __forceinline__ void fma_rows(const float* X, int ldx, int k,
                                          const float* w, float* acc, int R) {
 #pragma unroll
-  for (int r = 0; r < KMAX; ++r) {
-    if (r < R) {
+  for (int j = 0; j < NW; j += 4) {
 #pragma unroll
-      for (int j = 0; j < NW; j += 4) {
+    for (int r = 0; r < KMAX; ++r) {
+      if (r < R) {
         const float4 x = *reinterpret_cast<const float4*>(X + r * ldx + k + j);
         acc[r] = fmaf(x.x, w[j], acc[r]);
         acc[r] = fmaf(x.y, w[j + 1], acc[r]);
@@ -93,15 +95,15 @@ __device__ __forceinline__ void fma_rows(const float* X, int ldx, int k,
 // ReLU derivative of the activation stored in Y. kin % 4 == 0.
 // The weights stream from L2, so their loads are issued one chunk of
 // W_CHUNK rows ahead of the products that use them, to keep enough of
-// them in flight to cover L2's latency.
-constexpr int W_CHUNK = 16;
-
+// them in flight to cover L2's latency (32 rows where few particle rows
+// leave registers free, 16 otherwise).
 template <int KMAX, int EP>
 __device__ __forceinline__ void gemm_rows(const float* X, int ldx, int kin,
                                           const float* __restrict__ W, int ldw,
                                           const float* __restrict__ bias,
                                           float* Y, int ldy, int ncols, int R,
                                           int relu_cols) {
+  constexpr int W_CHUNK = KMAX > 8 ? 16 : 32;
   for (int n = threadIdx.x; n < ncols; n += NT) {
     float acc[KMAX];
     const float b0 = bias ? __ldg(bias + n) : 0.f;
@@ -156,6 +158,27 @@ __device__ __forceinline__ void store_rows(const float* X, int ldx, int w,
   for (int i = threadIdx.x; i < K * w; i += NT) {
     const int r = i / w, c = i - r * w;
     G[(row0 + (size_t)r * B) * ldg + c0 + c] = X[r * ldx + c];
+  }
+}
+
+// Adds the masked, signed-precision observation experts of (t, b, d) to
+// the PoE sums. The loads do not wait on the mask, so that all of them
+// can be in flight together.
+__device__ __forceinline__ void add_obs_experts(
+    const float* __restrict__ mean, const float* __restrict__ std_,
+    const float* __restrict__ mask, int t, int M, int B, int b, int D, int d,
+    float& num, float& den) {
+#pragma unroll 4
+  for (int m = 0; m < M; ++m) {
+    const size_t tm = (size_t)t * M + m;
+    const size_t o = (tm * B + b) * D + d;
+    const float mk = __ldg(mask + tm * B + b);
+    const float os = __ldg(std_ + o), om = __ldg(mean + o);
+    if (mk > 0.f) {
+      const float prec = sign_(os) / (os * os + kEps);
+      num += om * prec;
+      den += prec;
+    }
   }
 }
 
@@ -237,16 +260,8 @@ __global__ void __launch_bounds__(NT) bfvi_scan_fwd_kernel(FwdArgs a) {
       // Masked, signed-precision PoE with the M observation experts.
       const float prec_p = 1.f / (ps * ps + kEps);
       float num = pm * prec_p, den = prec_p;
-      for (int m = 0; m < M; ++m) {
-        const size_t tm = (size_t)t * M + m;
-        if (a.obs_mask[tm * B + b] > 0.f) {
-          const size_t o = (tm * B + b) * D + d;
-          const float os = a.obs_std[o];
-          const float prec = sign_(os) / (os * os + kEps);
-          num += a.obs_mean[o] * prec;
-          den += prec;
-        }
-      }
+      add_obs_experts(a.obs_mean, a.obs_std, a.obs_mask, t, M, B, b, D, d,
+                      num, den);
       const bool low = den < kPrecFloor;
       const float safe = low ? 1.f : den;
       const float im = low ? 0.f : num / safe;
@@ -257,9 +272,10 @@ __global__ void __launch_bounds__(NT) bfvi_scan_fwd_kernel(FwdArgs a) {
       a.infer_mean[tbd] = im;
       a.infer_std[tbd] = is;
       float zs = 0.f;
+#pragma unroll 4
       for (int r = 0; r < K; ++r) {
         const size_t o = (((size_t)t * K + r) * B + b) * D + d;
-        const float z = im + a.eps[o] * is;
+        const float z = im + __ldg(a.eps + o) * is;
         Z[r * D + d] = z;
         a.z_traj[o] = z;
         zs += z;
@@ -326,26 +342,19 @@ __global__ void __launch_bounds__(NT) bfvi_scan_bwd_kernel(BwdArgs a) {
       const float var_p = prior_s * prior_s + kEps;
       const float prec_p = 1.f / var_p;
       float num = prior_m * prec_p, den = prec_p;
-      for (int m = 0; m < M; ++m) {
-        const size_t tm = (size_t)t * M + m;
-        if (a.obs_mask[tm * B + b] > 0.f) {
-          const size_t o = (tm * B + b) * D + d;
-          const float os = a.obs_std[o];
-          const float prec = sign_(os) / (os * os + kEps);
-          num += a.obs_mean[o] * prec;
-          den += prec;
-        }
-      }
+      add_obs_experts(a.obs_mean, a.obs_std, a.obs_mask, t, M, B, b, D, d,
+                      num, den);
       const bool low = den < kPrecFloor;
       const float safe = low ? 1.f : den;
 
       // Cotangents into z_t -> inference mean/std.
       const float gsm = a.g_smp[tbd] / (float)K;
       float gsum = 0.f, gesum = 0.f;
+#pragma unroll 4
       for (int r = 0; r < K; ++r) {
         const float gz = C[r * D + d] + gsm;
         gsum += gz;
-        gesum += gz * a.eps[(((size_t)t * K + r) * B + b) * D + d];
+        gesum += gz * __ldg(a.eps + (((size_t)t * K + r) * B + b) * D + d);
       }
       const float gim = a.g_im[tbd] + gsum;
       const float gis = a.g_is[tbd] + gesum;
@@ -354,11 +363,12 @@ __global__ void __launch_bounds__(NT) bfvi_scan_bwd_kernel(BwdArgs a) {
       const float d_num = low ? 0.f : gim / safe;
       const float d_den =
           low ? 0.f : (-gim * num / (safe * safe) - 0.5f * gis * pow_m15_(safe));
+#pragma unroll 4
       for (int m = 0; m < M; ++m) {
         const size_t tm = (size_t)t * M + m;
-        const bool mk = a.obs_mask[tm * B + b] > 0.f;
+        const bool mk = __ldg(a.obs_mask + tm * B + b) > 0.f;
         const size_t o = (tm * B + b) * D + d;
-        const float om = a.obs_mean[o], os = a.obs_std[o];
+        const float om = __ldg(a.obs_mean + o), os = __ldg(a.obs_std + o);
         const float var_o = os * os + kEps;
         const float prec = sign_(os) / var_o;
         const float d_prec = mk ? d_num * om + d_den : 0.f;
