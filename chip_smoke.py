@@ -39,6 +39,12 @@ T_MAIN, B_DATA, V_MAIN, Z_DIM = 25, 25, 4, 256
 SCAN_SHAPES = ((3, 1), (3, 25), (5, 1))  # (M, K) of the step's 3 passes
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
+# name -> the TPU kernel (or the part of it) that it replaces
+KERNELS = {
+    "bfvi_scan_fwd": "multimodal_dmm_tpu/ops/pallas/bfvi_scan.py:118",
+    "bfvi_scan_bwd": "multimodal_dmm_tpu/ops/pallas/bfvi_scan.py:293",
+    "gtf_wgrad": "multimodal_dmm_tpu/ops/pallas/bfvi_scan.py:451",
+}
 FWD_TOL = dict(rtol=5e-4, atol=5e-5)
 BWD_TOL = dict(rtol=1e-3, atol=1e-3)     # on max-abs-normalised gradients
 STEP_LOSS_RTOL = 1e-4
@@ -78,20 +84,24 @@ def time_ms(fn, reps):
 
 
 def scan_work(t_max, n_exp, b_dim, k, d, h):
-    """(flops, bytes) that the forward and the backward scan must do:
-    the six products of the transition at t >= 1 (the backward adds the
-    input-gradient and weight-gradient products: 3x), each input read
-    once and each output written once. Elementwise work (under 2% of
-    the products' FLOPs) is left out."""
+    """(flops, bytes) that the forward scan, the whole backward and the
+    weight-gradient kernel alone must do: the six products of the
+    transition at t >= 1 (the backward adds the input-gradient and
+    weight-gradient products: 3x; the weight-gradient kernel does the
+    last 1x), each input read once and each output written once.
+    Elementwise work (under 2% of the products' FLOPs) is left out."""
     gemm = 2 * (d * (2 * h + d) + 2 * h * d + d * d)
-    fwd_flops = (t_max - 1) * k * b_dim * gemm
+    n_rows = (t_max - 1) * k * b_dim
+    fwd_flops = n_rows * gemm
     n_w = d * (2 * h + d) + 2 * h * d + d * d + 2 * h + 3 * d
     obs = 2 * t_max * n_exp * b_dim * d + t_max * n_exp * b_dim
     tbd, tkbd = t_max * b_dim * d, t_max * k * b_dim * d
     fwd_bytes = 4 * (obs + 2 * b_dim * d + n_w + tkbd + 5 * tbd + tkbd)
     bwd_bytes = 4 * (obs + 2 * b_dim * d + n_w + 2 * tkbd + 7 * tbd
                      + 2 * t_max * n_exp * b_dim * d + 2 * b_dim * d + n_w)
-    return (fwd_flops, fwd_bytes), (3 * fwd_flops, bwd_bytes)
+    wgrad_bytes = 4 * (n_rows * (d + (2 * h + d) + (2 * h + 4 * d)) + n_w)
+    return ((fwd_flops, fwd_bytes), (3 * fwd_flops, bwd_bytes),
+            (fwd_flops, wgrad_bytes))
 
 
 def bound_ms(flops, nbytes):
@@ -138,7 +148,7 @@ def check_kernels(scan, gtf, dev):
     path's shapes; returns per-kernel records."""
     rec = {name: dict(err=0.0, ms=0.0, plain_ms=0.0,
                       bound_ms={"operations": 0.0, "bytes": 0.0})
-           for name in ("bfvi_scan_fwd", "bfvi_scan_bwd")}
+           for name in KERNELS}
     for i, (n_exp, k) in enumerate(SCAN_SHAPES):
         x, eps, cots = scan_inputs(n_exp, k, dev, seed=100 + i)
         got = scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3)
@@ -169,20 +179,36 @@ def check_kernels(scan, gtf, dev):
             check(ok, "backward kernel %s disagrees at (M, K) = (%d, %d): "
                   "max abs err %.3g (scale %.3g)"
                   % (name, n_exp, k, a, e.abs().max().item()))
+        # The weight-gradient kernel alone, on rows shaped like those the
+        # backward kernel writes.
+        gen = torch.Generator(device=dev).manual_seed(200 + i)
+        n_rows = (T_MAIN - 1) * k * V_MAIN * B_DATA
+        xs = torch.randn((n_rows, 3 * Z_DIM), generator=gen, device=dev)
+        ys = torch.randn((n_rows, 6 * Z_DIM), generator=gen, device=dev)
+        w_got = scan.gtf_wgrad_cuda(exp[5], xs, ys)
+        w_exp = scan.gtf_wgrad_ref(exp[5], xs, ys)
+        torch.cuda.synchronize()
+        werr = 0.0
+        for n in scan.GTF_LAYERS:
+            for kk in ("w", "b"):
+                ok, a = max_norm_err(w_got[n][kk], w_exp[n][kk])
+                werr = max(werr, a)
+                check(ok, "weight-gradient kernel %s.%s disagrees at K = %d: "
+                      "max abs err %.3g" % (n, kk, k, a))
         reps = 3 if k > 1 else 10
-        f_ms = time_ms(lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3),
-                       reps)
-        fp_ms = time_ms(lambda: scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3),
-                        reps)
-        b_ms = time_ms(lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3),
-                       reps)
-        bp_ms = time_ms(lambda: scan.bfvi_scan_bwd_ref(res, cots, 1e-3),
-                        reps)
-        (ff, fb), (bf, bb) = scan_work(T_MAIN, n_exp, V_MAIN * B_DATA, k,
-                                       Z_DIM, Z_DIM)
+        times = [time_ms(fn, reps) for fn in (
+            lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3),
+            lambda: scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3),
+            lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3),
+            lambda: scan.bfvi_scan_bwd_ref(res, cots, 1e-3),
+            lambda: scan.gtf_wgrad_cuda(exp[5], xs, ys),
+            lambda: scan.gtf_wgrad_ref(exp[5], xs, ys))]
+        (ff, fb), (bf, bb), (wf, wb) = scan_work(
+            T_MAIN, n_exp, V_MAIN * B_DATA, k, Z_DIM, Z_DIM)
         for name, e, ms, pms, fl, by in (
-                ("bfvi_scan_fwd", err, f_ms, fp_ms, ff, fb),
-                ("bfvi_scan_bwd", berr, b_ms, bp_ms, bf, bb)):
+                ("bfvi_scan_fwd", err, times[0], times[1], ff, fb),
+                ("bfvi_scan_bwd", berr, times[2], times[3], bf, bb),
+                ("gtf_wgrad", werr, times[4], times[5], wf, wb)):
             r = rec[name]
             r["err"] = max(r["err"], e)
             r["ms"] += ms
@@ -371,7 +397,9 @@ def main():
     # -- phase 3: kernels against their plain versions -----------------------
     log("phase 3: kernels vs plain versions [%s]" % card)
     rec = check_kernels(scan, gtf, dev)
-    log("  no single PyTorch call computes the scan: library_ms is null")
+    log("  no single PyTorch call computes the scan, or the weight "
+        "gradients' four products with their sums: library_ms is null "
+        "(gtf_wgrad's plain version is those four cuBLAS products)")
 
     # -- phase 4: the training path -------------------------------------------
     log("phase 4: Weizmann BFVI training step, T = B = %d, z = h = %d"
@@ -387,8 +415,9 @@ def main():
     before["video"] = trainer.params["dec"]["video"]["deconvs"][2]["w"] \
         .detach().clone()
     n_warm, times, losses = 2, [], []
-    scan.bfvi_scan_fwd_cuda.launches = 0
-    scan.bfvi_scan_bwd_cuda.launches = 0
+    wrappers = {name: getattr(scan, name + "_cuda") for name in KERNELS}
+    for fn in wrappers.values():
+        fn.launches = 0
     for i in range(n_warm + args.steps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -401,8 +430,7 @@ def main():
         check(np.isfinite(losses[-1]), "step %d: non-finite loss" % i)
         if i >= n_warm:
             times.append(start.elapsed_time(end))
-    launches = {"bfvi_scan_fwd": scan.bfvi_scan_fwd_cuda.launches,
-                "bfvi_scan_bwd": scan.bfvi_scan_bwd_cuda.launches}
+    launches = {name: fn.launches for name, fn in wrappers.items()}
     n_steps = n_warm + args.steps
     log("  losses / n_data: %s" % ", ".join("%.2f" % (v / n_data)
                                             for v in losses))
@@ -439,14 +467,13 @@ def main():
     # -- phase 5: summary ---------------------------------------------------
     log(card)
     kernels = []
-    for name, line in (("bfvi_scan_fwd", 118), ("bfvi_scan_bwd", 293)):
+    for name, replaces in KERNELS.items():
         r = rec[name]
         by_what = max(r["bound_ms"], key=r["bound_ms"].get)
         kernels.append({
             "name": name, "route": "cuda",
             "source": "multimodal_dmm_tpu_torch/csrc/bfvi_scan.cu",
-            "replaces": "multimodal_dmm_tpu/ops/pallas/bfvi_scan.py:%d"
-                        % line,
+            "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": sum(r["bound_ms"].values()), "bound_by": by_what,

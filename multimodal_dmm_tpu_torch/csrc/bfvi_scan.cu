@@ -40,11 +40,11 @@
 // (recompute, input-gradient and weight-gradient products). Against 67 TFLOP/s
 // of f32 outside the tensor cores both are bound by operations, not by device
 // memory (the backward's rows are 2.3 KB each: 0.55 GB written and read at
-// K = 25, about 0.3 ms). This simple kernel is in practice bound by the
-// latency of streaming the weights from L2, which each CTA re-reads every step
-// (forward 1.5 MB, backward 3 MB per step at D = H = 256). Tensor cores (wgmma)
-// and keeping weight tiles in shared memory across a cluster are work for
-// later.
+// K = 25, about 0.3 ms). This simple kernel runs well above that bound:
+// each CTA re-reads all weights from L2 every step (forward 1.5 MB, backward
+// 3 MB per step at D = H = 256) and feeds the FMA units from shared memory
+// one float4 per four FMAs. Tensor cores (wgmma) and keeping weight tiles in
+// shared memory across a cluster are work for later.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -589,9 +589,8 @@ int bfvi_scan_bwd(const float* obs_mean, const float* obs_std,
                   const float* g_pm, const float* g_ps, const float* g_im,
                   const float* g_is, const float* g_smp, float* d_obs_mean,
                   float* d_obs_std, float* d_glb_mean, float* d_glb_std,
-                  float* xs, float* ys, float* partial, int splits, int T,
-                  int M, int B, int K, int D, int H, float min_std,
-                  void* stream) {
+                  float* xs, float* ys, int T, int M, int B, int K, int D,
+                  int H, float min_std, void* stream) {
   BwdArgs a;
   a.obs_mean = obs_mean; a.obs_std = obs_std; a.obs_mask = obs_mask;
   a.glb_mean = glb_mean; a.glb_std = glb_std; a.eps = eps;
@@ -609,13 +608,17 @@ int bfvi_scan_bwd(const float* obs_mean, const float* obs_std,
   if (K <= 1) err = launch(bfvi_scan_bwd_kernel<1>, smem, B, st, &a);
   else if (K <= 8) err = launch(bfvi_scan_bwd_kernel<8>, smem, B, st, &a);
   else if (K <= 32) err = launch(bfvi_scan_bwd_kernel<32>, smem, B, st, &a);
-  if (err != cudaSuccess) return (int)err;
+  return (int)err;
+}
 
-  // Weight gradients from the rows, into `splits` partials laid out as
-  // [dW1 (D x la) | db1 | dWg2 (H x D) | dbg2 | dWn2 (H x D) | dbn2 |
-  //  dWs (D x D) | dbs] each.
+// The GTF weight gradients from the R rows that bfvi_scan_bwd wrote (and
+// z_traj, whose first R rows are the input side of dW1), into `splits`
+// partials laid out as [dW1 (D x la) | db1 | dWg2 (H x D) | dbg2 |
+// dWn2 (H x D) | dbn2 | dWs (D x D) | dbs] each.
+int gtf_wgrad(const float* z_traj, const float* xs, const float* ys,
+              float* partial, int splits, int R, int D, int H, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
   const int la = 2 * H + D, lx = 2 * H + D, ly = la + 3 * D;
-  const int R = (T - 1) * K * B;
   const long long P = (long long)D * la + la + 2LL * (H * D + D) + D * D + D;
   float* dW1 = partial;
   float* dWg2 = dW1 + (size_t)D * la + la;
@@ -631,7 +634,7 @@ int bfvi_scan_bwd(const float* obs_mean, const float* obs_std,
     const dim3 grid((j.M1 + WG_TILE - 1) / WG_TILE,
                     (j.N1 + WG_TILE - 1) / WG_TILE, splits);
     gtf_wgrad_kernel<<<grid, NT, 0, st>>>(j, R, rows_per_split, P);
-    err = cudaGetLastError();
+    const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   return 0;

@@ -20,7 +20,11 @@ plus the particle trajectory z_traj (T, K, B, D) that the backward reads.
   floors the mixture variance at 1e-8 before ``sqrt`` where the forward
   floors it at 0.
 - ``bfvi_scan_fwd_cuda`` / ``bfvi_scan_bwd_cuda``: launch the kernels of
-  ``csrc/bfvi_scan.cu``; each counts its launches in ``.launches``.
+  ``csrc/bfvi_scan.cu``; the backward writes, for every particle row of
+  every step, the activations and cotangents that the weight gradients
+  are products of, and ``gtf_wgrad_cuda`` (plain version
+  ``gtf_wgrad_ref``) forms those products. Each wrapper counts its
+  launches in ``.launches``.
 - ``bfvi_scan``: differentiable entry. CPU tensors go through the plain
   pair, CUDA tensors through the kernels; there is no fallback between
   them. To hold the kernels against the plain pair on the GPU, the caller
@@ -106,7 +110,9 @@ def bfvi_scan_bwd_ref(res, cots, min_std):
     tensor ops. ``res`` = (obs_mean, obs_std, obs_mask, glb_mean,
     glb_std, gtf, eps, z_traj, prior_mean, prior_std); ``cots`` = the
     five output cotangents. Returns (d_obs_mean, d_obs_std, d_glb_mean,
-    d_glb_std, d_gtf) with d_gtf in PyTorch layout."""
+    d_glb_std, d_gtf) with d_gtf in PyTorch layout. As in the kernels,
+    the weight gradients are formed after the loop (``gtf_wgrad_ref``)
+    from the activations and cotangents of every step."""
     (obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps, z_traj,
      prior_mean, prior_std) = res
     g_pm, g_ps, g_im, g_is, g_smp = cots
@@ -125,13 +131,8 @@ def bfvi_scan_bwd_ref(res, cots, min_std):
     d_obs_std = torch.zeros_like(obs_std)
     d_glb_mean = torch.zeros_like(glb_mean)
     d_glb_std = torch.zeros_like(glb_std)
-    d_w = {n: torch.zeros_like(w[n]) for n in GTF_LAYERS}
-    d_b = {n: torch.zeros_like(b[n]) for n in GTF_LAYERS}
     gz = torch.zeros_like(eps[0])
-
-    def acc(name, dy, x):
-        d_w[name] += dy.reshape(-1, dy.shape[-1]).T @ x.reshape(-1, x.shape[-1])
-        d_b[name] += dy.reshape(-1, dy.shape[-1]).sum(0)
+    xs, ys = [None] * t_max, [None] * t_max  # per step t >= 1: (K, B, .)
 
     for t in reversed(range(t_max)):
         prior_m, prior_s = prior_mean[t], prior_std[t]
@@ -211,15 +212,19 @@ def bfvi_scan_bwd_ref(res, cots, min_std):
         d_b1 = (d_znon @ w["nonlin_2"]) * (b1 > 0)
         gz = (d_a1 @ w["gate_1"] + d_zlin @ w["z_lin"]
               + d_b1 @ w["nonlin_1"])
-        acc("z_to_std", d_sraw, z_non)
-        acc("nonlin_2", d_znon, hn)
-        acc("nonlin_1", d_b1, z_prev)
-        acc("gate_2", d_a2, h1)
-        acc("gate_1", d_a1, z_prev)
-        acc("z_lin", d_zlin, z_prev)
+        xs[t] = torch.cat([h1, hn, z_non], dim=-1)
+        ys[t] = torch.cat([d_a1, d_b1, d_zlin, d_a2, d_znon, d_sraw], dim=-1)
 
-    d_gtf = {n: {"w": d_w[n], "b": d_b[n]} for n in GTF_LAYERS}
-    return d_obs_mean, d_obs_std, d_glb_mean, d_glb_std, d_gtf
+    d = obs_mean.shape[-1]
+    h = w["gate_1"].shape[0]
+    if t_max > 1:
+        xs = torch.stack(xs[1:]).reshape(-1, 2 * h + d)
+        ys = torch.stack(ys[1:]).reshape(-1, 2 * h + 4 * d)
+    else:
+        xs = obs_mean.new_zeros((0, 2 * h + d))
+        ys = obs_mean.new_zeros((0, 2 * h + 4 * d))
+    return (d_obs_mean, d_obs_std, d_glb_mean, d_glb_std,
+            gtf_wgrad_ref(z_traj, xs, ys))
 
 
 # ---------------------------------------------------------------------------
@@ -236,9 +241,11 @@ def _lib():
         lib.bfvi_scan_fwd.argtypes = ([_P] * 20 + [_I] * 6
                                       + [ctypes.c_float, _P])
         lib.bfvi_scan_fwd.restype = _I
-        lib.bfvi_scan_bwd.argtypes = ([_P] * 33 + [_I] * 7
+        lib.bfvi_scan_bwd.argtypes = ([_P] * 32 + [_I] * 6
                                       + [ctypes.c_float, _P])
         lib.bfvi_scan_bwd.restype = _I
+        lib.gtf_wgrad.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+        lib.gtf_wgrad.restype = _I
         lib._bfvi_typed = True
     return lib
 
@@ -349,16 +356,10 @@ def partial_size(d, h):
     return d * la + la + 2 * (h * d + d) + d * d + d
 
 
-# Row ranges that the weight-gradient kernel splits the (T-1) K B rows
-# into, each with its own partial: enough CTAs to fill the card at K = 1.
-WGRAD_SPLITS = 16
-
-
 def bfvi_scan_bwd_cuda(res, cots, min_std):
-    """Launch the backward kernels on the current stream (the scan, then
-    the weight-gradient products over the rows it wrote), then sum the
-    weight-gradient partials in a fixed order; same outputs as
-    ``bfvi_scan_bwd_ref``."""
+    """Launch the backward scan kernel on the current stream, then the
+    weight-gradient kernel on the rows it wrote (``gtf_wgrad_cuda``);
+    same outputs as ``bfvi_scan_bwd_ref``."""
     (obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps, z_traj,
      prior_mean, prior_std) = res
     t_max, n_exp, b_dim, k, d, h = _check_inputs(
@@ -378,24 +379,77 @@ def bfvi_scan_bwd_cuda(res, cots, min_std):
     n_rows = (t_max - 1) * k * b_dim
     xs = torch.empty((n_rows, 2 * h + d), **opts)
     ys = torch.empty((n_rows, 2 * h + 4 * d), **opts)
-    partial = torch.empty((WGRAD_SPLITS, partial_size(d, h)), **opts)
     stream = torch.cuda.current_stream(obs_mean.device).cuda_stream
     rc = _lib().bfvi_scan_bwd(
         *[_ptr(x) for x in [obs_mean, obs_std, obs_mask, glb_mean, glb_std]
           + fwd_w + bwd_w + [eps, z_traj, prior_mean, prior_std]
           + list(cots) + [d_obs_mean, d_obs_std, d_glb_mean, d_glb_std,
-                          xs, ys, partial]],
-        WGRAD_SPLITS, t_max, n_exp, b_dim, k, d, h, float(min_std),
+                          xs, ys]],
+        t_max, n_exp, b_dim, k, d, h, float(min_std),
         ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("bfvi_scan_bwd kernel launch failed: CUDA error "
                            "%d" % rc)
     bfvi_scan_bwd_cuda.launches += 1
     return (d_obs_mean, d_obs_std, d_glb_mean, d_glb_std,
-            unpack_partial(partial.sum(0), d, h))
+            gtf_wgrad_cuda(z_traj, xs, ys))
 
 
 bfvi_scan_bwd_cuda.launches = 0
+
+
+# Row ranges that the weight-gradient kernel splits its rows into, each
+# with its own partial: enough CTAs to fill the card at K = 1.
+WGRAD_SPLITS = 16
+
+
+def _wgrad_dims(z_traj, xs):
+    t_max, k, b_dim, d = z_traj.shape
+    return (t_max - 1) * k * b_dim, d, (xs.shape[1] - d) // 2
+
+
+def gtf_wgrad_ref(z_traj, xs, ys):
+    """Plain version of ``gtf_wgrad_cuda``: the GTF weight gradients, in
+    PyTorch layout, as products over the backward's rows. Row
+    ((t-1) K + k) B + b of xs = [h1 | hn | z_nonlin] and of ys = [d_a1 |
+    d_b1 | d_zlin | d_a2 | d_znonlin | d_sraw] belong to particle k of
+    column b at step t >= 1, whose input z_traj[t-1, k, b] is the same
+    row of z_traj."""
+    n_rows, d, h = _wgrad_dims(z_traj, xs)
+    z = z_traj.reshape(-1, d)[:n_rows]
+    y1, d_a2, d_znon, d_sraw = torch.split(ys, [2 * h + d, d, d, d], dim=1)
+    h1, hn, z_non = torch.split(xs, [h, h, d], dim=1)
+    dw1, db1 = y1.t() @ z, y1.sum(0)
+    return {
+        "gate_1": {"w": dw1[:h], "b": db1[:h]},
+        "nonlin_1": {"w": dw1[h:2 * h], "b": db1[h:2 * h]},
+        "z_lin": {"w": dw1[2 * h:], "b": db1[2 * h:]},
+        "gate_2": {"w": d_a2.t() @ h1, "b": d_a2.sum(0)},
+        "nonlin_2": {"w": d_znon.t() @ hn, "b": d_znon.sum(0)},
+        "z_to_std": {"w": d_sraw.t() @ z_non, "b": d_sraw.sum(0)},
+    }
+
+
+def gtf_wgrad_cuda(z_traj, xs, ys):
+    """Launch the weight-gradient kernel on the current stream and sum its
+    partials in a fixed order; same outputs as ``gtf_wgrad_ref``."""
+    n_rows, d, h = _wgrad_dims(z_traj, xs)
+    _check_tensor("z_traj", z_traj, tuple(z_traj.shape))
+    _check_tensor("xs", xs, (n_rows, 2 * h + d))
+    _check_tensor("ys", ys, (n_rows, 2 * h + 4 * d))
+    partial = torch.empty((WGRAD_SPLITS, partial_size(d, h)),
+                          dtype=torch.float32, device=xs.device)
+    stream = torch.cuda.current_stream(xs.device).cuda_stream
+    rc = _lib().gtf_wgrad(_ptr(z_traj), _ptr(xs), _ptr(ys), _ptr(partial),
+                          WGRAD_SPLITS, n_rows, d, h, ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError("gtf_wgrad kernel launch failed: CUDA error %d"
+                           % rc)
+    gtf_wgrad_cuda.launches += 1
+    return unpack_partial(partial.sum(0), d, h)
+
+
+gtf_wgrad_cuda.launches = 0
 
 
 def unpack_partial(tot, d, h):

@@ -7,6 +7,7 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
+import torch
 
 from multimodal_dmm_tpu.models import nn as jnn
 from multimodal_dmm_tpu.ops.pallas import bfvi_scan as jscan
@@ -127,9 +128,19 @@ def test_autograd_function_on_cpu_matches_autograd_of_ref(case):
 
 def test_kernel_wrappers_refuse_cpu_tensors(case):
     """No quiet fallback: the CUDA wrappers raise on CPU tensors."""
-    gtf, x, eps, _ = case
+    gtf, x, eps, cots = case
+    outs = tscan.bfvi_scan_fwd_ref(*map(t, x), port_gtf(gtf), t(eps),
+                                   MIN_STD)
+    res = tuple(map(t, x)) + (port_gtf(gtf), t(eps), outs[5], outs[0],
+                              outs[1])
+    n_rows = (T - 1) * K * B
     with pytest.raises(ValueError, match="CUDA"):
         tscan.bfvi_scan_fwd_cuda(*map(t, x), port_gtf(gtf), t(eps), MIN_STD)
+    with pytest.raises(ValueError, match="CUDA"):
+        tscan.bfvi_scan_bwd_cuda(res, [t(c) for c in cots], MIN_STD)
+    with pytest.raises(ValueError, match="CUDA"):
+        tscan.gtf_wgrad_cuda(outs[5], torch.zeros((n_rows, 2 * H + D)),
+                             torch.zeros((n_rows, 2 * H + 4 * D)))
 
 
 def test_kernel_size_limits_stated():
