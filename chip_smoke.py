@@ -17,12 +17,26 @@ imports nothing of JAX or of the JAX package. Phases:
    trainer's anneal): one step's loss and gradients on the kernels
    against the same step on the plain versions, then --steps optimizer
    steps through the kernels, with their launch counts and the median
-   step time.
+   step time;
+5. the PoE + sampling cell kernel against its plain version at the
+   evaluation's shapes ((M, K, B, D) = (3, 200, 25, 256), the
+   200-particle filter pass, and (5, 1, 25, 256)), with its device time,
+   the plain version's and the card's bound;
+6. the Weizmann BFVI evaluation (``WeizmannTrainer.evaluate``, the app's
+   task: half of each sequence's steps deleted at random; 200 filter
+   particles, MAP smoothing) on the weights trained in phase 4, over ten
+   synthetic sequences of 30-60 steps (one batch of 25 with 15 ghost
+   columns): on the kernels, then on the plain versions with the same
+   generator seed, the metrics compared; then N_EVALS timed calls, with
+   the launch counts and the median ms per call.
 
 Any failed check raises, so the script exits non-zero before its last
 line. The line before the last is a JSON object with one entry per
-kernel (its ``ms``, ``plain_ms`` and ``bound_ms`` are sums over the
-step's three launches); the last is ``{"ok": true, "device": {...}}``.
+kernel (for the scan kernels ``ms``, ``plain_ms`` and ``bound_ms`` are
+sums over the training step's three launches and ``launches`` counts the
+training steps' launches; for the cell they are per launch at
+(3, 200, 25, 256) and ``launches`` counts one evaluation's); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -31,6 +45,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -39,16 +54,28 @@ T_MAIN, B_DATA, V_MAIN, Z_DIM = 25, 25, 4, 256
 SCAN_SHAPES = ((3, 1), (3, 25), (5, 1))  # (M, K) of the step's 3 passes
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
-# name -> the TPU kernel (or the part of it) that it replaces
+# name -> (its source, the TPU kernel or the part of it that it replaces)
+SCAN_SRC = "multimodal_dmm_tpu_torch/csrc/bfvi_scan.cu"
 KERNELS = {
-    "bfvi_scan_fwd": "multimodal_dmm_tpu/ops/pallas/bfvi_scan.py:118",
-    "bfvi_scan_bwd": "multimodal_dmm_tpu/ops/pallas/bfvi_scan.py:293",
-    "gtf_wgrad": "multimodal_dmm_tpu/ops/pallas/bfvi_scan.py:451",
+    "bfvi_scan_fwd": (SCAN_SRC,
+                      "multimodal_dmm_tpu/ops/pallas/bfvi_scan.py:118"),
+    "bfvi_scan_bwd": (SCAN_SRC,
+                      "multimodal_dmm_tpu/ops/pallas/bfvi_scan.py:293"),
+    "gtf_wgrad": (SCAN_SRC, "multimodal_dmm_tpu/ops/pallas/bfvi_scan.py:451"),
+    "poe_sample_cell": ("multimodal_dmm_tpu_torch/csrc/poe_cell.cu",
+                        "multimodal_dmm_tpu/ops/pallas/poe_cell.py:32"),
 }
+SCAN_KERNELS = ("bfvi_scan_fwd", "bfvi_scan_bwd", "gtf_wgrad")
+CELL_SHAPES = ((3, 200), (5, 1))  # (M, K) at B = 25, D = 256
+N_EVAL_SEQS = 10
+N_EVALS = 10                # timed evaluations, after one warm-up call
 FWD_TOL = dict(rtol=5e-4, atol=5e-5)
 BWD_TOL = dict(rtol=1e-3, atol=1e-3)     # on max-abs-normalised gradients
 STEP_LOSS_RTOL = 1e-4
 STEP_GRAD_TOL = dict(rtol=5e-3, atol=5e-4)  # on max-abs-normalised grads
+CELL_TOL = 1e-5             # rtol = atol; 1e-4 with the inverse expert
+EVAL_RTOL = 1e-4            # summed losses, MSE and SSIM (PERF.md)
+EVAL_LABEL_FLIPS = 2        # label decisions that may flip (PERF.md)
 
 
 def log(*a):
@@ -75,6 +102,25 @@ def time_ms(fn, reps):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_device_ms(fn, reps):
+    """Mean device time of ``fn`` over ``reps`` back-to-back calls, by CUDA
+    events, after one warm-up call. A spin kernel of 200,000 cycles a call
+    (about 100 us at 2 GHz, twice what the host takes to enqueue one)
+    keeps the card busy while the host enqueues the calls, so the host's
+    launch overhead between short kernels is not counted."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000 * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -148,7 +194,7 @@ def check_kernels(scan, gtf, dev):
     path's shapes; returns per-kernel records."""
     rec = {name: dict(err=0.0, ms=0.0, plain_ms=0.0,
                       bound_ms={"operations": 0.0, "bytes": 0.0})
-           for name in KERNELS}
+           for name in SCAN_KERNELS}
     for i, (n_exp, k) in enumerate(SCAN_SHAPES):
         x, eps, cots = scan_inputs(n_exp, k, dev, seed=100 + i)
         got = scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3)
@@ -219,6 +265,174 @@ def check_kernels(scan, gtf, dev):
                 "bound %.3f ms (%s), max abs err %.3g"
                 % (name, n_exp, k, ms, pms, bms, by_what, e))
     return rec
+
+
+def cell_work(n_exp, k, b_dim, d):
+    """(operations, bytes) of one cell launch: per (b, d) element the
+    prior's and each expert's precision and product terms (about 8 + 5 M
+    operations) and 3 per particle (z, and its share of the mean); each
+    input read once and each output written once."""
+    bd = b_dim * d
+    flops = bd * (8 + 5 * n_exp + 3 * k)
+    nbytes = 4 * (2 * bd + 2 * n_exp * bd + n_exp * b_dim + k * bd
+                  + 3 * bd + k * bd)
+    return flops, nbytes
+
+
+def cell_inputs(n_exp, k, dev, seed):
+    """Inputs shaped like one step of the evaluation's passes at B = 25,
+    D = 256: a positive prior, M experts with 10 % of cells masked; the
+    5-expert case carries the filter prior and the inverse global prior,
+    as the smoothing pass does."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b_dim = B_DATA
+    prior_mean = torch.randn((b_dim, Z_DIM), generator=gen, device=dev)
+    prior_std = 0.1 + torch.rand((b_dim, Z_DIM), generator=gen, device=dev)
+    obs_mean = torch.randn((n_exp, b_dim, Z_DIM), generator=gen, device=dev)
+    obs_std = 0.1 + torch.rand((n_exp, b_dim, Z_DIM), generator=gen,
+                               device=dev)
+    mask = (torch.rand((n_exp, b_dim), generator=gen, device=dev)
+            > 0.1).float()
+    if n_exp == 5:  # filter prior, inverse global prior (std 1.001)
+        obs_std[3] = 0.9 * 1.001
+        obs_mean[4] = 0.0
+        obs_std[4] = -1.001
+        mask[3:] = 1.0
+    eps = torch.randn((k, b_dim, Z_DIM), generator=gen, device=dev)
+    return prior_mean, prior_std, obs_mean, obs_std, mask, eps
+
+
+def check_cell(cell, dev):
+    """Phase 5: the cell kernel against its plain version; returns its
+    record (time, plain time and bound per launch at the evaluation's
+    200-particle shape, largest error over both shapes)."""
+    rec = dict(err=0.0)
+    for i, (n_exp, k) in enumerate(CELL_SHAPES):
+        x = cell_inputs(n_exp, k, dev, seed=300 + i)
+        got = cell.poe_sample_cell_cuda(*x)
+        exp = cell.poe_sample_cell_ref(*x)
+        torch.cuda.synchronize()
+        tol = CELL_TOL * (10 if n_exp == 5 else 1)
+        for name, g, e in zip(("infer_mean", "infer_std", "z", "sample"),
+                              got, exp):
+            check(bool(torch.isfinite(g).all()), "non-finite cell %s" % name)
+            err = (g - e).abs().max().item()
+            rec["err"] = max(rec["err"], err)
+            check(torch.allclose(g, e, rtol=tol, atol=tol),
+                  "cell kernel %s disagrees at (M, K) = (%d, %d): max abs "
+                  "err %.3g" % (name, n_exp, k, err))
+        ms = time_device_ms(lambda: cell.poe_sample_cell_cuda(*x), 200)
+        pms = time_device_ms(lambda: cell.poe_sample_cell_ref(*x), 50)
+        host_ms = time_ms(lambda: cell.poe_sample_cell_cuda(*x), 200)
+        bms, by_what = bound_ms(*cell_work(n_exp, k, B_DATA, Z_DIM))
+        log("  poe_sample_cell (M, K, B, D) = (%d, %d, %d, %d): kernel "
+            "%.4f ms (%.4f ms a call with the host's launch), plain %.4f "
+            "ms, bound %.4f ms (%s), max abs err %.3g"
+            % (n_exp, k, B_DATA, Z_DIM, ms, host_ms, pms, bms, by_what,
+               rec["err"]))
+        if i == 0:  # the evaluation's filter pass
+            rec.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by_what)
+    return rec
+
+
+def synthetic_eval_set(seed):
+    """Ten Weizmann-shaped sequences, like the held-out person's ten
+    actions: lengths drawn in 30-60 from ``seed``, video in [0, 1],
+    person 8, action 0-9."""
+    rng = np.random.RandomState(seed + 1)
+    items = []
+    for a in range(N_EVAL_SEQS):
+        length = int(rng.randint(30, 61))
+        items.append({
+            "video": rng.rand(length, 3, 64, 64).astype(np.float32),
+            "person": np.full((length, 1), 8.0),
+            "action": np.full((length, 1), float(a)),
+            "length": length, "id": ("shahar", a)})
+    return items
+
+
+def run_eval(trainer, loader, args, plain, seed):
+    """One ``evaluate`` call on the kernels or on the plain versions, the
+    generator reseeded, with the launch counts set to 0 just before and
+    read just after. Returns (summary, launches)."""
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    trainer.model.plain_scan = plain
+    trainer.gen.manual_seed(seed)
+    _, summary = trainer.evaluate(loader, args, collect_results=False)
+    trainer.model.plain_scan = False
+    return dict(summary), {n: fn.launches for n, fn in wrappers.items()}
+
+
+def check_evaluation(trainer, seed, n_evals):
+    """Phase 6: the Weizmann BFVI evaluation on the kernels against the
+    plain versions, then timed. Returns (cell launches of one evaluation,
+    median ms per call)."""
+    from multimodal_dmm_tpu_torch.apps import weizmann
+    from multimodal_dmm_tpu_torch.training.loader import BatchLoader
+    items = synthetic_eval_set(seed)
+    lengths = [d["length"] for d in items]
+    t_max = max(lengths)
+    loader = BatchLoader(items, weizmann.DEFAULTS["batch_size"])
+    args = weizmann.eval_namespace("bfvi")
+    log("  %d sequences, lengths %s (T = %d), one batch of B = %d; eval "
+        "args %s, drop_frac %g" % (len(items), lengths, t_max,
+                                   loader.batch_size, args.eval_args,
+                                   args.drop_frac))
+    torch.backends.cudnn.deterministic = True
+    got, launches = run_eval(trainer, loader, args, False, seed)
+    exp, plain_launches = run_eval(trainer, loader, args, True, seed)
+    torch.backends.cudnn.deterministic = False
+    log("  launches, kernels: %s; plain: %s" % (launches, plain_launches))
+    check(launches == {"bfvi_scan_fwd": 1, "bfvi_scan_bwd": 0,
+                       "gtf_wgrad": 0, "poe_sample_cell": t_max},
+          "evaluation launches %s, expected the cell T = %d times and the "
+          "forward scan once" % (launches, t_max))
+    check(not any(plain_launches.values()),
+          "the plain evaluation launched kernels: %s" % plain_launches)
+    label_atol = EVAL_LABEL_FLIPS / (len(items) * min(lengths))
+    for key in sorted(exp):
+        g, e = float(got[key]), float(exp[key])
+        if not np.isfinite(e) and key.startswith("m_"):
+            continue  # no mask modality: NaN in both summaries
+        check(np.isfinite(g), "non-finite evaluation metric %s" % key)
+        label = key.split("_")[0] in ("action", "person")
+        ok = (abs(g - e) <= label_atol if label
+              else abs(g - e) <= EVAL_RTOL * abs(e) + 1e-6)
+        log("  %-12s kernels %.7g, plain %.7g, diff %.3g" % (key, g, e,
+                                                             g - e))
+        check(ok, "evaluation metric %s: kernels %r vs plain %r" % (key, g,
+                                                                     e))
+    check(0.0 <= got["ssim"] <= 1.0 and got["kld_loss"] >= 0.0
+          and 0.0 <= got["action"] <= 1.0 and 0.0 <= got["person"] <= 1.0,
+          "evaluation metrics out of range: %s" % got)
+
+    times = []
+    wrappers = kernel_wrappers()
+    cell = wrappers["poe_sample_cell"]
+    cell.launches = 0
+    for i in range(1 + n_evals):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.evaluate(loader, args, collect_results=False)
+        if i:
+            times.append(1e3 * (time.perf_counter() - t0))
+    check(cell.launches == t_max * (1 + n_evals),
+          "the cell launched %d times in %d evaluations of T = %d"
+          % (cell.launches, 1 + n_evals, t_max))
+    ms = statistics.median(times)
+    log("  evaluation: median %.2f ms per call over %d calls (%s), %.1f "
+        "seqs/s" % (ms, len(times), ", ".join("%.2f" % v for v in times),
+                    len(items) / (ms / 1e3)))
+    return launches["poe_sample_cell"], ms, loader, args
+
+
+def kernel_wrappers():
+    from multimodal_dmm_tpu_torch.ops.cuda import bfvi_scan, poe_cell
+    out = {name: getattr(bfvi_scan, name + "_cuda") for name in SCAN_KERNELS}
+    out["poe_sample_cell"] = poe_cell.poe_sample_cell_cuda
+    return out
 
 
 def synthetic_batch(seed, dev):
@@ -357,7 +571,8 @@ def main():
     ap.add_argument("--steps", type=int, default=8,
                     help="timed optimizer steps (after 2 warm-up steps)")
     ap.add_argument("--profile", default=None,
-                    help="write a torch.profiler table of one step here")
+                    help="write torch.profiler tables of one step and one "
+                    "evaluation here")
     args = ap.parse_args()
     check(args.steps >= 5, "--steps must be at least 5")
 
@@ -370,6 +585,7 @@ def main():
     from multimodal_dmm_tpu_torch.apps import weizmann
     from multimodal_dmm_tpu_torch.ops.cuda import _build
     from multimodal_dmm_tpu_torch.ops.cuda import bfvi_scan as scan
+    from multimodal_dmm_tpu_torch.ops.cuda import poe_cell as cell
 
     dev = torch.device("cuda")
     card = card_line()
@@ -384,10 +600,12 @@ def main():
 
     # -- phase 2: the build -------------------------------------------------
     secs = _build.build()
-    log("build: %.1f s (nvcc, sm_90a)" % secs)
-    for line in _build.build_log("bfvi_scan").splitlines():
-        if "registers" in line or "spill" in line:
-            log("  ptxas:", line.strip())
+    log("build: %.1f s (nvcc, sm_90a, %d sources at once)"
+        % (secs, len(_build.SOURCES)))
+    for name in _build.SOURCES:
+        for line in _build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log("  ptxas %s:" % name, line.strip())
 
     trainer = weizmann.make_trainer(seed=args.seed, device=dev)
     model = trainer.model
@@ -415,7 +633,7 @@ def main():
     before["video"] = trainer.params["dec"]["video"]["deconvs"][2]["w"] \
         .detach().clone()
     n_warm, times, losses = 2, [], []
-    wrappers = {name: getattr(scan, name + "_cuda") for name in KERNELS}
+    wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     for i in range(n_warm + args.steps):
@@ -435,9 +653,11 @@ def main():
     log("  losses / n_data: %s" % ", ".join("%.2f" % (v / n_data)
                                             for v in losses))
     log("  launches over %d steps: %s" % (n_steps, launches))
-    for name, n in launches.items():
-        check(n == 3 * n_steps, "%s launched %d times in %d steps, "
-              "expected 3 per step" % (name, n, n_steps))
+    for name in SCAN_KERNELS:
+        check(launches[name] == 3 * n_steps, "%s launched %d times in %d "
+              "steps, expected 3 per step" % (name, launches[name], n_steps))
+    check(launches["poe_sample_cell"] == 0,
+          "the cell kernel launched during training")
     changed = [not torch.equal(v, trainer.params["trans"]["bwd"]["gate_1"]
                                [k]) for k, v in before.items()
                if k != "video"]
@@ -459,25 +679,51 @@ def main():
         os.makedirs(os.path.dirname(os.path.abspath(args.profile)),
                     exist_ok=True)
         with open(args.profile, "w") as f:
-            f.write("%s\n" % card)
+            f.write("%s\none training step\n" % card)
             f.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=40))
         log("  profile written to %s" % args.profile)
 
-    # -- phase 5: summary ---------------------------------------------------
+    # -- phase 5: the cell kernel against its plain version -------------------
+    log("phase 5: poe_sample_cell vs its plain version [%s]" % card)
+    cell_rec = check_cell(cell, dev)
+    log("  no single PyTorch call computes the cell: library_ms is null")
+
+    # -- phase 6: the evaluation path -----------------------------------------
+    log("phase 6: Weizmann BFVI evaluation on the phase-4 weights [%s]"
+        % card)
+    cell_launches, eval_ms, loader, eval_args = check_evaluation(
+        trainer, args.seed, N_EVALS)
+    if args.profile:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.evaluate(loader, eval_args, collect_results=False)
+            torch.cuda.synchronize()
+        with open(args.profile, "a") as f:
+            f.write("\none evaluation (%.2f ms median without the "
+                    "profiler)\n" % eval_ms)
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40))
+        log("  evaluation profile appended to %s" % args.profile)
+
+    # -- summary --------------------------------------------------------------
     log(card)
+    rec["poe_sample_cell"] = cell_rec
+    launches["poe_sample_cell"] = cell_launches
     kernels = []
-    for name, replaces in KERNELS.items():
+    for name, (source, replaces) in KERNELS.items():
         r = rec[name]
-        by_what = max(r["bound_ms"], key=r["bound_ms"].get)
+        if name in SCAN_KERNELS:
+            by_what = max(r["bound_ms"], key=r["bound_ms"].get)
+            bms = sum(r["bound_ms"].values())
+        else:
+            by_what, bms = r["bound_by"], r["bound_ms"]
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": "multimodal_dmm_tpu_torch/csrc/bfvi_scan.cu",
+            "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
             "launches": launches[name], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": sum(r["bound_ms"].values()), "bound_by": by_what,
-            "library_ms": None})
+            "bound_ms": bms, "bound_by": by_what, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

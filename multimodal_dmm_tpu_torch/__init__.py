@@ -2,10 +2,10 @@
 
 The JAX package beside it is the reference; every module here mirrors
 one there (``ops/``, ``models/``, ``training/``, ``apps/``) and is held
-against it by ``tests/test_torch_*.py``. The BFVI filtering scan, which
-the JAX package runs as a Pallas kernel, runs here as hand-written CUDA
-kernels for Hopper (``csrc/bfvi_scan.cu``); every other op is plain
-PyTorch.
+against it by ``tests/test_torch_*.py``. The JAX package's Pallas
+kernels, the BFVI filtering scan and the PoE + sampling cell, run here as
+hand-written CUDA kernels for Hopper (``csrc/bfvi_scan.cu``,
+``csrc/poe_cell.cu``); every other op is plain PyTorch.
 
 Entry points run on the GPU unless the caller asks for the CPU: their
 ``device`` argument defaults to ``"cuda"`` and :func:`resolve_device`

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops import losses
 from . import nn as tnn
 
 
@@ -58,6 +59,44 @@ def embed_gaussian_codec(num_embeddings, z_dim, h_dim, min_std=1e-3):
 
 class ModelBase:
     """Helpers shared by the multimodal models."""
+
+    def loss(self, inputs, infer, prior, recon, mask=None, kld_mult=1.0,
+             rec_mults=None, avg=False):
+        """kld_mult * KLD + sum over modalities of rec_mults[m] * NLL_m;
+        divided by the number of observed steps when ``avg``."""
+        total = kld_mult * self.kld_loss(infer, prior, mask)
+        total = total + self.rec_loss(inputs, recon, mask, rec_mults)
+        if avg:
+            n_data = (torch.sum(mask) if mask is not None else
+                      np.prod(tuple(inputs[self.modalities[-1]].shape[:2])))
+            total = total / n_data
+        return total
+
+    def kld_loss(self, infer, prior, mask=None):
+        return losses.kld_gauss(infer[0], infer[1], prior[0], prior[1], mask)
+
+    def rec_loss(self, inputs, recon, mask=None, rec_mults=None):
+        """Masked NLL of each modality in ``inputs`` under its
+        distribution, weighted by ``rec_mults`` (default 1; 0 skips)."""
+        rec_mults = rec_mults or {}
+        loss = 0.0
+        for m in self.modalities:
+            if m not in inputs:
+                continue
+            mult = rec_mults.get(m, 1.0)
+            if mult == 0:
+                continue
+            if self.dists[m] == "Bernoulli":
+                loss = loss + mult * losses.nll_bernoulli(recon[m][0],
+                                                          inputs[m], mask)
+            elif self.dists[m] == "Categorical":
+                loss = loss + mult * losses.nll_categorical(recon[m][0],
+                                                            inputs[m], mask)
+            elif self.dists[m] == "Normal":
+                loss = loss + mult * losses.nll_gauss(recon[m][0],
+                                                      recon[m][1], inputs[m],
+                                                      mask)
+        return loss
 
     def _dim_of(self, m):
         d = self.dims[m]

@@ -2,8 +2,13 @@
 multimodal_dmm_tpu/models/dmm.py).
 
 Every filtering pass runs through the fused scan of
-``ops/cuda/bfvi_scan.py``: the CUDA kernels for tensors on the GPU, their
-plain PyTorch versions for tensors on the CPU. The training objective is
+``ops/cuda/bfvi_scan.py`` except the gradient-free, sampled passes of
+``forward(train=False)`` (the 200-particle evaluation filter), which step
+through ``_z_next`` and the fused PoE + sampling cell of
+``ops/cuda/poe_cell.py`` one time step at a time, as the JAX package's
+``z_filter`` does with ``use_pallas``. Either way the CUDA kernels run for
+tensors on the GPU and their plain PyTorch versions for tensors on the
+CPU. The training objective is
 the fused one: encode once, stack the joint and unimodal variants into one
 (V*B) batch, run each objective mode's filtering (and smoothing) passes
 over it, decode only the active variant rows.
@@ -20,6 +25,7 @@ import torch
 from .. import resolve_device
 from ..ops import losses
 from ..ops.cuda.bfvi_scan import bfvi_scan
+from ..ops.cuda.poe_cell import poe_sample_cell
 from ..ops.poe import (product_of_experts, product_of_experts_pair,
                        mean_of_experts)
 from ..tree import tree_map
@@ -53,9 +59,10 @@ class MultiDMM(ModelBase):
         self.z0_mean_init = z0_mean
         self.z0_std_init = z0_std
         self.min_std = min_std
-        # True runs the filtering passes through the scan's plain PyTorch
-        # versions on any device, "bwd" only their backward, to hold the
-        # CUDA kernels against them (ops/cuda/bfvi_scan.bfvi_scan).
+        # True runs the filtering passes through the scan's and the cell's
+        # plain PyTorch versions on any device, "bwd" only the scan's
+        # backward, to hold the CUDA kernels against them
+        # (ops/cuda/bfvi_scan.bfvi_scan, ops/cuda/poe_cell.poe_sample_cell).
         self.plain_scan = False
         self.enc, self.dec = {}, {}
         for m in self.modalities:
@@ -187,11 +194,14 @@ class MultiDMM(ModelBase):
 
     def z_filter(self, params, z_mean, z_std, z_masks, gen=None,
                  direction="fwd", sample=True, n_particles=1,
-                 sample_init=False, eps=None):
+                 sample_init=False, eps=None, use_cell=False):
         """Filtering pass. z_mean/z_std: (M', T, B, D); z_masks:
         (M', T, B). Returns (infer, prior, samples) in original time
         order. ``eps``: optional noise (T, K, B, D) in scan time order
-        (already flipped for a backward pass); ``gen`` is then unused."""
+        (already flipped for a backward pass); ``gen`` is then unused.
+        ``use_cell``: a sampled pass (``sample or n_particles > 1``) steps
+        through the PoE + sampling cell instead of the scan; gradient-free
+        (``_cell_filter``)."""
         t_max, b_dim = z_mean.shape[1:3]
         glb_mean, glb_std = self.prior_params(params, (b_dim, self.z_dim))
         xs_mean = z_mean.transpose(0, 1)
@@ -200,17 +210,47 @@ class MultiDMM(ModelBase):
         if direction == "bwd":
             xs_mean, xs_std, xs_mask = (torch.flip(x, [0]) for x in
                                         (xs_mean, xs_std, xs_mask))
+        do_sample = sample or n_particles > 1
         if eps is None:
             eps = self._filter_eps(gen, t_max, n_particles, b_dim,
-                                   sample or n_particles > 1, sample_init,
-                                   z_mean.device)
-        outs = bfvi_scan(xs_mean, xs_std, xs_mask, glb_mean, glb_std,
-                         params["trans"][direction], eps, self.min_std,
-                         plain=self.plain_scan)
+                                   do_sample, sample_init, z_mean.device)
+        if use_cell and do_sample:
+            outs = self._cell_filter(params["trans"][direction], xs_mean,
+                                     xs_std, xs_mask, glb_mean, glb_std, eps)
+        else:
+            outs = bfvi_scan(xs_mean, xs_std, xs_mask, glb_mean, glb_std,
+                             params["trans"][direction], eps, self.min_std,
+                             plain=self.plain_scan)
         if direction == "bwd":
             outs = tuple(torch.flip(x, [0]) for x in outs)
         p_mean, p_std, i_mean, i_std, samples = outs
         return (i_mean, i_std), (p_mean, p_std), samples
+
+    def _cell_filter(self, gtf, xs_mean, xs_std, xs_mask, glb_mean, glb_std,
+                     eps):
+        """The filtering loop in scan time order, one step at a time: the
+        conditional prior ``_z_next`` of the K particles (the global prior
+        at t = 0), then ``poe_sample_cell``. Returns (prior_mean,
+        prior_std, infer_mean, infer_std, samples), each (T, B, D)."""
+        trans = tnn.gtf_pack(gtf)
+        # One copy each instead of one per step.
+        xs_mean, xs_std, xs_mask = (x.contiguous() for x in (xs_mean, xs_std,
+                                                             xs_mask))
+        outs = [[] for _ in range(5)]
+        z = None
+        for t in range(xs_mean.shape[0]):
+            if t == 0:
+                prior_mean, prior_std = glb_mean, glb_std
+            else:
+                prior_mean, prior_std = self._z_next(trans, z, glb_mean,
+                                                     glb_std)
+            infer_mean, infer_std, z, smp = poe_sample_cell(
+                prior_mean, prior_std, xs_mean[t], xs_std[t], xs_mask[t],
+                eps[t], plain=self.plain_scan is True)
+            for lst, v in zip(outs, (prior_mean, prior_std, infer_mean,
+                                     infer_std, smp)):
+                lst.append(v)
+        return tuple(torch.stack(v) for v in outs)
 
     def z_sample(self, params, t_max, b_dim, gen, direction="fwd",
                  sample=True, n_particles=1, z_init=None, inclusive=False):
@@ -258,7 +298,9 @@ class MultiDMM(ModelBase):
     def forward(self, params, state, inputs, gen=None, lengths=None,
                 mode="fsmooth", sample=True, sample_init=False,
                 flt_particles=1, smt_particles=1, train=False):
-        """BFVI forward. Returns ((infer, prior, recon), new_state)."""
+        """BFVI forward. Returns ((infer, prior, recon), new_state). With
+        ``train=False`` its sampled passes take the gradient-free cell path
+        (``z_filter(use_cell=True)``): call it under ``torch.no_grad()``."""
         some = inputs[list(inputs.keys())[0]]
         t_max, b_dim = some.shape[:2]
         full = self._nan_fill_missing(inputs, t_max, b_dim,
@@ -270,7 +312,8 @@ class MultiDMM(ModelBase):
         flt_init = sample_init if mode in ("ffilter", "bfilter") else False
         infer, prior, z_samples = self.z_filter(
             params, obs_mean, obs_std, obs_mask, gen, direction=direction,
-            sample=sample, n_particles=flt_particles, sample_init=flt_init)
+            sample=sample, n_particles=flt_particles, sample_init=flt_init,
+            use_cell=not train)
         if mode in ("fsmooth", "bsmooth"):
             direction = "fwd" if mode == "fsmooth" else "bwd"
             szm, szs, som = self._smooth_experts(params, obs_mean, obs_std,
@@ -278,7 +321,7 @@ class MultiDMM(ModelBase):
             infer, prior, z_samples = self.z_filter(
                 params, szm, szs, som, gen, direction=direction,
                 sample=sample, n_particles=smt_particles,
-                sample_init=sample_init)
+                sample_init=sample_init, use_cell=not train)
         recon, dec_state = self.decode(params, state["dec"], z_samples,
                                        train)
         return (infer, prior, recon), {"enc": enc_state, "dec": dec_state}

@@ -1,2 +1,3 @@
-"""Numerical primitives: expert fusion, losses, schedules, and the CUDA
-filtering-scan kernels (``ops.cuda``)."""
+"""Numerical primitives: expert fusion, losses, schedules, SSIM, and the
+CUDA kernels (``ops.cuda``: the filtering scan and the PoE + sampling
+cell)."""

@@ -21,7 +21,7 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = {"bfvi_scan": "bfvi_scan.cu"}
+SOURCES = {"bfvi_scan": "bfvi_scan.cu", "poe_cell": "poe_cell.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v"]

@@ -1,1 +1,2 @@
-"""Training runtime: the train step and its optimizer."""
+"""Training runtime: the train step and its optimizer, the batch loader,
+and evaluation."""

@@ -1,4 +1,5 @@
-"""The port's CUDA scan kernels against their plain PyTorch versions.
+"""The port's CUDA kernels (the filtering scan and the PoE + sampling
+cell) against their plain PyTorch versions.
 
 These need a GPU and skip without one. The file imports neither JAX nor
 the JAX package, so on a machine without JAX it runs on its own:
@@ -13,6 +14,7 @@ import torch
 from multimodal_dmm_tpu_torch.models import nn as tnn
 from multimodal_dmm_tpu_torch.models.dmm import MultiDMM
 from multimodal_dmm_tpu_torch.ops.cuda import bfvi_scan as tscan
+from multimodal_dmm_tpu_torch.ops.cuda import poe_cell as tcell
 
 pytestmark = pytest.mark.cuda
 
@@ -96,3 +98,60 @@ def test_z_filter_cuda_matches_cpu(dev, direction):
                        + [p.grad for p in leaves])
     for i, (c, g) in enumerate(zip(*results)):
         _assert_grads(g.detach(), c.detach(), str(i))
+
+
+@pytest.mark.parametrize("b_dim,d,k", [(13, 5, 1), (13, 130, 200),
+                                       (13, 5, 200), (13, 130, 1)])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_cell_kernel_matches_plain_version(dev, b_dim, d, k, inverse):
+    """Odd shapes (B = 13, D = 5 and 130, K = 1 and 200); rtol/atol 1e-5,
+    1e-4 with an inverse expert, as tests/test_pallas_cell.py."""
+    rng = np.random.RandomState(b_dim + d + k)
+    m = 4
+    obs_std = (rng.rand(m, b_dim, d) + 0.2).astype(np.float32)
+    mask = rng.rand(m, b_dim) > 0.4
+    if inverse:
+        obs_std[-1] = -obs_std[-1]
+        mask[-1] = True
+    arrays = [rng.randn(b_dim, d), rng.rand(b_dim, d) + 0.2,
+              rng.randn(m, b_dim, d), obs_std, mask,
+              rng.randn(k, b_dim, d)]
+    x = [torch.tensor(np.asarray(a, np.float32), device=dev)
+         for a in arrays]
+    before = tcell.poe_sample_cell_cuda.launches
+    got = tcell.poe_sample_cell(*x)
+    assert tcell.poe_sample_cell_cuda.launches == before + 1
+    exp = tcell.poe_sample_cell_ref(*x)
+    tol = 1e-4 if inverse else 1e-5
+    for i, (g, e) in enumerate(zip(got, exp)):
+        assert g.shape == e.shape
+        np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(),
+                                   rtol=tol, atol=tol, err_msg=str(i))
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_cell_path_z_filter_cuda_matches_cpu(dev, direction):
+    """The filtering pass's cell path (200 particles) on the GPU (cell
+    kernel) equals the same pass on the CPU (plain version)."""
+    model = MultiDMM(["a", "b"], [4, 6], z_dim=32, h_dim=24)
+    rng = np.random.RandomState(4)
+    zm = rng.randn(2, 6, 5, 32).astype(np.float32)
+    zs = (rng.rand(2, 6, 5, 32) + 0.3).astype(np.float32)
+    zk = (rng.rand(2, 6, 5) > 0.3).astype(np.float32)
+    eps = rng.randn(6, 200, 5, 32).astype(np.float32)
+    results = []
+    for device in ("cpu", dev):
+        params, _ = model.init(0, device=device)
+        before = tcell.poe_sample_cell_cuda.launches
+        with torch.no_grad():
+            (im, istd), (pm, ps), smp = model.z_filter(
+                params, *[torch.tensor(a, device=device)
+                          for a in (zm, zs, zk)], direction=direction,
+                n_particles=200, eps=torch.tensor(eps, device=device),
+                use_cell=True)
+        launched = tcell.poe_sample_cell_cuda.launches - before
+        assert launched == (6 if device == dev else 0)
+        results.append([im, istd, pm, ps, smp])
+    for i, (c, g) in enumerate(zip(*results)):
+        np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=str(i))

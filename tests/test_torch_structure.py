@@ -16,6 +16,7 @@ from multimodal_dmm_tpu.apps.weizmann import WeizmannTrainer
 from multimodal_dmm_tpu.models.dmm import MultiDMM as JMultiDMM
 from multimodal_dmm_tpu_torch.apps import weizmann as tw
 from multimodal_dmm_tpu_torch.convert import params_from_jax
+from multimodal_dmm_tpu_torch.training.eval_engine import DeviceEvalData
 from multimodal_dmm_tpu_torch.tree import tree_leaves_with_path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -45,19 +46,30 @@ def test_port_imports_no_jax():
         assert not bad, "%s imports %s" % (path.relative_to(ROOT), bad)
 
 
-@pytest.mark.parametrize("entry", ["model_init", "trainer"])
+_ITEM = {"video": np.zeros((3, 3, 64, 64), np.float32),
+         "person": np.zeros((3, 1)), "action": np.zeros((3, 1)),
+         "length": 3, "id": ("p", "a")}
+
+
+@pytest.mark.parametrize("entry", ["model_init", "trainer", "eval_data"])
 def test_entry_points_default_to_cuda(entry):
     """With no device given, entry points run on CUDA; without CUDA they
     raise instead of running on the CPU."""
     call = {"model_init": lambda: tw.build_model(
                 model_args={"z_dim": 8, "h_dim": 8}).init(0),
             "trainer": lambda: tw.make_trainer(
-                seed=0, model_args={"z_dim": 8, "h_dim": 8})}[entry]
+                seed=0, model_args={"z_dim": 8, "h_dim": 8}),
+            "eval_data": lambda: DeviceEvalData(
+                [_ITEM], tw.DEFAULTS["modalities"], 2)}[entry]
     if torch.cuda.is_available():
         out = call()
-        leaf = (out[0]["z0_mean"] if entry == "model_init"
-                else out.params["z0_mean"])
+        leaf = {"model_init": lambda: out[0]["z0_mean"],
+                "trainer": lambda: out.params["z0_mean"],
+                "eval_data": lambda: out.batches[0].targets["video"]}[
+                    entry]()
         assert leaf.is_cuda
+        if entry == "trainer":
+            assert isinstance(out, tw.WeizmannTrainer)
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
