@@ -11,7 +11,14 @@ imports nothing of JAX or of the JAX package. Phases:
    nvcc for sm_90a;
 3. each kernel against its plain PyTorch version at the main path's
    shapes (T = 25, B = 100 variant columns, D = H = 256, (M, K) = (3, 1),
-   (3, 25), (5, 1)), with their times and the card's bound;
+   (3, 25), (5, 1)), with their times and the card's bound, in float32
+   and for the route the kernels take (three TF32 passes on the tensor
+   cores); the backward is held to the plain backward run on its own ReLU
+   masks in the GTF's first layers, each unit where those differ from the
+   plain masks within rounding of 0 (``relu_flip_bound``), and two runs
+   of it must agree bit for bit; the forward kernel also at the
+   evaluation's smoothing shape (T = 56, B = 25, (M, K) = (5, 1)), a row
+   of its own;
 4. the Weizmann BFVI training step at full width (weights from --seed,
    a synthetic batch of T = B = 25, KLD multiplier 1 as at the end of the
    trainer's anneal): one step's loss and gradients on the kernels
@@ -34,9 +41,11 @@ Any failed check raises, so the script exits non-zero before its last
 line. The line before the last is a JSON object with one entry per
 kernel (for the scan kernels ``ms``, ``plain_ms`` and ``bound_ms`` are
 sums over the training step's three launches and ``launches`` counts the
-training steps' launches; for the cell they are per launch at
-(3, 200, 25, 256) and ``launches`` counts one evaluation's); the last is
-``{"ok": true, "device": {...}}``.
+training steps' launches; ``bound_ms`` is the bound of the route the
+kernels take and ``bound_f32_ms`` that of float32 outside the tensor
+cores; for the cell they are per launch at (3, 200, 25, 256) and
+``launches`` counts one evaluation's); the last is ``{"ok": true,
+"device": {...}}``.
 """
 
 import argparse
@@ -52,7 +61,10 @@ import torch
 
 T_MAIN, B_DATA, V_MAIN, Z_DIM = 25, 25, 4, 256
 SCAN_SHAPES = ((3, 1), (3, 25), (5, 1))  # (M, K) of the step's 3 passes
+SMOOTH_SHAPE = (56, 25, 5, 1)  # (T, B, M, K) of the evaluation's smoothing
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
+PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 tensor cores, dense
+TF32_PASSES = 3          # the scan kernels' 3xTF32 products
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 # name -> (its source, the TPU kernel or the part of it that it replaces)
 SCAN_SRC = "multimodal_dmm_tpu_torch/csrc/bfvi_scan.cu"
@@ -150,18 +162,18 @@ def scan_work(t_max, n_exp, b_dim, k, d, h):
             (fwd_flops, wgrad_bytes))
 
 
-def bound_ms(flops, nbytes):
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops, nbytes, peak=PEAK_F32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
 
-def scan_inputs(n_exp, k, dev, seed):
-    """Inputs shaped like one pass of the training step: V*B = 100
-    columns, 10 % of expert cells masked; the 5-expert case carries the
-    smoothing pass's filter prior and inverse global prior."""
+def scan_inputs(n_exp, k, dev, seed, t_max=T_MAIN, b_dim=V_MAIN * B_DATA):
+    """Inputs shaped like one pass of the training step (by default: V*B =
+    100 columns), 10 % of expert cells masked; the 5-expert case carries
+    the smoothing pass's filter prior and inverse global prior."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shape = (T_MAIN, n_exp, V_MAIN * B_DATA, Z_DIM)
+    shape = (t_max, n_exp, b_dim, Z_DIM)
     obs_mean = torch.randn(shape, generator=gen, device=dev)
     obs_std = 0.1 + torch.rand(shape, generator=gen, device=dev)
     obs_mask = (torch.rand(shape[:3], generator=gen, device=dev)
@@ -173,8 +185,8 @@ def scan_inputs(n_exp, k, dev, seed):
         obs_mean[:, 4] = glb_mean          # inverse global prior
         obs_std[:, 4] = -glb_std
         obs_mask[:, 3:] = 1.0
-    eps = torch.randn((T_MAIN, k) + shape[2:], generator=gen, device=dev)
-    cots = [torch.randn((T_MAIN,) + shape[2:], generator=gen, device=dev)
+    eps = torch.randn((t_max, k) + shape[2:], generator=gen, device=dev)
+    cots = [torch.randn((t_max,) + shape[2:], generator=gen, device=dev)
             for _ in range(5)]
     return [obs_mean, obs_std, obs_mask, glb_mean, glb_std], eps, cots
 
@@ -189,42 +201,89 @@ def max_norm_err(got, exp):
     return ok, (got - exp).abs().max().item()
 
 
+def check_fwd(scan, x, gtf, eps, what):
+    """The forward kernel against its plain version on one input; returns
+    (plain outputs, largest absolute error)."""
+    got = scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3)
+    exp = scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3)
+    torch.cuda.synchronize()
+    err = 0.0
+    for name, g, e in zip(("prior_mean", "prior_std", "infer_mean",
+                           "infer_std", "samples", "z_traj"), got, exp):
+        check(bool(torch.isfinite(g).all()), "non-finite %s" % name)
+        a = (g - e).abs().max().item()
+        err = max(err, a)
+        check(torch.allclose(g, e, **FWD_TOL), "forward kernel %s disagrees "
+              "at %s: max abs err %.3g" % (name, what, a))
+    return exp, err
+
+
+def with_kernel_rows(scan, fn):
+    """``fn()``, and the xs rows that each backward kernel launch in it
+    wrote, in launch order (their h1 and hn hold its ReLU masks)."""
+    scan.bfvi_scan_bwd_cuda.rows = rows = []
+    try:
+        out = fn()
+    finally:
+        scan.bfvi_scan_bwd_cuda.rows = None
+    return out, rows
+
+
+def check_flips(scan, margins, d, what):
+    """Every unit where the backward kernel's ReLU mask differs from the
+    plain backward's has its exact pre-activation within
+    ``relu_flip_bound(D)`` of 0. Returns (flips, largest margin)."""
+    bound = scan.relu_flip_bound(d)
+    n = sum(m.numel() for m in margins.values())
+    worst = max((m.max().item() for m in margins.values() if m.numel()),
+                default=0.0)
+    check(worst <= bound, "%s: a ReLU flip between the backward kernel and "
+          "the plain backward at margin %.3g, beyond the rounding bound %.3g"
+          % (what, worst, bound))
+    return n, worst
+
+
+def bwd_pairs(scan, out_a, out_b):
+    """(name, a, b) for each output of two backward runs."""
+    pairs = list(zip(("d_obs_mean", "d_obs_std", "d_glb_mean",
+                      "d_glb_std"), out_a[:4], out_b[:4]))
+    return pairs + [(n + "." + kk, out_a[4][n][kk], out_b[4][n][kk])
+                    for n in scan.GTF_LAYERS for kk in ("w", "b")]
+
+
 def check_kernels(scan, gtf, dev):
     """Phase 3: every kernel against its plain version at the main
     path's shapes; returns per-kernel records."""
-    rec = {name: dict(err=0.0, ms=0.0, plain_ms=0.0,
+    rec = {name: dict(err=0.0, ms=0.0, plain_ms=0.0, bound_f32_ms=0.0,
                       bound_ms={"operations": 0.0, "bytes": 0.0})
            for name in SCAN_KERNELS}
     for i, (n_exp, k) in enumerate(SCAN_SHAPES):
         x, eps, cots = scan_inputs(n_exp, k, dev, seed=100 + i)
-        got = scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3)
-        exp = scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3)
-        torch.cuda.synchronize()
-        err = 0.0
-        for name, g, e in zip(("prior_mean", "prior_std", "infer_mean",
-                               "infer_std", "samples", "z_traj"), got, exp):
-            check(bool(torch.isfinite(g).all()), "non-finite %s" % name)
-            ok = torch.allclose(g, e, **FWD_TOL)
-            err = max(err, (g - e).abs().max().item())
-            check(ok, "forward kernel %s disagrees at (M, K) = (%d, %d): "
-                  "max abs err %.3g" % (name, n_exp, k,
-                                        (g - e).abs().max().item()))
+        what = "(M, K) = (%d, %d)" % (n_exp, k)
+        exp, err = check_fwd(scan, x, gtf, eps, what)
         res = tuple(x) + (gtf, eps, exp[5], exp[0], exp[1])
-        g_out = scan.bfvi_scan_bwd_cuda(res, cots, 1e-3)
-        e_out = scan.bfvi_scan_bwd_ref(res, cots, 1e-3)
+        g_out, rows = with_kernel_rows(
+            scan, lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3))
+        e_out, margins = scan.bfvi_scan_bwd_ref_on_masks(res, cots, 1e-3,
+                                                         rows[0])
+        g_again = scan.bfvi_scan_bwd_cuda(res, cots, 1e-3)
         torch.cuda.synchronize()
+        flips, worst = check_flips(scan, margins, Z_DIM, what)
+        log("  bfvi_scan_bwd %s: %d ReLU flips against the plain backward "
+            "in the GTF first layers (held on the kernel's masks), largest "
+            "exact margin %.3g of the bound %.3g"
+            % (what, flips, worst, scan.relu_flip_bound(Z_DIM)))
         berr = 0.0
-        pairs = list(zip(("d_obs_mean", "d_obs_std", "d_glb_mean",
-                          "d_glb_std"), g_out[:4], e_out[:4]))
-        pairs += [(n + "." + kk, g_out[4][n][kk], e_out[4][n][kk])
-                  for n in scan.GTF_LAYERS for kk in ("w", "b")]
-        for name, g, e in pairs:
+        for name, g, e in bwd_pairs(scan, g_out, e_out):
             check(bool(torch.isfinite(g).all()), "non-finite %s" % name)
             ok, a = max_norm_err(g, e)
             berr = max(berr, a)
             check(ok, "backward kernel %s disagrees at (M, K) = (%d, %d): "
                   "max abs err %.3g (scale %.3g)"
                   % (name, n_exp, k, a, e.abs().max().item()))
+        for name, g, g2 in bwd_pairs(scan, g_out, g_again):
+            check(torch.equal(g, g2), "backward kernel %s: two runs differ "
+                  "at (M, K) = (%d, %d)" % (name, n_exp, k))
         # The weight-gradient kernel alone, on rows shaped like those the
         # backward kernel writes.
         gen = torch.Generator(device=dev).manual_seed(200 + i)
@@ -259,11 +318,31 @@ def check_kernels(scan, gtf, dev):
             r["err"] = max(r["err"], e)
             r["ms"] += ms
             r["plain_ms"] += pms
-            bms, by_what = bound_ms(fl, by)
+            bms, by_what = bound_ms(TF32_PASSES * fl, by, PEAK_TF32_FLOPS)
             r["bound_ms"][by_what] += bms
+            f32_ms, f32_by = bound_ms(fl, by)
+            r["bound_f32_ms"] += f32_ms
             log("  %s (M, K) = (%d, %d): kernel %.3f ms, plain %.3f ms, "
-                "bound %.3f ms (%s), max abs err %.3g"
-                % (name, n_exp, k, ms, pms, bms, by_what, e))
+                "bound %.3f ms (%s, 3xTF32), f32 bound %.3f ms (%s), max abs "
+                "err %.3g" % (name, n_exp, k, ms, pms, bms, by_what, f32_ms,
+                              f32_by, e))
+
+    # The evaluation's MAP smoothing pass: its own row, not in the sums.
+    t_max, b_dim, n_exp, k = SMOOTH_SHAPE
+    x, eps, _ = scan_inputs(n_exp, k, dev, seed=110, t_max=t_max,
+                            b_dim=b_dim)
+    what = "(T, B, M, K) = (%d, %d, %d, %d)" % SMOOTH_SHAPE
+    _, err = check_fwd(scan, x, gtf, eps, what)
+    rec["bfvi_scan_fwd"]["err"] = max(rec["bfvi_scan_fwd"]["err"], err)
+    ms, pms = [time_ms(fn, 10) for fn in (
+        lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3),
+        lambda: scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3))]
+    fl, by = scan_work(t_max, n_exp, b_dim, k, Z_DIM, Z_DIM)[0]
+    bms, by_what = bound_ms(TF32_PASSES * fl, by, PEAK_TF32_FLOPS)
+    f32_ms, f32_by = bound_ms(fl, by)
+    log("  bfvi_scan_fwd, evaluation smoothing %s: kernel %.3f ms, plain "
+        "%.3f ms, bound %.4f ms (%s, 3xTF32), f32 bound %.4f ms (%s), max "
+        "abs err %.3g" % (what, ms, pms, bms, by_what, f32_ms, f32_by, err))
     return rec
 
 
@@ -507,14 +586,22 @@ def log_worst(what, diffs, n=4):
                diffs[path]["n_rows"], diffs[path]["fro"]))
 
 
-def check_step_against_plain(trainer, inputs, targets, mask, seed):
+def check_step_against_plain(scan, trainer, inputs, targets, mask, seed):
     """One step's loss and gradients on the kernels against the plain
     versions, with the same noise and deterministic cuDNN.
 
-    - Kernels against the forward kernel followed by the plain backward:
+    - Kernels against the forward kernel followed by the plain backward on
+      the backward kernel's ReLU masks (``bfvi_scan_bwd_ref_on_masks``):
       the forward is the same bit for bit, so this holds the backward
       kernel to its plain version inside the step. Every gradient element
-      is within STEP_GRAD_TOL (max-abs normalised).
+      is within STEP_GRAD_TOL (max-abs normalised), and every unit where
+      the kernel's masks differ from the plain backward's own has its
+      exact pre-activation within ``relu_flip_bound(D)`` of 0: the kernel
+      recomputes the GTF's first layers in 3xTF32 and the plain backward
+      in cuBLAS float32, so such a unit can fall on either side of its
+      ReLU, and each flip moves one row of the layer's weight gradient by
+      one sample's whole term. The rows that the flips move against the
+      plain backward on its own masks are logged.
     - Kernels against the plain forward and backward: the loss is within
       STEP_LOSS_RTOL, and each gradient leaf within STEP_GRAD_TOL's rtol
       in relative Frobenius norm (a leaf that is rounding noise:
@@ -527,23 +614,54 @@ def check_step_against_plain(trainer, inputs, targets, mask, seed):
       path itself is deterministic.
     """
     torch.backends.cudnn.deterministic = True
-    l_k, g_k = step_grads(trainer, inputs, targets, mask, False, seed)
+    (l_k, g_k), rows = with_kernel_rows(scan, lambda: step_grads(
+        trainer, inputs, targets, mask, False, seed))
+    check(len(rows) == len(SCAN_SHAPES), "the step launched the backward "
+          "kernel %d times, expected %d" % (len(rows), len(SCAN_SHAPES)))
+    margins, launch = [], iter(rows)
+
+    def on_masks(res, cots, min_std):
+        outs, m = scan.bfvi_scan_bwd_ref_on_masks(res, cots, min_std,
+                                                  next(launch))
+        margins.append(m)
+        return outs
+    # The step's backward calls the module's bfvi_scan_bwd_cuda: for this
+    # run, the plain backward on the masks of the kernel's run above.
+    bwd_kernel, scan.bfvi_scan_bwd_cuda = scan.bfvi_scan_bwd_cuda, on_masks
+    try:
+        l_km, g_km = step_grads(trainer, inputs, targets, mask, False, seed)
+    finally:
+        scan.bfvi_scan_bwd_cuda = bwd_kernel
     l_kp, g_kp = step_grads(trainer, inputs, targets, mask, "bwd", seed)
     l_p, g_p = step_grads(trainer, inputs, targets, mask, True, seed)
     l_p2, g_p2 = step_grads(trainer, inputs, targets, mask, True, seed)
     torch.backends.cudnn.deterministic = False
-    log("  loss: kernels %.6f, forward kernel + plain backward %.6f, "
-        "plain %.6f, plain again %.6f" % (l_k, l_kp, l_p, l_p2))
+    log("  loss: kernels %.6f, forward kernel + plain backward %.6f (on the "
+        "kernel's ReLU masks %.6f), plain %.6f, plain again %.6f"
+        % (l_k, l_kp, l_km, l_p, l_p2))
     check(np.isfinite(l_k), "non-finite loss on the kernel path")
-    check(l_k == l_kp, "the forward kernel gave two losses for one input")
+    check(l_k == l_kp == l_km,
+          "the forward kernel gave different losses for one input")
     check(abs(l_k - l_p) <= STEP_LOSS_RTOL * abs(l_p),
           "step loss: kernels %r vs plain %r" % (l_k, l_p))
 
-    d_bwd = grad_diffs(g_k, g_kp)
-    log_worst("backward kernel vs plain backward", d_bwd)
+    flips = [check_flips(scan, m, Z_DIM, "step, backward launch %d" % i)
+             for i, m in enumerate(margins)]
+    d_own = grad_diffs(g_k, g_kp)
+    log("  backward kernel: %d ReLU flips in the GTF first layers against "
+        "the plain backward (largest exact margin %.3g of the bound %.3g); "
+        "on its own masks the plain backward differs beyond the "
+        "elementwise tolerance in %d rows of %d leaves"
+        % (sum(n for n, _ in flips), max(w for _, w in flips),
+           scan.relu_flip_bound(Z_DIM),
+           sum(d["rows"] for d in d_own.values()),
+           sum(bool(d["bad"]) for d in d_own.values())))
+    d_bwd = grad_diffs(g_k, g_km)
+    log_worst("backward kernel vs plain backward on its masks", d_bwd)
     bad = [p for p, d in d_bwd.items() if d["bad"]]
     check(not bad, "backward kernel: step gradients of %d leaves differ "
-          "beyond rtol %g / atol %g (normalised): %s"
+          "beyond rtol %g / atol %g (normalised) from the plain backward on "
+          "the kernel's ReLU masks: %s"
           % (len(bad), STEP_GRAD_TOL["rtol"], STEP_GRAD_TOL["atol"], bad))
 
     d_all = grad_diffs(g_k, g_p)
@@ -626,7 +744,8 @@ def main():
     n_data = float(mask.sum().item())
     # At the seed's weights, before any update, so that the comparison
     # is the same in every run.
-    check_step_against_plain(trainer, inputs, targets, mask, args.seed)
+    check_step_against_plain(scan, trainer, inputs, targets, mask,
+                             args.seed)
 
     before = {k: v.detach().clone() for k, v in
               trainer.params["trans"]["bwd"]["gate_1"].items()}
@@ -724,6 +843,8 @@ def main():
             "launches": launches[name], "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bms, "bound_by": by_what, "library_ms": None})
+        if name in SCAN_KERNELS:
+            kernels[-1]["bound_f32_ms"] = r["bound_f32_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

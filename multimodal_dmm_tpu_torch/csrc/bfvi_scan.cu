@@ -8,54 +8,83 @@
 //
 // Layout (one scan direction; the caller flips time for backward passes):
 //   obs_mean/obs_std (T, M, B, D), obs_mask (T, M, B), glb_mean/glb_std (B, D),
-//   eps and z_traj (T, K, B, D), the other outputs (T, B, D).
-//   GTF weights in (in, out) layout for the products of the transition:
-//     w1 (D, 2H+D) = [gate_1 | nonlin_1 | z_lin], b1 (2H+D),
-//     wg2 (H, D), wn2 (H, D), ws (D, D) with their biases;
-//   the backward also takes the (out, in) layouts (PyTorch's own), which are
-//   the matrices its input-gradient products need: w1t (2H+D, D),
-//   wg2t (D, H), wn2t (D, H), wst (D, D).
+//   eps and z_traj (T, K, B, D), the other outputs (T, B, D). Row k * B + b
+//   of step t is particle k of batch column b. GTF weights in PyTorch's
+//   (out, in) layout: w1 (2H+D, D) = [gate_1; nonlin_1; z_lin] with b1,
+//   wg2 (D, H), wn2 (D, H), ws (D, D) with their biases. The forward
+//   products read them as (in, out) and the input-gradient products as
+//   they are, so no transposed copy exists.
 //
-// Design. Batch columns are independent through time, so each CTA owns one
-// column b and runs the whole time loop itself; this replaces the TPU's
-// sequential grid. The K particle rows of that column live in dynamic shared
-// memory with every activation of one step (K x (5D + 2H) floats forward,
-// K x (6D + 2H) backward: 179 KB / 205 KB at K = 25, D = H = 256). The GTF
-// weights (1.5 MB at D = H = 256) do not fit in shared memory as they fitted
-// in VMEM, so every product streams them from L2, where all CTAs share them.
-// A product gives each thread one output column and keeps its K row sums in
-// registers; activations are read as float4 broadcasts from shared memory.
+// Design. Every GTF product runs on the tensor cores in 3xTF32 through the
+// tile engine of tf32x3.cuh (mma.sync m16n8k8, about f32's accuracy),
+// weights and activations staged in shared memory by cp.async. A step's
+// product is one tiled product over all K x B particle rows of the step,
+// not one per batch column: a tile of BM rows reads each weight once from
+// L2 for all of its rows (BM = 128 from 1,024 rows on, 64 where that
+// leaves fewer than 128 tiles, 16 below 1,024 rows, where latency and not
+// work sets the time). The scan kernels are cooperative launches of up to
+// two CTAs per SM that walk the time loop together, phase by phase, with
+// a grid barrier (about 1 us) between phases; activations live in device
+// memory (L2-resident within a step) instead of one CTA's shared memory,
+// so neither K nor the widths are bound by shared memory. Elementwise
+// phases give each (b, d) one thread, or two at K > 1 that split the
+// particles and meet in shared memory.
 //
-// The TPU kernel carries the weight gradients in VMEM from one grid step to
-// the next. A CTA here cannot hold them (1.6 MB), so the backward kernel
-// writes, for every particle row of every step, the activations and
-// cotangents that the weight gradients are products of (the input side of
-// dW1 is z_traj itself), and gtf_wgrad_kernel then forms dW = X^T Y over all
-// (T-1) K B rows as tiled products, split over SPLITS row ranges whose
-// partials the caller sums in a fixed order. Everything is deterministic.
+//   forward, step t >= 1:  A = [relu(gate_1) | relu(nonlin_1) | z_lin](z)
+//                          G, N = gate_2(A), nonlin_2(A)   S = z_to_std(N)
+//                          mixture, observation PoE, z_t = mu + eps sigma
+//   backward: the transition is recomputed for all T - 1 steps at once
+//   (three products over (T - 1) K B rows, straight into the rows the weight
+//   gradients read), then per step, in reverse: the elementwise VJP; d_znon
+//   and d_a1; d_b1; the particles' cotangent through w1, as three partial
+//   products (one per 256-deep block of w1) that the next step's
+//   elementwise phase adds in order.
 //
-// What bounds it on the H100: the forward does 6*D*H-class MACs per particle
-// row per step (3 launches of the training step: ~51 GFLOP in all at
-// T = 25, B = 100, K = 1, 25, 1), the backward about three times that
-// (recompute, input-gradient and weight-gradient products). Against 67 TFLOP/s
-// of f32 outside the tensor cores both are bound by operations, not by device
-// memory (the backward's rows are 2.3 KB each: 0.55 GB written and read at
-// K = 25, about 0.3 ms). This simple kernel runs well above that bound:
-// each CTA re-reads all weights from L2 every step (forward 1.5 MB, backward
-// 3 MB per step at D = H = 256) and feeds the FMA units from shared memory
-// one float4 per four FMAs. Tensor cores (wgmma) and keeping weight tiles in
-// shared memory across a cluster are work for later.
+// The TPU kernel carries the weight gradients in VMEM across its grid. Here
+// the backward writes, for every particle row of every step, the activations
+// xs = [h1 | hn | z_nonlin] and cotangents ys = [d_a1 | d_b1 | d_zlin | d_a2
+// | d_znonlin | d_sraw] (the input side of dW1 is z_traj itself), and
+// gtf_wgrad_kernel forms dW = X^T Y and db = 1^T Y over the (T-1) K B rows
+// on the same engine, split over row ranges whose partials the caller sums
+// in a fixed order. No float atomics anywhere: two runs agree bit for bit.
+//
+// L2 weight reads per step, training shapes (T = 25, B = 100, D = H = 256;
+// the weights are 1.57 MB): before, every CTA (one per batch column) read
+// all of them every step, 157 MB forward and 315 MB backward (two layouts).
+// Now each weight is read once per row tile: forward K = 1 (100 rows, 7
+// tiles of 16) 11 MB, 14x fewer; K = 25 (2,500 rows; 20 tiles of 128, 40
+// of 64 for z_to_std) 37 MB, 4.3x fewer; the evaluation's smoothing pass
+// (B = 25, 2 tiles) 3.1 MB against 39 MB, 12x fewer. Backward K = 25: 31 MB
+// for the batched recompute plus 37 MB for the per-step products, 67 MB,
+// 4.7x fewer; K = 1: 12.5 MB, 25x fewer.
+//
+// What bounds each launch on the H100: at K = 25 the products, 47 GFLOP
+// forward, 94 GFLOP in the backward kernel and 47 in the weight gradients,
+// three TF32 passes each: operations (0.29 ms forward at 495 TFLOP/s dense;
+// bytes are a tenth of that). mma.sync itself reaches about 200 TFLOP/s of
+// TF32 here, so three passes run at most at float32's rate; the engine
+// gets about half of that (a standalone microbenchmark of the engine,
+// PERF.md), and wgmma is the way past it. At K = 1 the work is 25 times
+// smaller and the bound is latency: 24 steps of 4 dependent phases, each a
+// grid barrier apart, with one wave of small tiles.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tf32x3.cuh"
+
 namespace {
 
-constexpr int NT = 256;          // threads per CTA
+using tf32x3::Acc;
+using tf32x3::Large;
+using tf32x3::max_;
+using tf32x3::Medium;
+using tf32x3::NT;
+using tf32x3::Operand;
+using tf32x3::Small;
+
 constexpr float kEps = 1e-8f;    // variance floor (_EPS)
 constexpr float kPrecFloor = 1e-6f;
-
-enum { EP_STORE = 0, EP_RELU_COLS = 1, EP_ADD = 2, EP_MASK = 3 };
 
 __device__ __forceinline__ float sigmoid_(float x) { return 1.f / (1.f + expf(-x)); }
 __device__ __forceinline__ float softplus_(float x) {
@@ -67,99 +96,162 @@ __device__ __forceinline__ float sign_(float x) {
 }
 __device__ __forceinline__ float pow_m15_(float x) { return 1.f / (x * sqrtf(x)); }
 
-// acc[r] += sum_{j < NW} X[r, k + j] * w[j] for r < R (NW % 4 == 0). The
-// rows are the inner loop, so consecutive FMAs go to different
-// accumulators; each accumulator still sums over k in ascending order.
-template <int KMAX, int NW>
-__device__ __forceinline__ void fma_rows(const float* X, int ldx, int k,
-                                         const float* w, float* acc, int R) {
-#pragma unroll
-  for (int j = 0; j < NW; j += 4) {
-#pragma unroll
-    for (int r = 0; r < KMAX; ++r) {
-      if (r < R) {
-        const float4 x = *reinterpret_cast<const float4*>(X + r * ldx + k + j);
-        acc[r] = fmaf(x.x, w[j], acc[r]);
-        acc[r] = fmaf(x.y, w[j + 1], acc[r]);
-        acc[r] = fmaf(x.z, w[j + 2], acc[r]);
-        acc[r] = fmaf(x.w, w[j + 3], acc[r]);
-      }
+// ---------------------------------------------------------------------------
+// Products: jobs of one phase, their epilogues, the grid barrier
+// ---------------------------------------------------------------------------
+
+enum { EP_STORE = 0, EP_ADD = 1, EP_MASK = 2 };
+
+// Where a product's tile goes: v (+ bias[n]) (ReLU for n < relu_cols) is
+// stored to dst (columns below split) or dst2 (the others, from column 0);
+// EP_ADD adds it to what is there, EP_MASK multiplies it by (mask > 0).
+struct Epi {
+  int mode;
+  const float* bias;
+  int relu_cols;
+  float* dst;
+  int ld;
+  float* dst2;
+  int ld2;
+  int split;
+  const float* mask;
+  int ldm;
+};
+
+struct Job {
+  Operand a, b;
+  int M, N, K;
+  Epi ep;
+};
+
+__device__ __forceinline__ Epi store_to(float* dst, int ld, const float* bias,
+                                        int n) {
+  return Epi{EP_STORE, bias, 0, dst, ld, nullptr, 0, n, nullptr, 0};
+}
+
+__device__ __forceinline__ void epi_pair(const Epi& e, int m, int n, float v0,
+                                         float v1) {
+  if (e.bias != nullptr) {
+    v0 += __ldg(e.bias + n);
+    v1 += __ldg(e.bias + n + 1);
+  }
+  if (n < e.relu_cols) {
+    v0 = fmaxf(v0, 0.f);
+    v1 = fmaxf(v1, 0.f);
+  }
+  float* p = n < e.split ? e.dst + (size_t)m * e.ld + n
+                         : e.dst2 + (size_t)m * e.ld2 + (n - e.split);
+  if (e.mode == EP_ADD) {
+    const float2 o = __ldcg(reinterpret_cast<const float2*>(p));
+    v0 += o.x;
+    v1 += o.y;
+  } else if (e.mode == EP_MASK) {
+    const float2 mk = __ldcg(
+        reinterpret_cast<const float2*>(e.mask + (size_t)m * e.ldm + n));
+    v0 *= (mk.x > 0.f) ? 1.f : 0.f;
+    v1 *= (mk.y > 0.f) ? 1.f : 0.f;
+  }
+  *reinterpret_cast<float2*>(p) = make_float2(v0, v1);
+}
+
+// This CTA's share of the tiles of jobs[0..nj), in grid-stride order.
+template <class C, int LB>
+__device__ void run_jobs_cfg(const Job* jobs, int nj, float* smem) {
+  int total = 0;
+  for (int j = 0; j < nj; ++j) total += tf32x3::tiles_of<C>(jobs[j].M, jobs[j].N);
+  for (int tile = blockIdx.x; tile < total; tile += gridDim.x) {
+    int j = 0, local = tile;
+    while (local >= tf32x3::tiles_of<C>(jobs[j].M, jobs[j].N)) {
+      local -= tf32x3::tiles_of<C>(jobs[j].M, jobs[j].N);
+      ++j;
     }
+    const Job& jb = jobs[j];
+    const int mt = (jb.M + C::BM - 1) / C::BM;
+    const int m0 = (local % mt) * C::BM, n0 = (local / mt) * C::BN;
+    Acc<C> acc;
+    tf32x3::tile_product<C, tf32x3::A_MK, LB>(jb.a, jb.b, jb.M, jb.N, jb.K,
+                                              m0, n0, smem, acc);
+    const Epi ep = jb.ep;
+    tf32x3::tile_store<C>(acc, jb.M, jb.N, m0, n0,
+                          [&](int m, int n, float v0, float v1) {
+                            epi_pair(ep, m, n, v0, v1);
+                          });
   }
 }
 
-// Y[r, n] = ep(bias[n] + sum_k X[r, k] * W[k, n]) for r < R, n < ncols.
-// X in shared memory (row stride ldx, 16-byte aligned rows), W in global
-// memory with row stride ldw. EP_RELU_COLS applies ReLU to columns below
-// relu_cols; EP_ADD adds into Y; EP_MASK multiplies by (Y[r, n] > 0), the
-// ReLU derivative of the activation stored in Y. kin % 4 == 0.
-// The weights stream from L2, so their loads are issued one chunk of
-// W_CHUNK rows ahead of the products that use them, to keep enough of
-// them in flight to cover L2's latency (32 rows where few particle rows
-// leave registers free, 16 otherwise).
-template <int KMAX, int EP>
-__device__ __forceinline__ void gemm_rows(const float* X, int ldx, int kin,
-                                          const float* __restrict__ W, int ldw,
-                                          const float* __restrict__ bias,
-                                          float* Y, int ldy, int ncols, int R,
-                                          int relu_cols) {
-  constexpr int W_CHUNK = KMAX > 8 ? 16 : 32;
-  for (int n = threadIdx.x; n < ncols; n += NT) {
-    float acc[KMAX];
-    const float b0 = bias ? __ldg(bias + n) : 0.f;
-#pragma unroll
-    for (int r = 0; r < KMAX; ++r) acc[r] = b0;
-    const float* wp = W + n;
-    int k = 0;
-    if (kin >= W_CHUNK) {
-      float w[W_CHUNK];
-#pragma unroll
-      for (int j = 0; j < W_CHUNK; ++j) w[j] = __ldg(wp + (size_t)j * ldw);
-      for (; k + W_CHUNK <= kin; k += W_CHUNK) {
-        float wn[W_CHUNK];
-        const bool more = k + 2 * W_CHUNK <= kin;
-#pragma unroll
-        for (int j = 0; j < W_CHUNK; ++j)
-          wn[j] = more ? __ldg(wp + (size_t)(k + W_CHUNK + j) * ldw) : 0.f;
-        fma_rows<KMAX, W_CHUNK>(X, ldx, k, w, acc, R);
-#pragma unroll
-        for (int j = 0; j < W_CHUNK; ++j) w[j] = wn[j];
-      }
-    }
-    for (; k < kin; k += 4) {
-      float w[4];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) w[j] = __ldg(wp + (size_t)(k + j) * ldw);
-      fma_rows<KMAX, 4>(X, ldx, k, w, acc, R);
-    }
-#pragma unroll
-    for (int r = 0; r < KMAX; ++r) {
-      if (r < R) {
-        float* y = Y + r * ldy + n;
-        float v = acc[r];
-        if (EP == EP_RELU_COLS) {
-          if (n < relu_cols) v = fmaxf(v, 0.f);
-        } else if (EP == EP_ADD) {
-          v += *y;
-        } else if (EP == EP_MASK) {
-          v = v * ((*y > 0.f) ? 1.f : 0.f);
-        }
-        *y = v;
-      }
-    }
-  }
+// The tile shape of a phase whose jobs have M rows and, in all, this many
+// large tiles (tf32x3.cuh).
+enum { SMALL = 0, MEDIUM = 1, LARGE = 2 };
+__host__ __device__ inline int tile_shape(int M, int large_tiles) {
+  if (M < tf32x3::kLargeRows) return SMALL;
+  return large_tiles < tf32x3::kFillTiles ? MEDIUM : LARGE;
 }
 
-// Copy columns [0, w) of K rows of shared-memory matrix X (row stride ldx)
-// to rows row0 + r * B of global matrix G (row stride ldg), at column c0.
-__device__ __forceinline__ void store_rows(const float* X, int ldx, int w,
-                                           int K, float* G, size_t row0,
-                                           int B, int ldg, int c0) {
-  for (int i = threadIdx.x; i < K * w; i += NT) {
-    const int r = i / w, c = i - r * w;
-    G[(row0 + (size_t)r * B) * ldg + c0 + c] = X[r * ldx + c];
+// Tiles of a phase of jobs with M rows and the given output widths.
+__host__ __device__ inline int phase_tiles(int M, const int* N, int nj) {
+  int large = 0, medium = 0, small = 0;
+  for (int j = 0; j < nj; ++j) {
+    large += tf32x3::tiles_of<Large>(M, N[j]);
+    medium += tf32x3::tiles_of<Medium>(M, N[j]);
+    small += tf32x3::tiles_of<Small>(M, N[j]);
   }
+  const int shape = tile_shape(M, large);
+  return shape == LARGE ? large : (shape == MEDIUM ? medium : small);
 }
+
+// All jobs of a phase have the same rows M; the tile shape follows M and
+// how many large tiles the phase has.
+template <int LB>
+__device__ __forceinline__ void run_jobs(const Job* jobs, int nj, float* smem) {
+  int large = 0;
+  for (int j = 0; j < nj; ++j) large += tf32x3::tiles_of<Large>(jobs[j].M, jobs[j].N);
+  const int shape = tile_shape(jobs[0].M, large);
+  if (shape == LARGE)
+    run_jobs_cfg<Large, LB>(jobs, nj, smem);
+  else if (shape == MEDIUM)
+    run_jobs_cfg<Medium, LB>(jobs, nj, smem);
+  else
+    run_jobs_cfg<Small, LB>(jobs, nj, smem);
+}
+
+__device__ __forceinline__ unsigned long long globaltimer_() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Barrier over the whole (cooperatively launched, so co-resident) grid.
+// *bar counts arrivals and is never reset within a launch: the n-th
+// barrier waits for n * gridDim.x. Writes before it are visible to every
+// CTA after it (fences around a release/acquire counter). The waiting
+// CTAs poll it every 100 ns or so rather than in a tight loop. A barrier
+// still waiting after 10 s traps, so a fault ends the launch with an
+// error instead of hanging the device.
+__device__ __forceinline__ void grid_sync(unsigned* bar, unsigned& target) {
+  __syncthreads();
+  target += gridDim.x;
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1u);
+    const unsigned long long t0 = globaltimer_();
+    for (;;) {
+      unsigned v;
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(v)
+                   : "l"(bar)
+                   : "memory");
+      if ((int)(v - target) >= 0) break;
+      if (globaltimer_() - t0 > 10000000000ull) __trap();
+      __nanosleep(100);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// ---------------------------------------------------------------------------
+// Elementwise parts
+// ---------------------------------------------------------------------------
 
 // Adds the masked, signed-precision observation experts of (t, b, d) to
 // the PoE sums. The loads do not wait on the mask, so that all of them
@@ -182,9 +274,8 @@ __device__ __forceinline__ void add_obs_experts(
   }
 }
 
-struct Gtf {
-  const float *w1, *b1, *wg2, *bg2, *wn2, *bn2, *ws, *bs;  // (in, out)
-  const float *w1t, *wg2t, *wn2t, *wst;                     // (out, in)
+struct Weights {  // PyTorch layout (out, in)
+  const float *w1, *b1, *wg2, *bg2, *wn2, *bn2, *ws, *bs;
 };
 
 struct Dims {
@@ -192,226 +283,352 @@ struct Dims {
   float min_std;
 };
 
-// Recompute the transition on the K rows of Z into A = [relu(gate_1) |
-// relu(nonlin_1) | z_lin] (width 2H+D), G = gate_2 pre-activation,
-// N = z_nonlin and S = z_to_std pre-activation.
-template <int KMAX>
-__device__ __forceinline__ void gtf_forward(const Gtf& g, const Dims& s,
-                                            const float* Z, float* A, float* G,
-                                            float* N, float* S) {
-  const int D = s.D, H = s.H, K = s.K, la = 2 * H + D;
-  gemm_rows<KMAX, EP_RELU_COLS>(Z, D, D, g.w1, la, g.b1, A, la, la, K, 2 * H);
-  __syncthreads();
-  gemm_rows<KMAX, EP_STORE>(A, la, H, g.wg2, D, g.bg2, G, D, D, K, 0);
-  gemm_rows<KMAX, EP_STORE>(A + H, la, H, g.wn2, D, g.bn2, N, D, D, K, 0);
-  __syncthreads();
-  gemm_rows<KMAX, EP_STORE>(N, D, D, g.ws, D, g.bs, S, D, D, K, 0);
-  __syncthreads();
+// PoE(global prior, GTF(z_k)) of one particle: its mean and std.
+__device__ __forceinline__ void poe2(float gm, float p1, float a2, float zl,
+                                     float zn, float sraw, float min_std,
+                                     float& ppm, float& pps) {
+  const float gate = sigmoid_(a2);
+  const float qm = (1.f - gate) * zl + gate * zn;
+  const float qs = softplus_(sraw) + min_std;
+  const float p2 = 1.f / (qs * qs + kEps);
+  const float den2 = p1 + p2;
+  ppm = (gm * p1 + qm * p2) / den2;
+  pps = rsqrt_(den2);
 }
+
+// ---------------------------------------------------------------------------
+// Forward
+// ---------------------------------------------------------------------------
 
 struct FwdArgs {
   const float *obs_mean, *obs_std, *obs_mask, *glb_mean, *glb_std, *eps;
-  Gtf g;
+  Weights w;
   float *prior_mean, *prior_std, *infer_mean, *infer_std, *samples, *z_traj;
+  // K B rows of [A (2H + D) | G (D) | N (D) | S (D)]: one step's activations.
+  float* work;
+  unsigned* bar;
   Dims s;
 };
 
-template <int KMAX>
-__global__ void __launch_bounds__(NT) bfvi_scan_fwd_kernel(FwdArgs a) {
-  extern __shared__ __align__(16) float smem[];
+// The elementwise phases give each (b, d) one thread at K = 1 and two at
+// K > 1, which split the particles; their partial sums meet in shared
+// memory and are added in group order, so every group holds the same sum.
+// (Two, not more: at B = 100 the 25,600 elements then take one pass of
+// the 264 resident CTAs, and a pass has a fixed cost of several
+// microseconds.) A thread walks its particles (at most 16: K <= 32) in
+// chunks of kChunk kept in registers, each chunk's loads all issued
+// before any is used.
+constexpr int kChunk = 8;
+struct Lanes {
+  int kg, KG, el, EPB;  // group, groups, element in the CTA's pass, elements
+  __device__ explicit Lanes(int K)
+      : KG(K > 1 ? 2 : 1), EPB(NT / KG) {
+    kg = threadIdx.x / EPB;
+    el = threadIdx.x % EPB;
+  }
+  // The particle of chunk c, slot i, of this thread.
+  __device__ int particle(int c, int i) const { return kg + (c * kChunk + i) * KG; }
+  // The chunks that hold particles for K of them.
+  __device__ int chunks(int K) const { return (K + KG * kChunk - 1) / (KG * kChunk); }
+};
+
+template <int NV>
+__device__ __forceinline__ void group_sum(float (&v)[NV], float* red,
+                                          const Lanes& ln) {
+  if (ln.KG == 1) return;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) red[(i * ln.KG + ln.kg) * ln.EPB + ln.el] = v[i];
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    float sum = 0.f;
+    for (int g = 0; g < ln.KG; ++g) sum += red[(i * ln.KG + g) * ln.EPB + ln.el];
+    v[i] = sum;
+  }
+  __syncthreads();
+}
+
+__device__ void fwd_elementwise(const FwdArgs& a, int t, float* red) {
   const Dims& s = a.s;
   const int D = s.D, H = s.H, K = s.K, M = s.M, B = s.B;
-  const int la = 2 * H + D;
-  const int b = blockIdx.x;
-  float* Z = smem;             // K x D   particles z_{t-1}
-  float* A = Z + K * D;        // K x la
-  float* G = A + K * la;       // K x D
-  float* N = G + K * D;        // K x D
-  float* S = N + K * D;        // K x D
-
-  for (int t = 0; t < s.T; ++t) {
-    if (t > 0) gtf_forward<KMAX>(a.g, s, Z, A, G, N, S);
-    for (int d = threadIdx.x; d < D; d += NT) {
-      const size_t bd = (size_t)b * D + d;
-      const float gm = a.glb_mean[bd], gs = a.glb_std[bd];
-      float pm = gm, ps = gs;
-      if (t > 0) {
-        // PoE(global prior, GTF(z_k)) per particle, then the moment-matched
-        // mixture over the K particles.
-        const float p1 = 1.f / (gs * gs + kEps);
-        float s1 = 0.f, s2 = 0.f, s3 = 0.f;
-        for (int r = 0; r < K; ++r) {
-          const float gate = sigmoid_(G[r * D + d]);
-          const float qm = (1.f - gate) * A[r * la + 2 * H + d] + gate * N[r * D + d];
-          const float qs = softplus_(S[r * D + d]) + s.min_std;
-          const float p2 = 1.f / (qs * qs + kEps);
-          const float den2 = p1 + p2;
-          const float ppm = (gm * p1 + qm * p2) / den2;
-          const float pps = rsqrt_(den2);
-          s1 += ppm;
-          s2 += pps * pps;
-          s3 += ppm * ppm;
+  const int lw = 2 * H + 4 * D, la = 2 * H + D;
+  const float* A = a.work;
+  const Lanes ln(K);
+  for (int base = blockIdx.x * ln.EPB; base < B * D; base += gridDim.x * ln.EPB) {
+    const int e = base + ln.el;
+    const bool live = e < B * D;
+    const int b = live ? e / D : 0, d = live ? e - b * D : 0;
+    const size_t bd = (size_t)b * D + d;
+    const float gm = __ldg(a.glb_mean + bd), gs = __ldg(a.glb_std + bd);
+    // The observation experts' sums first, so that their loads are in
+    // flight with the particles'.
+    float num_o = 0.f, den_o = 0.f;
+    add_obs_experts(a.obs_mean, a.obs_std, a.obs_mask, t, M, B, b, D, d,
+                    num_o, den_o);
+    float pm = gm, ps = gs;
+    if (t > 0) {
+      // PoE(global prior, GTF(z_k)) per particle, then the moment-matched
+      // mixture over the K particles.
+      const float p1 = 1.f / (gs * gs + kEps);
+      float m3[3] = {0.f, 0.f, 0.f};
+      for (int c = 0; c < ln.chunks(K); ++c) {
+        float a2[kChunk], zl[kChunk], zn[kChunk], sr[kChunk];
+#pragma unroll
+        for (int i = 0; i < kChunk; ++i) {
+          const int r = ln.particle(c, i);
+          if (live && r < K) {
+            const float* row = A + ((size_t)r * B + b) * lw;
+            a2[i] = __ldcg(row + la + d);
+            zl[i] = __ldcg(row + 2 * H + d);
+            zn[i] = __ldcg(row + la + D + d);
+            sr[i] = __ldcg(row + la + 2 * D + d);
+          }
         }
-        const float mu = s1 / (float)K;
-        const float var = s2 / (float)K + s3 / (float)K - mu * mu;
-        pm = mu;
-        ps = sqrtf(fmaxf(var, 0.f));
+#pragma unroll
+        for (int i = 0; i < kChunk; ++i) {
+          if (live && ln.particle(c, i) < K) {
+            float ppm, pps;
+            poe2(gm, p1, a2[i], zl[i], zn[i], sr[i], s.min_std, ppm, pps);
+            m3[0] += ppm;
+            m3[1] += pps * pps;
+            m3[2] += ppm * ppm;
+          }
+        }
       }
-      // Masked, signed-precision PoE with the M observation experts.
-      const float prec_p = 1.f / (ps * ps + kEps);
-      float num = pm * prec_p, den = prec_p;
-      add_obs_experts(a.obs_mean, a.obs_std, a.obs_mask, t, M, B, b, D, d,
-                      num, den);
-      const bool low = den < kPrecFloor;
-      const float safe = low ? 1.f : den;
-      const float im = low ? 0.f : num / safe;
-      const float is = low ? 1e3f : rsqrt_(safe);
-      const size_t tbd = ((size_t)t * B + b) * D + d;
+      group_sum(m3, red, ln);
+      const float mu = m3[0] / (float)K;
+      const float var = m3[1] / (float)K + m3[2] / (float)K - mu * mu;
+      pm = mu;
+      ps = sqrtf(fmaxf(var, 0.f));
+    }
+    // Masked, signed-precision PoE with the M observation experts.
+    const float prec_p = 1.f / (ps * ps + kEps);
+    const float num = pm * prec_p + num_o, den = prec_p + den_o;
+    const bool low = den < kPrecFloor;
+    const float safe = low ? 1.f : den;
+    const float im = low ? 0.f : num / safe;
+    const float is = low ? 1e3f : rsqrt_(safe);
+    const size_t tbd = ((size_t)t * B + b) * D + d;
+    if (live && ln.kg == 0) {
       a.prior_mean[tbd] = pm;
       a.prior_std[tbd] = ps;
       a.infer_mean[tbd] = im;
       a.infer_std[tbd] = is;
-      float zs = 0.f;
-#pragma unroll 4
-      for (int r = 0; r < K; ++r) {
-        const size_t o = (((size_t)t * K + r) * B + b) * D + d;
-        const float z = im + __ldg(a.eps + o) * is;
-        Z[r * D + d] = z;
-        a.z_traj[o] = z;
-        zs += z;
-      }
-      a.samples[tbd] = zs / (float)K;
     }
-    __syncthreads();
+    float zs[1] = {0.f};
+    for (int c = 0; c < ln.chunks(K); ++c) {
+      float ep[kChunk];
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        const int r = ln.particle(c, i);
+        if (live && r < K)
+          ep[i] = __ldg(a.eps + (((size_t)t * K + r) * B + b) * D + d);
+      }
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        const int r = ln.particle(c, i);
+        if (live && r < K) {
+          const float z = im + ep[i] * is;
+          a.z_traj[(((size_t)t * K + r) * B + b) * D + d] = z;
+          zs[0] += z;
+        }
+      }
+    }
+    group_sum(zs, red, ln);
+    if (live && ln.kg == 0) a.samples[tbd] = zs[0] / (float)K;
   }
 }
+
+__global__ void __launch_bounds__(NT, 2) bfvi_scan_fwd_kernel(FwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const Dims& s = a.s;
+  const int D = s.D, H = s.H, R = s.K * s.B;
+  const int la = 2 * H + D, lw = la + 3 * D;
+  float* A = a.work;
+  float* G = A + la;
+  float* N = G + D;
+  float* S = N + D;
+  const Weights& w = a.w;
+  unsigned target = 0;
+  for (int t = 0; t < s.T; ++t) {
+    if (t > 0) {
+      const float* Z = a.z_traj + (size_t)(t - 1) * R * D;
+      Job p1[1] = {{{Z, D}, {w.w1, D}, R, la, D, {}}};
+      p1[0].ep = store_to(A, lw, w.b1, la);
+      p1[0].ep.relu_cols = 2 * H;
+      run_jobs<tf32x3::B_NK>(p1, 1, smem);
+      grid_sync(a.bar, target);
+      Job p2[2] = {{{A, lw}, {w.wg2, H}, R, D, H, store_to(G, lw, w.bg2, D)},
+                   {{A + H, lw}, {w.wn2, H}, R, D, H, store_to(N, lw, w.bn2, D)}};
+      run_jobs<tf32x3::B_NK>(p2, 2, smem);
+      grid_sync(a.bar, target);
+      Job p3[1] = {{{N, lw}, {w.ws, D}, R, D, D, store_to(S, lw, w.bs, D)}};
+      run_jobs<tf32x3::B_NK>(p3, 1, smem);
+      grid_sync(a.bar, target);
+    }
+    fwd_elementwise(a, t, smem);
+    if (t + 1 < s.T) grid_sync(a.bar, target);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Backward
+// ---------------------------------------------------------------------------
 
 struct BwdArgs {
   const float *obs_mean, *obs_std, *obs_mask, *glb_mean, *glb_std, *eps,
       *z_traj, *prior_mean, *prior_std;
   const float *g_pm, *g_ps, *g_im, *g_is, *g_smp;
-  Gtf g;
-  float *d_obs_mean, *d_obs_std, *d_glb_mean, *d_glb_std;
+  Weights w;
+  float *d_obs_mean, *d_obs_std, *d_glb_mean, *d_glb_std;  // d_glb_*: zeroed
   // Rows ((t-1) K + k) B + b for t >= 1: xs = [h1 | hn | z_nonlin]
   // (2H + D wide), ys = [d_a1 | d_b1 | d_zlin | d_a2 | d_znonlin | d_sraw]
-  // (2H + 4D wide), the two sides of the weight-gradient products.
+  // (2H + 4D wide), the two sides of the weight-gradient products. Before
+  // a step's VJP, ys's d_zlin, d_a2 and d_sraw hold z_lin, gate_2's and
+  // z_to_std's pre-activations, which the VJP overwrites.
   float *xs, *ys;
+  float* gz;  // 3 x K B x D: the particles' cotangent in 3 parts (zeroed)
+  unsigned* bar;
   Dims s;
 };
 
-template <int KMAX>
-__global__ void __launch_bounds__(NT) bfvi_scan_bwd_kernel(BwdArgs a) {
-  extern __shared__ __align__(16) float smem[];
+__device__ void bwd_elementwise(const BwdArgs& a, int t, float* red) {
   const Dims& s = a.s;
   const int D = s.D, H = s.H, K = s.K, M = s.M, B = s.B;
-  const int la = 2 * H + D;
-  const int b = blockIdx.x;
-  float* Z = smem;             // K x D   z_{t-1}
-  float* A = Z + K * D;        // K x la  [h1 | hn | z_lin], later their cotangents
-  float* G = A + K * la;       // K x D   gate_2 pre-activation, then d_a2
-  float* N = G + K * D;        // K x D   z_nonlin
-  float* S = N + K * D;        // K x D   z_to_std pre-activation, then d_sraw
-  float* C = S + K * D;        // K x D   particle cotangent carried over time
-  const int lx = 2 * H + D, ly = la + 3 * D;
+  const int la = 2 * H + D, lx = la, ly = la + 3 * D;
+  const size_t R = (size_t)K * B, RD = R * D;
+  float* X = a.xs + (t > 0 ? (size_t)(t - 1) * R * lx : 0);
+  float* Y = a.ys + (t > 0 ? (size_t)(t - 1) * R * ly : 0);
+  const Lanes ln(K);
+  for (int base = blockIdx.x * ln.EPB; base < B * D; base += gridDim.x * ln.EPB) {
+    const int e = base + ln.el;
+    const bool live = e < B * D;
+    const int b = live ? e / D : 0, d = live ? e - b * D : 0;
+    const size_t bd = (size_t)b * D + d;
+    const size_t tbd = ((size_t)t * B + b) * D + d;
+    // The loads of this (b, d) that do not wait on anything come first, so
+    // that they are in flight together: a dependent round trip to memory
+    // costs microseconds here.
+    const float prior_m = __ldg(a.prior_mean + tbd);
+    const float prior_s = __ldg(a.prior_std + tbd);
+    const float g_smp = __ldg(a.g_smp + tbd), g_im = __ldg(a.g_im + tbd);
+    const float g_is = __ldg(a.g_is + tbd), g_pm = __ldg(a.g_pm + tbd);
+    const float g_ps = __ldg(a.g_ps + tbd);
+    const float gm = __ldg(a.glb_mean + bd), gs = __ldg(a.glb_std + bd);
+    float num_o = 0.f, den_o = 0.f;
+    add_obs_experts(a.obs_mean, a.obs_std, a.obs_mask, t, M, B, b, D, d,
+                    num_o, den_o);
 
-  for (int i = threadIdx.x; i < K * D; i += NT) C[i] = 0.f;
-  for (int d = threadIdx.x; d < D; d += NT) {
-    a.d_glb_mean[(size_t)b * D + d] = 0.f;
-    a.d_glb_std[(size_t)b * D + d] = 0.f;
-  }
-  __syncthreads();
-
-  for (int t = s.T - 1; t >= 0; --t) {
-    const size_t row0 = (size_t)(t - 1) * K * B + b;  // rows of step t
-    if (t > 0) {
-      for (int i = threadIdx.x; i < K * D; i += NT) {
-        const int r = i / D, d = i - r * D;
-        Z[i] = a.z_traj[(((size_t)(t - 1) * K + r) * B + b) * D + d];
+    // Cotangents into z_t -> inference mean/std. A particle's cotangent
+    // is the sum of the three partial products of the step after (gz, in
+    // order).
+    const float gsm = g_smp / (float)K;
+    float gg[2] = {0.f, 0.f};  // sum of gz, sum of gz * eps
+    for (int c = 0; c < ln.chunks(K); ++c) {
+      float gzs[kChunk], ep[kChunk];
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        const int r = ln.particle(c, i);
+        if (live && r < K) {
+          const size_t o = ((size_t)r * B + b) * D + d;
+          gzs[i] = __ldcg(a.gz + o) + __ldcg(a.gz + RD + o) +
+                   __ldcg(a.gz + 2 * RD + o);
+          ep[i] = __ldg(a.eps + (((size_t)t * K + r) * B + b) * D + d);
+        }
       }
-      __syncthreads();
-      gtf_forward<KMAX>(a.g, s, Z, A, G, N, S);
-      store_rows(A, la, 2 * H, K, a.xs, row0, B, lx, 0);
-      store_rows(N, D, D, K, a.xs, row0, B, lx, 2 * H);
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        if (live && ln.particle(c, i) < K) {
+          const float gz = gzs[i] + gsm;
+          gg[0] += gz;
+          gg[1] += gz * ep[i];
+        }
+      }
     }
+    group_sum(gg, red, ln);
+    const float gim = g_im + gg[0];
+    const float gis = g_is + gg[1];
 
-    for (int d = threadIdx.x; d < D; d += NT) {
-      const size_t bd = (size_t)b * D + d;
-      const size_t tbd = ((size_t)t * B + b) * D + d;
-      // Obs-PoE pieces, recomputed.
-      const float prior_m = a.prior_mean[tbd], prior_s = a.prior_std[tbd];
-      const float var_p = prior_s * prior_s + kEps;
-      const float prec_p = 1.f / var_p;
-      float num = prior_m * prec_p, den = prec_p;
-      add_obs_experts(a.obs_mean, a.obs_std, a.obs_mask, t, M, B, b, D, d,
-                      num, den);
-      const bool low = den < kPrecFloor;
-      const float safe = low ? 1.f : den;
+    // Obs-PoE pieces, recomputed, and their VJP.
+    const float var_p = prior_s * prior_s + kEps;
+    const float prec_p = 1.f / var_p;
+    const float num = prior_m * prec_p + num_o, den = prec_p + den_o;
+    const bool low = den < kPrecFloor;
+    const float safe = low ? 1.f : den;
+    const float d_num = low ? 0.f : gim / safe;
+    const float d_den =
+        low ? 0.f : (-gim * num / (safe * safe) - 0.5f * gis * pow_m15_(safe));
+    for (int m = 0; live && ln.kg == 0 && m < M; ++m) {
+      const size_t tm = (size_t)t * M + m;
+      const bool mk = __ldg(a.obs_mask + tm * B + b) > 0.f;
+      const size_t o = (tm * B + b) * D + d;
+      const float om = __ldg(a.obs_mean + o), os = __ldg(a.obs_std + o);
+      const float var_o = os * os + kEps;
+      const float prec = sign_(os) / var_o;
+      const float d_prec = mk ? d_num * om + d_den : 0.f;
+      a.d_obs_mean[o] = mk ? d_num * prec : 0.f;
+      a.d_obs_std[o] = d_prec * (-2.f * sign_(os) * os / (var_o * var_o));
+    }
+    const float d_prior_m = d_num * prec_p + g_pm;
+    const float d_prec_pp = d_num * prior_m + d_den;
+    const float d_prior_s = d_prec_pp * (-2.f * prior_s / (var_p * var_p)) + g_ps;
 
-      // Cotangents into z_t -> inference mean/std.
-      const float gsm = a.g_smp[tbd] / (float)K;
-      float gsum = 0.f, gesum = 0.f;
-#pragma unroll 4
-      for (int r = 0; r < K; ++r) {
-        const float gz = C[r * D + d] + gsm;
-        gsum += gz;
-        gesum += gz * __ldg(a.eps + (((size_t)t * K + r) * B + b) * D + d);
-      }
-      const float gim = a.g_im[tbd] + gsum;
-      const float gis = a.g_is[tbd] + gesum;
-
-      // Obs-PoE VJP.
-      const float d_num = low ? 0.f : gim / safe;
-      const float d_den =
-          low ? 0.f : (-gim * num / (safe * safe) - 0.5f * gis * pow_m15_(safe));
-#pragma unroll 4
-      for (int m = 0; m < M; ++m) {
-        const size_t tm = (size_t)t * M + m;
-        const bool mk = __ldg(a.obs_mask + tm * B + b) > 0.f;
-        const size_t o = (tm * B + b) * D + d;
-        const float om = __ldg(a.obs_mean + o), os = __ldg(a.obs_std + o);
-        const float var_o = os * os + kEps;
-        const float prec = sign_(os) / var_o;
-        const float d_prec = mk ? d_num * om + d_den : 0.f;
-        a.d_obs_mean[o] = mk ? d_num * prec : 0.f;
-        a.d_obs_std[o] = d_prec * (-2.f * sign_(os) * os / (var_o * var_o));
-      }
-      const float d_prior_m = d_num * prec_p + a.g_pm[tbd];
-      const float d_prec_pp = d_num * prior_m + d_den;
-      const float d_prior_s = d_prec_pp * (-2.f * prior_s / (var_p * var_p)) + a.g_ps[tbd];
-
-      if (t == 0) {  // the global prior was the prior at t = 0
+    if (t == 0) {  // the global prior was the prior at t = 0
+      if (live && ln.kg == 0) {
         a.d_glb_mean[bd] += d_prior_m;
         a.d_glb_std[bd] += d_prior_s;
-        continue;
       }
+      continue;
+    }
 
-      // PoE2 + mixture, recomputed, then their VJP.
-      const float gm = a.glb_mean[bd], gs = a.glb_std[bd];
-      const float p1 = 1.f / (gs * gs + kEps);
-      float s1 = 0.f, s2 = 0.f, s3 = 0.f;
-      for (int r = 0; r < K; ++r) {
-        const float gate = sigmoid_(G[r * D + d]);
-        const float qm = (1.f - gate) * A[r * la + 2 * H + d] + gate * N[r * D + d];
-        const float qs = softplus_(S[r * D + d]) + s.min_std;
-        const float p2 = 1.f / (qs * qs + kEps);
-        const float den2 = p1 + p2;
-        const float ppm = (gm * p1 + qm * p2) / den2;
-        const float pps = rsqrt_(den2);
-        s1 += ppm;
-        s2 += pps * pps;
-        s3 += ppm * ppm;
+    // PoE2 + mixture, recomputed, then their VJP; each chunk of particles
+    // is read again for the VJP (from cache) rather than held across the
+    // barrier of the mixture's sums.
+    const float p1 = 1.f / (gs * gs + kEps);
+    float m3[3] = {0.f, 0.f, 0.f};
+    float a2v[kChunk], zlv[kChunk], znv[kChunk], srv[kChunk];
+    auto load_chunk = [&](int c) {
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        const int r = ln.particle(c, i);
+        if (live && r < K) {
+          const size_t row = (size_t)r * B + b;
+          const float* y = Y + row * ly;
+          a2v[i] = __ldcg(y + la + d);
+          zlv[i] = __ldcg(y + 2 * H + d);
+          znv[i] = __ldcg(X + row * lx + 2 * H + d);
+          srv[i] = __ldcg(y + la + 2 * D + d);
+        }
       }
-      const float mu = s1 / (float)K;
-      const float var = s2 / (float)K + s3 / (float)K - mu * mu;
-      const float ps_val = sqrtf(fmaxf(var, kEps));  // floored at _EPS, as on the TPU
-      const float d_var = (var > 0.f) ? d_prior_s / (2.f * ps_val) : 0.f;
-      float dglb_m = 0.f, d_p1 = 0.f;
-      for (int r = 0; r < K; ++r) {
-        const float a2 = G[r * D + d];
-        const float gate = sigmoid_(a2);
-        const float zl = A[r * la + 2 * H + d];
-        const float zn = N[r * D + d];
-        const float sraw = S[r * D + d];
+    };
+    for (int c = 0; c < ln.chunks(K); ++c) {
+      load_chunk(c);
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        if (live && ln.particle(c, i) < K) {
+          float ppm, pps;
+          poe2(gm, p1, a2v[i], zlv[i], znv[i], srv[i], s.min_std, ppm, pps);
+          m3[0] += ppm;
+          m3[1] += pps * pps;
+          m3[2] += ppm * ppm;
+        }
+      }
+    }
+    group_sum(m3, red, ln);
+    const float mu = m3[0] / (float)K;
+    const float var = m3[1] / (float)K + m3[2] / (float)K - mu * mu;
+    const float ps_val = sqrtf(fmaxf(var, kEps));  // floored at _EPS, as on the TPU
+    const float d_var = (var > 0.f) ? d_prior_s / (2.f * ps_val) : 0.f;
+    float dg[2] = {0.f, 0.f};  // d_glb_mean, d_p1
+    for (int c = 0; c < ln.chunks(K); ++c) {
+      load_chunk(c);
+#pragma unroll
+      for (int i = 0; i < kChunk; ++i) {
+        const int r = ln.particle(c, i);
+        if (!live || r >= K) continue;
+        float* y = Y + ((size_t)r * B + b) * ly;
+        const float gate = sigmoid_(a2v[i]);
+        const float zl = zlv[i], zn = znv[i], sraw = srv[i];
         const float qm = (1.f - gate) * zl + gate * zn;
         const float qs = softplus_(sraw) + s.min_std;
         const float q2 = qs * qs + kEps;
@@ -427,129 +644,189 @@ __global__ void __launch_bounds__(NT) bfvi_scan_bwd_kernel(BwdArgs a) {
         const float d_qm = d_num2 * p2;
         const float d_p2 = d_num2 * qm + d_den2;
         const float d_qs = d_p2 * (-2.f * qs / (q2 * q2));
-        dglb_m += d_num2 * p1;
-        d_p1 += d_num2 * gm + d_den2;
-        // GTF output VJP (elementwise part).
-        S[r * D + d] = d_qs * sigmoid_(sraw);                       // d_sraw
-        G[r * D + d] = d_qm * (zn - zl) * gate * (1.f - gate);      // d_a2
-        A[r * la + 2 * H + d] = d_qm * (1.f - gate);                // d_zlin
-        C[r * D + d] = d_qm * gate;                                 // d_znon, partial
+        dg[0] += d_num2 * p1;
+        dg[1] += d_num2 * gm + d_den2;
+        // GTF output VJP (elementwise part), over the pre-activations.
+        y[la + 2 * D + d] = d_qs * sigmoid_(sraw);                  // d_sraw
+        y[la + d] = d_qm * (zn - zl) * gate * (1.f - gate);         // d_a2
+        y[2 * H + d] = d_qm * (1.f - gate);                         // d_zlin
+        y[la + D + d] = d_qm * gate;                                // d_znon, partial
       }
-      a.d_glb_mean[bd] += dglb_m;
-      a.d_glb_std[bd] += d_p1 * (-2.f * gs / ((gs * gs + kEps) * (gs * gs + kEps)));
     }
-    __syncthreads();
-    if (t == 0) break;
-
-    // GTF VJP through the products; the cotangents of the products' outputs
-    // go to ys for the weight gradients.
-    gemm_rows<KMAX, EP_ADD>(S, D, D, a.g.wst, D, nullptr, C, D, D, K, 0);
-    __syncthreads();
-    store_rows(G, D, D, K, a.ys, row0, B, ly, la);          // d_a2
-    store_rows(C, D, D, K, a.ys, row0, B, ly, la + D);      // d_znonlin
-    store_rows(S, D, D, K, a.ys, row0, B, ly, la + 2 * D);  // d_sraw
-    gemm_rows<KMAX, EP_MASK>(G, D, D, a.g.wg2t, H, nullptr, A, la, H, K, 0);
-    gemm_rows<KMAX, EP_MASK>(C, D, D, a.g.wn2t, H, nullptr, A + H, la, H, K, 0);
-    __syncthreads();
-    store_rows(A, la, la, K, a.ys, row0, B, ly, 0);         // d_a1|d_b1|d_zlin
-    gemm_rows<KMAX, EP_STORE>(A, la, la, a.g.w1t, D, nullptr, C, D, D, K, 0);
-    __syncthreads();
+    group_sum(dg, red, ln);
+    if (live && ln.kg == 0) {
+      a.d_glb_mean[bd] += dg[0];
+      a.d_glb_std[bd] +=
+          dg[1] * (-2.f * gs / ((gs * gs + kEps) * (gs * gs + kEps)));
+    }
   }
 }
 
-// dW[i, j] = sum_r X[r, i] Y[r, j] (i < M1, j < N1) and db[j] = sum_r Y[r, j]
-// over rows r of split blockIdx.z; split s writes dW + s * P, db + s * P.
-struct WgradJob {
-  const float* X;
-  const float* Y;
-  int ldx, ldy, M1, N1;
+__global__ void __launch_bounds__(NT, 2) bfvi_scan_bwd_kernel(BwdArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  const Dims& s = a.s;
+  const int D = s.D, H = s.H, R = s.K * s.B;
+  const int la = 2 * H + D, lx = la, ly = la + 3 * D;
+  const int RA = (s.T - 1) * R;  // rows of all steps t >= 1
+  const Weights& w = a.w;
+  unsigned target = 0;
+
+  // The transition of every step t >= 1 on z_{t-1}, recomputed at once.
+  Job q1[1] = {{{a.z_traj, D}, {w.w1, D}, RA, la, D, {}}};
+  q1[0].ep = Epi{EP_STORE, w.b1, 2 * H, a.xs, lx, a.ys + 2 * H, ly, 2 * H,
+                 nullptr, 0};
+  run_jobs<tf32x3::B_NK>(q1, 1, smem);
+  grid_sync(a.bar, target);
+  Job q2[2] = {
+      {{a.xs, lx}, {w.wg2, H}, RA, D, H, store_to(a.ys + la, ly, w.bg2, D)},
+      {{a.xs + H, lx}, {w.wn2, H}, RA, D, H,
+       store_to(a.xs + 2 * H, lx, w.bn2, D)}};
+  run_jobs<tf32x3::B_NK>(q2, 2, smem);
+  grid_sync(a.bar, target);
+  Job q3[1] = {{{a.xs + 2 * H, lx}, {w.ws, D}, RA, D, D,
+                store_to(a.ys + la + 2 * D, ly, w.bs, D)}};
+  run_jobs<tf32x3::B_NK>(q3, 1, smem);
+  grid_sync(a.bar, target);
+
+  for (int t = s.T - 1; t >= 0; --t) {
+    bwd_elementwise(a, t, smem);
+    if (t == 0) break;
+    grid_sync(a.bar, target);
+    float* X = a.xs + (size_t)(t - 1) * R * lx;
+    float* Y = a.ys + (size_t)(t - 1) * R * ly;
+    // d_znon += d_sraw @ ws;  d_a1 = (d_a2 @ wg2) * (h1 > 0)
+    Job p5[2] = {{{Y + la + 2 * D, ly}, {w.ws, D}, R, D, D,
+                  store_to(Y + la + D, ly, nullptr, D)},
+                 {{Y + la, ly}, {w.wg2, H}, R, H, D,
+                  store_to(Y, ly, nullptr, H)}};
+    p5[0].ep.mode = EP_ADD;
+    p5[1].ep.mode = EP_MASK;
+    p5[1].ep.mask = X;
+    p5[1].ep.ldm = lx;
+    run_jobs<tf32x3::B_KN>(p5, 2, smem);
+    grid_sync(a.bar, target);
+    // d_b1 = (d_znon @ wn2) * (hn > 0)
+    Job p6[1] = {{{Y + la + D, ly}, {w.wn2, H}, R, H, D,
+                  store_to(Y + H, ly, nullptr, H)}};
+    p6[0].ep.mode = EP_MASK;
+    p6[0].ep.mask = X + H;
+    p6[0].ep.ldm = lx;
+    run_jobs<tf32x3::B_KN>(p6, 1, smem);
+    grid_sync(a.bar, target);
+    // gz = [d_a1 | d_b1 | d_zlin] @ w1, the cotangent of z_{t-1}, as its
+    // three 256-deep blocks (gate_1, nonlin_1, z_lin), each into its own
+    // partial: three times the tiles of one 768-deep product, so they fill
+    // the card; the elementwise phase adds them in order.
+    const size_t RD = (size_t)R * D;
+    Job p7[3] = {
+        {{Y, ly}, {w.w1, D}, R, D, H, store_to(a.gz, D, nullptr, D)},
+        {{Y + H, ly}, {w.w1 + (size_t)H * D, D}, R, D, H,
+         store_to(a.gz + RD, D, nullptr, D)},
+        {{Y + 2 * H, ly}, {w.w1 + (size_t)2 * H * D, D}, R, D, D,
+         store_to(a.gz + 2 * RD, D, nullptr, D)}};
+    run_jobs<tf32x3::B_KN>(p7, 3, smem);
+    grid_sync(a.bar, target);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Weight gradients
+// ---------------------------------------------------------------------------
+
+// dW[i, j] = sum_r X[r, i] Y[r, j] (i < M1, j < N1), db[j] = sum_r Y[r, j],
+// over the rows of one split; split z writes dW + z P and db + z P.
+struct WJob {
+  Operand x, y;
+  int M1, N1;
   float *dW, *db;
 };
 
-constexpr int WG_TILE = 64, WG_ROWS = 16;
+using WTile = tf32x3::LargePromoted;  // the weight gradients' tile
 
-__global__ void __launch_bounds__(NT) gtf_wgrad_kernel(WgradJob j, int R,
-                                                       int rows_per_split,
-                                                       long long P) {
-  __shared__ __align__(16) float Xs[WG_ROWS][WG_TILE];
-  __shared__ __align__(16) float Ys[WG_ROWS][WG_TILE];
-  const int i0 = blockIdx.x * WG_TILE, j0 = blockIdx.y * WG_TILE;
-  const int r_begin = blockIdx.z * rows_per_split;
-  const int r_end = min(R, r_begin + rows_per_split);
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  float acc[4][4] = {};
-  float bsum = 0.f;
-  for (int r0 = r_begin; r0 < r_end; r0 += WG_ROWS) {
-#pragma unroll
-    for (int q = 0; q < WG_ROWS * WG_TILE / NT; ++q) {
-      const int idx = tid + q * NT, rr = idx / WG_TILE, c = idx % WG_TILE;
-      const int r = r0 + rr;
-      Xs[rr][c] = (r < r_end && i0 + c < j.M1)
-                      ? j.X[(size_t)r * j.ldx + i0 + c] : 0.f;
-      Ys[rr][c] = (r < r_end && j0 + c < j.N1)
-                      ? j.Y[(size_t)r * j.ldy + j0 + c] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int rr = 0; rr < WG_ROWS; ++rr) {
-      const float4 x = *reinterpret_cast<const float4*>(&Xs[rr][ty * 4]);
-      const float4 y = *reinterpret_cast<const float4*>(&Ys[rr][tx * 4]);
-      const float xv[4] = {x.x, x.y, x.z, x.w}, yv[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-      for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj)
-          acc[ii][jj] = fmaf(xv[ii], yv[jj], acc[ii][jj]);
-    }
-    if (blockIdx.x == 0 && tid < WG_TILE) {
-#pragma unroll
-      for (int rr = 0; rr < WG_ROWS; ++rr) bsum += Ys[rr][tid];
-    }
-    __syncthreads();
+struct WgradArgs {
+  WJob jobs[4];
+  int R, rows_per_split;
+  long long P;
+};
+
+__global__ void __launch_bounds__(NT, 2) gtf_wgrad_kernel(WgradArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  int j = 0, local = blockIdx.x;
+  while (local >= tf32x3::tiles_of<WTile>(a.jobs[j].M1, a.jobs[j].N1)) {
+    local -= tf32x3::tiles_of<WTile>(a.jobs[j].M1, a.jobs[j].N1);
+    ++j;
   }
-  float* dW = j.dW + (size_t)blockIdx.z * P;
-#pragma unroll
-  for (int ii = 0; ii < 4; ++ii) {
-    const int i = i0 + ty * 4 + ii;
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj) {
-      const int c = j0 + tx * 4 + jj;
-      if (i < j.M1 && c < j.N1) dW[(size_t)i * j.N1 + c] = acc[ii][jj];
-    }
-  }
-  if (blockIdx.x == 0 && tid < WG_TILE && j0 + tid < j.N1)
-    j.db[(size_t)blockIdx.z * P + j0 + tid] = bsum;
+  const WJob& jb = a.jobs[j];
+  const int mt = (jb.M1 + WTile::BM - 1) / WTile::BM;
+  const int m0 = (local % mt) * WTile::BM, n0 = (local / mt) * WTile::BN;
+  const int r0 = min(a.R, (int)blockIdx.y * a.rows_per_split);
+  const int r1 = min(a.R, r0 + a.rows_per_split);
+  const Operand x = {jb.x.p + (size_t)r0 * jb.x.ld, jb.x.ld};
+  const Operand y = {jb.y.p + (size_t)r0 * jb.y.ld, jb.y.ld};
+  Acc<WTile> acc;
+  float cs = 0.f;
+  tf32x3::tile_product<WTile, tf32x3::A_KM, tf32x3::B_KN>(
+      x, y, jb.M1, jb.N1, r1 - r0, m0, n0, smem, acc, m0 == 0 ? &cs : nullptr);
+  float* dW = jb.dW + (size_t)blockIdx.y * a.P;
+  const int N1 = jb.N1;
+  tf32x3::tile_store<WTile>(acc, jb.M1, N1, m0, n0,
+                            [&](int m, int n, float v0, float v1) {
+                              *reinterpret_cast<float2*>(dW + (size_t)m * N1 + n) =
+                                  make_float2(v0, v1);
+                            });
+  if (m0 == 0 && threadIdx.x < WTile::BN && n0 + (int)threadIdx.x < N1)
+    jb.db[(size_t)blockIdx.y * a.P + n0 + threadIdx.x] = cs;
 }
 
-template <typename Kern>
-cudaError_t launch(Kern kern, size_t smem, int grid, cudaStream_t stream,
-                   void* args_ptr) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// ---------------------------------------------------------------------------
+// Launches
+// ---------------------------------------------------------------------------
+
+cudaError_t set_smem(const void* kern) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)tf32x3::kSmemBytes);
+}
+
+// A cooperative launch of as many CTAs as the device holds at once (two
+// per SM), or fewer where no phase has more work (`work` tiles or blocks).
+// If the device cannot hold the grid, the launch fails: there is no other
+// path.
+template <typename Args>
+cudaError_t launch_coop(void (*kern)(Args), int work, cudaStream_t st,
+                        Args* args) {
+  cudaError_t err = set_smem((const void*)kern);
   if (err != cudaSuccess) return err;
-  void* params[] = {args_ptr};
-  err = cudaLaunchKernel((const void*)kern, dim3(grid), dim3(NT), params,
-                         smem, stream);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, NT,
+                                                      tf32x3::kSmemBytes);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int grid = work < per_sm * sms ? (work > 0 ? work : 1) : per_sm * sms;
+  void* params[] = {args};
+  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(NT),
+                                    params, tf32x3::kSmemBytes, st);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
-Gtf make_gtf(const float* w1, const float* b1, const float* wg2,
-             const float* bg2, const float* wn2, const float* bn2,
-             const float* ws, const float* bs, const float* w1t,
-             const float* wg2t, const float* wn2t, const float* wst) {
-  Gtf g;
-  g.w1 = w1; g.b1 = b1; g.wg2 = wg2; g.bg2 = bg2; g.wn2 = wn2; g.bn2 = bn2;
-  g.ws = ws; g.bs = bs; g.w1t = w1t; g.wg2t = wg2t; g.wn2t = wn2t; g.wst = wst;
-  return g;
+// CTAs that give every (b, d) of an elementwise phase its threads.
+int elementwise_blocks(int n, int K) {
+  const int per_cta = K > 1 ? NT / 2 : NT;  // as Lanes
+  return (n + per_cta - 1) / per_cta;
+}
+
+Weights make_weights(const float* w1, const float* b1, const float* wg2,
+                     const float* bg2, const float* wn2, const float* bn2,
+                     const float* ws, const float* bs) {
+  return Weights{w1, b1, wg2, bg2, wn2, bn2, ws, bs};
 }
 
 }  // namespace
 
 extern "C" {
-
-// Largest particle count the kernels take (register-resident row sums).
-int bfvi_scan_max_k() { return 32; }
 
 int bfvi_scan_fwd(const float* obs_mean, const float* obs_std,
                   const float* obs_mask, const float* glb_mean,
@@ -558,24 +835,26 @@ int bfvi_scan_fwd(const float* obs_mean, const float* obs_std,
                   const float* bn2, const float* ws, const float* bs,
                   const float* eps, float* prior_mean, float* prior_std,
                   float* infer_mean, float* infer_std, float* samples,
-                  float* z_traj, int T, int M, int B, int K, int D, int H,
-                  float min_std, void* stream) {
+                  float* z_traj, float* work, unsigned* bar, int T, int M,
+                  int B, int K, int D, int H, float min_std, void* stream) {
   FwdArgs a;
   a.obs_mean = obs_mean; a.obs_std = obs_std; a.obs_mask = obs_mask;
   a.glb_mean = glb_mean; a.glb_std = glb_std; a.eps = eps;
-  a.g = make_gtf(w1, b1, wg2, bg2, wn2, bn2, ws, bs, nullptr, nullptr,
-                 nullptr, nullptr);
+  a.w = make_weights(w1, b1, wg2, bg2, wn2, bn2, ws, bs);
   a.prior_mean = prior_mean; a.prior_std = prior_std;
   a.infer_mean = infer_mean; a.infer_std = infer_std;
-  a.samples = samples; a.z_traj = z_traj;
-  a.s.T = T; a.s.M = M; a.s.B = B; a.s.K = K; a.s.D = D; a.s.H = H;
-  a.s.min_std = min_std;
-  const size_t smem = (size_t)K * (5 * D + 2 * H) * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (K <= 1) return (int)launch(bfvi_scan_fwd_kernel<1>, smem, B, st, &a);
-  if (K <= 8) return (int)launch(bfvi_scan_fwd_kernel<8>, smem, B, st, &a);
-  if (K <= 32) return (int)launch(bfvi_scan_fwd_kernel<32>, smem, B, st, &a);
-  return (int)cudaErrorInvalidValue;
+  a.samples = samples; a.z_traj = z_traj; a.work = work; a.bar = bar;
+  a.s = Dims{T, M, B, K, D, H, min_std};
+  const int R = K * B, la = 2 * H + D;
+  int work_items = elementwise_blocks(B * D, K);
+  if (T > 1) {
+    const int p1[1] = {la}, p2[2] = {D, D}, p3[1] = {D};
+    work_items = max_(work_items, max_(phase_tiles(R, p1, 1),
+                                       max_(phase_tiles(R, p2, 2),
+                                            phase_tiles(R, p3, 1))));
+  }
+  return (int)launch_coop(bfvi_scan_fwd_kernel, work_items,
+                          (cudaStream_t)stream, &a);
 }
 
 int bfvi_scan_bwd(const float* obs_mean, const float* obs_std,
@@ -583,61 +862,66 @@ int bfvi_scan_bwd(const float* obs_mean, const float* obs_std,
                   const float* glb_std, const float* w1, const float* b1,
                   const float* wg2, const float* bg2, const float* wn2,
                   const float* bn2, const float* ws, const float* bs,
-                  const float* w1t, const float* wg2t, const float* wn2t,
-                  const float* wst, const float* eps, const float* z_traj,
+                  const float* eps, const float* z_traj,
                   const float* prior_mean, const float* prior_std,
                   const float* g_pm, const float* g_ps, const float* g_im,
                   const float* g_is, const float* g_smp, float* d_obs_mean,
                   float* d_obs_std, float* d_glb_mean, float* d_glb_std,
-                  float* xs, float* ys, int T, int M, int B, int K, int D,
-                  int H, float min_std, void* stream) {
+                  float* xs, float* ys, float* gz, unsigned* bar, int T,
+                  int M, int B, int K, int D, int H, float min_std,
+                  void* stream) {
   BwdArgs a;
   a.obs_mean = obs_mean; a.obs_std = obs_std; a.obs_mask = obs_mask;
   a.glb_mean = glb_mean; a.glb_std = glb_std; a.eps = eps;
   a.z_traj = z_traj; a.prior_mean = prior_mean; a.prior_std = prior_std;
   a.g_pm = g_pm; a.g_ps = g_ps; a.g_im = g_im; a.g_is = g_is; a.g_smp = g_smp;
-  a.g = make_gtf(w1, b1, wg2, bg2, wn2, bn2, ws, bs, w1t, wg2t, wn2t, wst);
+  a.w = make_weights(w1, b1, wg2, bg2, wn2, bn2, ws, bs);
   a.d_obs_mean = d_obs_mean; a.d_obs_std = d_obs_std;
   a.d_glb_mean = d_glb_mean; a.d_glb_std = d_glb_std;
-  a.xs = xs; a.ys = ys;
-  a.s.T = T; a.s.M = M; a.s.B = B; a.s.K = K; a.s.D = D; a.s.H = H;
-  a.s.min_std = min_std;
-  const size_t smem = (size_t)K * (6 * D + 2 * H) * sizeof(float);
-  cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t err = cudaErrorInvalidValue;
-  if (K <= 1) err = launch(bfvi_scan_bwd_kernel<1>, smem, B, st, &a);
-  else if (K <= 8) err = launch(bfvi_scan_bwd_kernel<8>, smem, B, st, &a);
-  else if (K <= 32) err = launch(bfvi_scan_bwd_kernel<32>, smem, B, st, &a);
-  return (int)err;
+  a.xs = xs; a.ys = ys; a.gz = gz; a.bar = bar;
+  a.s = Dims{T, M, B, K, D, H, min_std};
+  const int R = K * B, RA = (T - 1) * R, la = 2 * H + D;
+  int work_items = elementwise_blocks(B * D, K);
+  if (T > 1) {
+    const int q1[1] = {la}, q2[2] = {D, D}, q3[1] = {D};
+    const int p5[2] = {D, H}, p6[1] = {H}, p7[3] = {D, D, D};
+    const int phases[] = {phase_tiles(RA, q1, 1), phase_tiles(RA, q2, 2),
+                          phase_tiles(RA, q3, 1), phase_tiles(R, p5, 2),
+                          phase_tiles(R, p6, 1), phase_tiles(R, p7, 3)};
+    for (int n : phases) work_items = max_(work_items, n);
+  }
+  return (int)launch_coop(bfvi_scan_bwd_kernel, work_items,
+                          (cudaStream_t)stream, &a);
 }
 
 // The GTF weight gradients from the R rows that bfvi_scan_bwd wrote (and
 // z_traj, whose first R rows are the input side of dW1), into `splits`
 // partials laid out as [dW1 (D x la) | db1 | dWg2 (H x D) | dbg2 |
-// dWn2 (H x D) | dbn2 | dWs (D x D) | dbs] each.
+// dWn2 (H x D) | dbn2 | dWs (D x D) | dbs] each, dW in (in, out) layout.
 int gtf_wgrad(const float* z_traj, const float* xs, const float* ys,
               float* partial, int splits, int R, int D, int H, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const int la = 2 * H + D, lx = 2 * H + D, ly = la + 3 * D;
-  const long long P = (long long)D * la + la + 2LL * (H * D + D) + D * D + D;
+  const int la = 2 * H + D, lx = la, ly = la + 3 * D;
+  WgradArgs a;
+  a.P = (long long)D * la + la + 2LL * (H * D + D) + D * D + D;
   float* dW1 = partial;
   float* dWg2 = dW1 + (size_t)D * la + la;
   float* dWn2 = dWg2 + (size_t)H * D + D;
   float* dWs = dWn2 + (size_t)H * D + D;
-  const WgradJob jobs[4] = {
-      {z_traj, ys, D, ly, D, la, dW1, dW1 + (size_t)D * la},
-      {xs, ys + la, lx, ly, H, D, dWg2, dWg2 + (size_t)H * D},
-      {xs + H, ys + la + D, lx, ly, H, D, dWn2, dWn2 + (size_t)H * D},
-      {xs + 2 * H, ys + la + 2 * D, lx, ly, D, D, dWs, dWs + (size_t)D * D}};
-  const int rows_per_split = (R + splits - 1) / splits;
-  for (const WgradJob& j : jobs) {
-    const dim3 grid((j.M1 + WG_TILE - 1) / WG_TILE,
-                    (j.N1 + WG_TILE - 1) / WG_TILE, splits);
-    gtf_wgrad_kernel<<<grid, NT, 0, st>>>(j, R, rows_per_split, P);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  return 0;
+  a.jobs[0] = WJob{{z_traj, D}, {ys, ly}, D, la, dW1, dW1 + (size_t)D * la};
+  a.jobs[1] = WJob{{xs, lx}, {ys + la, ly}, H, D, dWg2, dWg2 + (size_t)H * D};
+  a.jobs[2] = WJob{{xs + H, lx}, {ys + la + D, ly}, H, D, dWn2,
+                   dWn2 + (size_t)H * D};
+  a.jobs[3] = WJob{{xs + 2 * H, lx}, {ys + la + 2 * D, ly}, D, D, dWs,
+                   dWs + (size_t)D * D};
+  a.R = R;
+  a.rows_per_split = (R + splits - 1) / splits;
+  int tiles = 0;
+  for (const WJob& j : a.jobs) tiles += tf32x3::tiles_of<WTile>(j.M1, j.N1);
+  cudaError_t err = set_smem((const void*)gtf_wgrad_kernel);
+  if (err != cudaSuccess) return (int)err;
+  gtf_wgrad_kernel<<<dim3(tiles, splits), NT, tf32x3::kSmemBytes,
+                     (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -5,7 +5,8 @@ Each source in ``csrc/`` is compiled by ``nvcc`` for Hopper
 plain C interface, at first use, and loaded with ``ctypes``. Nothing
 includes PyTorch's headers, so a build takes seconds. Libraries go to
 ``multimodal_dmm_tpu_torch/_build/`` (git-ignored), named by a hash of
-the source and flags so an edited source is rebuilt; ``nvcc``'s
+the source, every header in ``csrc/`` and the flags, so that an edited
+source or header is rebuilt; ``nvcc``'s
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
 each library as ``<name>.log``.
 """
@@ -39,9 +40,11 @@ def _nvcc():
 
 def _target(name):
     src = CSRC_DIR / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return src, BUILD_DIR / ("lib%s_%s.so" % (name, digest[:16]))
+    digest = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return src, BUILD_DIR / ("lib%s_%s.so" % (name, digest.hexdigest()[:16]))
 
 
 def build(names=None):

@@ -18,13 +18,18 @@ plus the particle trajectory z_traj (T, K, B, D) that the backward reads.
   backward transcribes the TPU kernel's hand-derived VJP, including its
   two quirks: the per-particle PoE has no NaN exclusion, and the backward
   floors the mixture variance at 1e-8 before ``sqrt`` where the forward
-  floors it at 0.
+  floors it at 0. ``bfvi_scan_bwd_ref_on_masks`` runs the plain backward
+  on the ReLU masks that the backward kernel found in the GTF's first
+  layers, to hold the kernel to it element by element.
 - ``bfvi_scan_fwd_cuda`` / ``bfvi_scan_bwd_cuda``: launch the kernels of
-  ``csrc/bfvi_scan.cu``; the backward writes, for every particle row of
-  every step, the activations and cotangents that the weight gradients
-  are products of, and ``gtf_wgrad_cuda`` (plain version
-  ``gtf_wgrad_ref``) forms those products. Each wrapper counts its
-  launches in ``.launches``.
+  ``csrc/bfvi_scan.cu`` (cooperative launches whose products run on the
+  tensor cores in 3xTF32, ``csrc/tf32x3.cuh``); the backward writes, for
+  every particle row of every step, the activations and cotangents that
+  the weight gradients are products of, and ``gtf_wgrad_cuda`` (plain
+  version ``gtf_wgrad_ref``) forms those products. Each wrapper counts
+  its launches in ``.launches``. The kernels read the GTF weights in
+  PyTorch's layout; the wrapper only joins gate_1, nonlin_1 and z_lin
+  into one (2H + D, D) matrix.
 - ``bfvi_scan``: differentiable entry. CPU tensors go through the plain
   pair, CUDA tensors through the kernels; there is no fallback between
   them. To hold the kernels against the plain pair on the GPU, the caller
@@ -34,6 +39,7 @@ plus the particle trajectory z_traj (T, K, B, D) that the backward reads.
 """
 
 import ctypes
+import types
 
 import torch
 import torch.nn.functional as F
@@ -43,11 +49,10 @@ from . import _build
 
 EPS = 1e-8
 PREC_FLOOR = 1e-6
-# What the kernels take: K particle rows of one batch column, with every
-# activation of one step, in one CTA's shared memory (K x (6D + 2H)
-# floats in the backward), and K row sums in registers.
+# The particle counts the kernels take: the filtering passes of the
+# training step and the MAP smoothing pass use 1 and 25; the evaluation's
+# 200-particle pass goes through the cell kernel (poe_cell.py).
 MAX_K = 32
-MAX_SMEM_BYTES = 232448
 
 
 # ---------------------------------------------------------------------------
@@ -227,6 +232,66 @@ def bfvi_scan_bwd_ref(res, cots, min_std):
             gtf_wgrad_ref(z_traj, xs, ys))
 
 
+def relu_flip_bound(d):
+    """How close to 0, relative to sum_i |z_i w_i| + |b|, the exact
+    pre-activation of a GTF first-layer unit with D = ``d`` inputs must
+    lie where the backward kernel (3xTF32 on the tensor cores, whose adds
+    truncate) and the plain backward (float32) put it on opposite sides
+    of its ReLU: twice the worst-case rounding of the (D + 1)-term sum at
+    truncation's unit 2^-23, plus the split's 3 * 2^-22 a product."""
+    return 2.0 * (d + 7) * 2.0 ** -23
+
+
+def bfvi_scan_bwd_ref_on_masks(res, cots, min_std, xs):
+    """``bfvi_scan_bwd_ref`` with the ReLU masks of the GTF first layers
+    (gate_1, nonlin_1) taken from ``xs``, the rows that the backward kernel
+    wrote (a unit is on where its h1 or hn there is > 0), instead of from
+    the plain pre-activations; everything else as computed there. Where the
+    two masks differ the pre-activation is within rounding of 0, and each
+    such flip would move one row of the layer's weight gradient by one
+    sample's whole term; on the kernel's masks the plain backward can be
+    held to the kernel element by element.
+
+    Returns (the outputs of ``bfvi_scan_bwd_ref``, margins): margins maps
+    gate_1 and nonlin_1 to the exact (float64) |pre-activation| / (sum_i
+    |z_i w_i| + |b|) at each unit where the masks differ, to be held
+    within ``relu_flip_bound(D)``."""
+    global F
+    z_traj, gtf = res[7], res[5]
+    t_max, k, b_dim, d = z_traj.shape
+    h = gtf["gate_1"]["w"].shape[0]
+    rows = xs.reshape(t_max - 1, k, b_dim, -1) if t_max > 1 else None
+    first = {id(gtf[n]["w"]): (n, i * h) for i, n in
+             enumerate(("gate_1", "nonlin_1"))}
+    margins = {"gate_1": [], "nonlin_1": []}
+    plain_f = F
+
+    def linear(x, w, b):
+        out = plain_f.linear(x, w, b)
+        if id(w) not in first:
+            return out
+        name, col = first[id(w)]
+        t1 = (x.storage_offset() - z_traj.storage_offset()) // (k * b_dim * d)
+        on = rows[t1, ..., col:col + h] > 0
+        flip = on != (out > 0)
+        if bool(flip.any()):
+            x64, w64, b64 = x.double(), w.double(), b.double()
+            exact = plain_f.linear(x64, w64, b64).abs()
+            scale = plain_f.linear(x64.abs(), w64.abs(), b64.abs())
+            margins[name].append((exact / scale)[flip])
+        return torch.where(on, out.clamp(min=torch.finfo(out.dtype).tiny),
+                           out.clamp(max=0.0))
+
+    F = types.SimpleNamespace(linear=linear, relu=plain_f.relu,
+                              softplus=plain_f.softplus)
+    try:
+        outs = bfvi_scan_bwd_ref(res, cots, min_std)
+    finally:
+        F = plain_f
+    none = torch.zeros((0,), dtype=torch.float64, device=z_traj.device)
+    return outs, {n: torch.cat(v) if v else none for n, v in margins.items()}
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
@@ -238,10 +303,10 @@ _I = ctypes.c_int
 def _lib():
     lib = _build.load("bfvi_scan")
     if not getattr(lib, "_bfvi_typed", False):
-        lib.bfvi_scan_fwd.argtypes = ([_P] * 20 + [_I] * 6
+        lib.bfvi_scan_fwd.argtypes = ([_P] * 22 + [_I] * 6
                                       + [ctypes.c_float, _P])
         lib.bfvi_scan_fwd.restype = _I
-        lib.bfvi_scan_bwd.argtypes = ([_P] * 32 + [_I] * 6
+        lib.bfvi_scan_bwd.argtypes = ([_P] * 30 + [_I] * 6
                                       + [ctypes.c_float, _P])
         lib.bfvi_scan_bwd.restype = _I
         lib.gtf_wgrad.argtypes = [_P] * 4 + [_I] * 4 + [_P]
@@ -267,34 +332,28 @@ def _check_tensor(name, x, shape):
         raise ValueError("%s must be contiguous" % name)
 
 
-def _check_sizes(k, d, h, smem_floats):
+def _check_sizes(k, d, h):
     if not 1 <= k <= MAX_K:
         raise ValueError("the scan kernels take 1 <= K <= %d particles, "
                          "got K = %d" % (MAX_K, k))
     if d % 4 or h % 4:
         raise ValueError("the scan kernels need z_dim and h_dim divisible "
                          "by 4, got %d and %d" % (d, h))
-    if smem_floats * 4 > MAX_SMEM_BYTES:
-        raise ValueError(
-            "K x D = %d x %d with h_dim %d needs %d bytes of shared memory "
-            "per CTA; the kernels take at most %d"
-            % (k, d, h, smem_floats * 4, MAX_SMEM_BYTES))
 
 
 def _kernel_weights(gtf):
-    """The kernels' weight layouts: (in, out) for the transition's
-    products, and PyTorch's (out, in) for the input-gradient products."""
-    w1t = torch.cat([gtf["gate_1"]["w"], gtf["nonlin_1"]["w"],
-                     gtf["z_lin"]["w"]], dim=0).contiguous()
-    fwd = [w1t.t().contiguous(),
-           torch.cat([gtf["gate_1"]["b"], gtf["nonlin_1"]["b"],
-                      gtf["z_lin"]["b"]]).contiguous()]
+    """The kernels' weights, in PyTorch's (out, in) layout: [w1, b1, wg2,
+    bg2, wn2, bn2, ws, bs] with w1 = [gate_1; nonlin_1; z_lin]."""
+    out = [torch.cat([gtf[n]["w"] for n in ("gate_1", "nonlin_1", "z_lin")]),
+           torch.cat([gtf[n]["b"] for n in ("gate_1", "nonlin_1", "z_lin")])]
     for name in ("gate_2", "nonlin_2", "z_to_std"):
-        fwd += [gtf[name]["w"].t().contiguous(),
-                gtf[name]["b"].contiguous()]
-    bwd = [w1t] + [gtf[n]["w"].contiguous()
-                   for n in ("gate_2", "nonlin_2", "z_to_std")]
-    return fwd, bwd
+        out += [gtf[name]["w"], gtf[name]["b"]]
+    return out
+
+
+def _barrier(device):
+    """The arrival counter of a launch's grid barriers, zeroed."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
 
 
 def _ptr(x):
@@ -328,15 +387,16 @@ def bfvi_scan_fwd_cuda(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
     ``bfvi_scan_fwd_ref``."""
     t_max, n_exp, b_dim, k, d, h = _check_inputs(
         obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps)
-    _check_sizes(k, d, h, k * (5 * d + 2 * h))
-    fwd_w, _ = _kernel_weights(gtf)
+    _check_sizes(k, d, h)
     opts = dict(dtype=torch.float32, device=obs_mean.device)
     outs = [torch.empty((t_max, b_dim, d), **opts) for _ in range(5)]
     outs.append(torch.empty((t_max, k, b_dim, d), **opts))
+    work = torch.empty((k * b_dim, 2 * h + 4 * d), **opts)
     stream = torch.cuda.current_stream(obs_mean.device).cuda_stream
     rc = _lib().bfvi_scan_fwd(
         *[_ptr(x) for x in [obs_mean, obs_std, obs_mask, glb_mean, glb_std]
-          + fwd_w + [eps] + outs],
+          + _kernel_weights(gtf) + [eps] + outs
+          + [work, _barrier(obs_mean.device)]],
         t_max, n_exp, b_dim, k, d, h, float(min_std),
         ctypes.c_void_p(stream))
     if rc != 0:
@@ -364,43 +424,50 @@ def bfvi_scan_bwd_cuda(res, cots, min_std):
      prior_mean, prior_std) = res
     t_max, n_exp, b_dim, k, d, h = _check_inputs(
         obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps)
-    _check_sizes(k, d, h, k * (6 * d + 2 * h))
+    _check_sizes(k, d, h)
     _check_tensor("z_traj", z_traj, (t_max, k, b_dim, d))
     for name, x in zip(("prior_mean", "prior_std", "g_prior_mean",
                         "g_prior_std", "g_infer_mean", "g_infer_std",
                         "g_samples"), (prior_mean, prior_std) + tuple(cots)):
         _check_tensor(name, x, (t_max, b_dim, d))
-    fwd_w, bwd_w = _kernel_weights(gtf)
     opts = dict(dtype=torch.float32, device=obs_mean.device)
     d_obs_mean = torch.empty_like(obs_mean)
     d_obs_std = torch.empty_like(obs_std)
-    d_glb_mean = torch.empty((b_dim, d), **opts)
-    d_glb_std = torch.empty((b_dim, d), **opts)
+    d_glb_mean = torch.zeros((b_dim, d), **opts)
+    d_glb_std = torch.zeros((b_dim, d), **opts)
     n_rows = (t_max - 1) * k * b_dim
     xs = torch.empty((n_rows, 2 * h + d), **opts)
     ys = torch.empty((n_rows, 2 * h + 4 * d), **opts)
+    gz = torch.zeros((3, k * b_dim, d), **opts)
     stream = torch.cuda.current_stream(obs_mean.device).cuda_stream
     rc = _lib().bfvi_scan_bwd(
         *[_ptr(x) for x in [obs_mean, obs_std, obs_mask, glb_mean, glb_std]
-          + fwd_w + bwd_w + [eps, z_traj, prior_mean, prior_std]
+          + _kernel_weights(gtf) + [eps, z_traj, prior_mean, prior_std]
           + list(cots) + [d_obs_mean, d_obs_std, d_glb_mean, d_glb_std,
-                          xs, ys]],
+                          xs, ys, gz, _barrier(obs_mean.device)]],
         t_max, n_exp, b_dim, k, d, h, float(min_std),
         ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("bfvi_scan_bwd kernel launch failed: CUDA error "
                            "%d" % rc)
     bfvi_scan_bwd_cuda.launches += 1
+    if bfvi_scan_bwd_cuda.rows is not None:
+        bfvi_scan_bwd_cuda.rows.append(xs)
     return (d_obs_mean, d_obs_std, d_glb_mean, d_glb_std,
             gtf_wgrad_cuda(z_traj, xs, ys))
 
 
 bfvi_scan_bwd_cuda.launches = 0
+# A list to which each launch appends the xs rows it wrote (their h1 and
+# hn hold the kernel's ReLU masks, for bfvi_scan_bwd_ref_on_masks), or
+# None.
+bfvi_scan_bwd_cuda.rows = None
 
 
 # Row ranges that the weight-gradient kernel splits its rows into, each
-# with its own partial: enough CTAs to fill the card at K = 1.
-WGRAD_SPLITS = 16
+# with its own partial: the 48 output tiles of D = H = 256 times 11 are
+# 528 CTAs, two full waves of two CTAs on each of the H100's 132 SMs.
+WGRAD_SPLITS = 11
 
 
 def _wgrad_dims(z_traj, xs):

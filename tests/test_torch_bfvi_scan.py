@@ -126,6 +126,67 @@ def test_autograd_function_on_cpu_matches_autograd_of_ref(case):
         _assert_grads(g.numpy(), e.numpy(), str(i))
 
 
+def _plain_rows(res):
+    """The xs rows of bfvi_scan_bwd_ref's own first layers (h1, hn; zeros
+    for z_nonlin), from the same F.linear calls as the plain backward."""
+    z_traj, gtf = res[7], res[5]
+    rows = []
+    for tt in range(1, z_traj.shape[0]):
+        acts = [torch.relu(torch.nn.functional.linear(
+            z_traj[tt - 1], gtf[n]["w"], gtf[n]["b"]))
+            for n in ("gate_1", "nonlin_1")]
+        rows.append(torch.cat(acts + [torch.zeros_like(z_traj[0])], -1))
+    return torch.stack(rows).reshape(-1, 2 * H + D)
+
+
+@pytest.fixture(scope="module")
+def bwd_case(case):
+    gtf, x, eps, cots = case
+    outs = tscan.bfvi_scan_fwd_ref(*map(t, x), port_gtf(gtf), t(eps),
+                                   MIN_STD)
+    res = tuple(map(t, x)) + (port_gtf(gtf), t(eps), outs[5], outs[0],
+                              outs[1])
+    return res, [t(c) for c in cots]
+
+
+def _flat(outs):
+    return list(outs[:4]) + [outs[4][n][kk] for n in tscan.GTF_LAYERS
+                             for kk in ("w", "b")]
+
+
+def test_bwd_ref_on_its_own_masks_is_bwd_ref(bwd_case):
+    res, cots = bwd_case
+    got, margins = tscan.bfvi_scan_bwd_ref_on_masks(res, cots, MIN_STD,
+                                                    _plain_rows(res))
+    exp = tscan.bfvi_scan_bwd_ref(res, cots, MIN_STD)
+    assert all(torch.equal(g, e) for g, e in zip(_flat(got), _flat(exp)))
+    assert all(m.numel() == 0 for m in margins.values())
+
+
+def test_bwd_ref_on_masks_takes_and_reports_a_flip(bwd_case):
+    """A unit that the rows turn on, at the last step, is on in the plain
+    backward: its weight-gradient row moves, and the flip is reported with
+    its exact pre-activation's margin."""
+    res, cots = bwd_case
+    z_traj, gtf = res[7], res[5]
+    w, b = gtf["gate_1"]["w"], gtf["gate_1"]["b"]
+    pre = torch.nn.functional.linear(z_traj[-2], w, b)  # step T - 1
+    kk, bb, j = [int(i) for i in np.argwhere(pre.numpy() < 0)[0]]
+    rows = _plain_rows(res)
+    rows.reshape(T - 1, K, B, -1)[-1, kk, bb, j] = 1e-7
+    got, margins = tscan.bfvi_scan_bwd_ref_on_masks(res, cots, MIN_STD,
+                                                    rows)
+    exp = tscan.bfvi_scan_bwd_ref(res, cots, MIN_STD)
+    z64, w64, b64 = z_traj[-2, kk, bb].double(), w[j].double(), b[j].double()
+    margin = abs(z64 @ w64 + b64) / ((z64.abs() @ w64.abs()) + b64.abs())
+    assert margins["nonlin_1"].numel() == 0
+    np.testing.assert_allclose(margins["gate_1"].numpy(), [margin.item()],
+                               rtol=1e-12)
+    moved = (got[4]["gate_1"]["w"] != exp[4]["gate_1"]["w"]).any(-1)
+    assert moved[j]
+    assert margin > tscan.relu_flip_bound(D)  # a real unit, far from 0
+
+
 def test_kernel_wrappers_refuse_cpu_tensors(case):
     """No quiet fallback: the CUDA wrappers raise on CPU tensors."""
     gtf, x, eps, cots = case
@@ -144,7 +205,10 @@ def test_kernel_wrappers_refuse_cpu_tensors(case):
 
 
 def test_kernel_size_limits_stated():
+    """The kernels keep activations in device memory, so only K and the
+    16-byte rows of their tile loads limit them."""
     with pytest.raises(ValueError, match="particles"):
-        tscan._check_sizes(tscan.MAX_K + 1, 256, 256, 0)
-    with pytest.raises(ValueError, match="shared memory"):
-        tscan._check_sizes(32, 512, 512, 32 * (5 * 512 + 2 * 512))
+        tscan._check_sizes(tscan.MAX_K + 1, 256, 256)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        tscan._check_sizes(4, 30, 24)
+    tscan._check_sizes(tscan.MAX_K, 512, 512)

@@ -54,17 +54,58 @@ def _assert_grads(got, exp, err):
                                atol=1e-3, err_msg=err)
 
 
-@pytest.mark.parametrize("k", [1, 4, 25])
-def test_kernels_match_plain_versions(dev, k):
-    x, gtf, eps, cots = _inputs(dev, k=k)
+# B = 7 and 45 give K B rows that are no multiple of the kernels' row
+# tiles: 16 below 1,024 rows, 64 from there where 128-row tiles would be
+# too few (K = 32, B = 45 is 1,440 rows); 128-row tiles run in the
+# Weizmann-width case's recomputed transition and in the weight gradients.
+@pytest.mark.parametrize("b_dim", [7, 45])
+@pytest.mark.parametrize("k", [1, 4, 25, 32])
+def test_kernels_match_plain_versions(dev, k, b_dim):
+    _check_against_plain(*_inputs(dev, k=k, b_dim=b_dim))
+
+
+def test_kernels_match_plain_versions_at_weizmann_width(dev):
+    """D = H = 256, K = 25: 1,250 rows a step (64-row tiles), 3,750 rows
+    in the backward's batched recompute (128-row tiles)."""
+    _check_against_plain(*_inputs(dev, t_max=4, b_dim=50, d=256, h=256,
+                                  k=25))
+
+
+def test_backward_is_deterministic(dev):
+    """No float atomics: two runs of the backward agree bit for bit."""
+    x, gtf, eps, cots = _inputs(dev, t_max=5, b_dim=45, k=25)
+    outs = tscan.bfvi_scan_fwd_cuda(*x, gtf, eps, MIN_STD)
+    res = tuple(x) + (gtf, eps, outs[5], outs[0], outs[1])
+    first = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD)
+    second = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD)
+    for i in range(4):
+        assert torch.equal(first[i], second[i]), i
+    for name in tscan.GTF_LAYERS:
+        for kk in ("w", "b"):
+            assert torch.equal(first[4][name][kk], second[4][name][kk]), name
+
+
+def _check_against_plain(x, gtf, eps, cots):
+    """The forward kernel against the plain forward; the backward kernel
+    against the plain backward on the kernel's ReLU masks in the GTF's
+    first layers, each unit where those differ from the plain masks
+    within rounding of 0 (as chip_smoke.py's phase 3)."""
     got = tscan.bfvi_scan_fwd_cuda(*x, gtf, eps, MIN_STD)
     exp = tscan.bfvi_scan_fwd_ref(*x, gtf, eps, MIN_STD)
     for i, (g, e) in enumerate(zip(got, exp)):
         np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(),
                                    rtol=5e-4, atol=5e-5, err_msg=str(i))
     res = tuple(x) + (gtf, eps, exp[5], exp[0], exp[1])
-    got = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD)
-    ref = tscan.bfvi_scan_bwd_ref(res, cots, MIN_STD)
+    tscan.bfvi_scan_bwd_cuda.rows = rows = []
+    try:
+        got = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD)
+    finally:
+        tscan.bfvi_scan_bwd_cuda.rows = None
+    ref, margins = tscan.bfvi_scan_bwd_ref_on_masks(res, cots, MIN_STD,
+                                                    rows[0])
+    bound = tscan.relu_flip_bound(x[0].shape[-1])
+    for name, m in margins.items():
+        assert bool((m <= bound).all()), (name, m.max().item(), bound)
     for i in range(4):
         _assert_grads(got[i], ref[i], str(i))
     for name in tscan.GTF_LAYERS:
