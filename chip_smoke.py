@@ -35,17 +35,43 @@ imports nothing of JAX or of the JAX package. Phases:
    synthetic sequences of 30-60 steps (one batch of 25 with 15 ghost
    columns): on the kernels, then on the plain versions with the same
    generator seed, the metrics compared; then N_EVALS timed calls, with
-   the launch counts and the median ms per call.
+   the launch counts and the median ms per call;
+7. the step that the JAX package's bench.py times (bf16 codecs,
+   ``ragged_mode_scans``, video in the codec-native layout) at full width
+   on the seed's weights, on the kernels, on the same noise, on a batch of
+   phase 4's sequences from the device loader (``DeviceTrainData``, burst
+   deletion), stored native and stored edge, whose batches must agree
+   permuted: the native step against the same trainer fed the edge-layout
+   batch (loss within STEP_LOSS_RTOL, each gradient leaf within BF16_TOL's
+   rtol in relative Frobenius norm; the f32 step in the two layouts
+   within STEP_GRAD_TOL's), and against the f32 step (loss within
+   BF16_TOL, the bf16 codecs' tolerance of the CPU tests, each gradient
+   leaf within BF16_GRAD_RTOL). The port's ragged pass is the two-scan
+   step's loop, which phase 4 holds to its plain version. Then the merged
+   branch (``merge_mode_scans``: one scan of 2 V B = 200 columns at K =
+   25) once on the kernels, its loss and gradients finite; then the bench
+   configuration beside the f32 two-scan and merged steps, timed in
+   turns, with its launch counts and each one's device time
+   (torch.profiler);
+8. the command line (``apps.weizmann.main``) in a temporary working and
+   save directory: a ``gen_synthetic`` fixture of 90 sequences, 2 epochs
+   of bf16 ragged training with the device loader, the 200-particle
+   evaluation after each, best.pth, epoch_N.pth and last.pth; every
+   epoch's loss finite; then ``--load last.pth --evaluate`` twice under
+   one seed, with identical metrics; the seconds per epoch and per
+   evaluation, and the launch counts of the run.
 
 Any failed check raises, so the script exits non-zero before its last
 line. The line before the last is a JSON object with one entry per
 kernel (for the scan kernels ``ms``, ``plain_ms`` and ``bound_ms`` are
-sums over the training step's three launches and ``launches`` counts the
-training steps' launches; ``bound_ms`` is the bound of the route the
-kernels take and ``bound_f32_ms`` that of float32 outside the tensor
-cores; for the cell they are per launch at (3, 200, 25, 256) and
-``launches`` counts one evaluation's); the last is ``{"ok": true,
-"device": {...}}``.
+sums over the training step's three launches; ``bound_ms`` is the bound
+of the route the kernels take and ``bound_f32_ms`` that of float32
+outside the tensor cores; for the cell they are per launch at (3, 200,
+25, 256)); ``launches`` counts the launches of phase 8's command-line
+run, the main path of this slice, and ``launches_by_phase`` those of the
+runs of phases 4 (the training steps), 6 (one evaluation), 7 (the timed
+bench-configuration steps) and 8; the last is ``{"ok": true, "device":
+{...}}``.
 """
 
 import argparse
@@ -54,6 +80,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -88,6 +115,15 @@ STEP_GRAD_TOL = dict(rtol=5e-3, atol=5e-4)  # on max-abs-normalised grads
 CELL_TOL = 1e-5             # rtol = atol; 1e-4 with the inverse expert
 EVAL_RTOL = 1e-4            # summed losses, MSE and SSIM (PERF.md)
 EVAL_LABEL_FLIPS = 2        # label decisions that may flip (PERF.md)
+BF16_TOL = dict(rtol=5e-2, atol=5e-2)  # bf16 codecs vs f32, as on the CPU
+# bf16 vs f32 gradients, each leaf in relative Frobenius norm: the bf16
+# codecs' cotangents move the transition's weight gradients by about 8 %
+# in the JAX package's own step too (tests/test_torch_bf16.py,
+# test_weizmann_step_bf16_matches_jax); a wrong bf16 convolution moves
+# its leaves by O(1).
+BF16_GRAD_RTOL = 0.25
+N_BENCH = 10                # timed steps per block in phase 7
+CLI_EPOCHS = 2
 
 
 def log(*a):
@@ -446,8 +482,8 @@ def run_eval(trainer, loader, args, plain, seed):
 
 def check_evaluation(trainer, seed, n_evals):
     """Phase 6: the Weizmann BFVI evaluation on the kernels against the
-    plain versions, then timed. Returns (cell launches of one evaluation,
-    median ms per call)."""
+    plain versions, then timed. Returns (the launches of one evaluation,
+    median ms per call, the loader, the eval args)."""
     from multimodal_dmm_tpu_torch.apps import weizmann
     from multimodal_dmm_tpu_torch.training.loader import BatchLoader
     items = synthetic_eval_set(seed)
@@ -504,7 +540,7 @@ def check_evaluation(trainer, seed, n_evals):
     log("  evaluation: median %.2f ms per call over %d calls (%s), %.1f "
         "seqs/s" % (ms, len(times), ", ".join("%.2f" % v for v in times),
                     len(items) / (ms / 1e3)))
-    return launches["poe_sample_cell"], ms, loader, args
+    return launches, ms, loader, args
 
 
 def kernel_wrappers():
@@ -531,9 +567,10 @@ def synthetic_batch(seed, dev):
                                                device=dev)
 
 
-def step_grads(trainer, inputs, targets, mask, plain, seed):
+def step_grads(trainer, inputs, targets, mask, plain, seed, **step_kw):
     """Loss and gradients of one training step (no update) with the
-    scan on the kernels or on the plain versions, noise from ``seed``."""
+    scan on the kernels or on the plain versions, noise from ``seed``;
+    ``step_kw`` go to ``model.step`` (its branch)."""
     from multimodal_dmm_tpu_torch.tree import tree_leaves_with_path
     trainer.model.plain_scan = plain
     gen = torch.Generator(device=mask.device).manual_seed(seed)
@@ -541,7 +578,7 @@ def step_grads(trainer, inputs, targets, mask, plain, seed):
         p.grad = None
     loss, _ = trainer.model.step(trainer.params, trainer.state, inputs, mask,
                                  1.0, trainer.rec_mults, gen,
-                                 targets=targets, train=True)
+                                 targets=targets, train=True, **step_kw)
     loss.backward()
     trainer.model.plain_scan = False
     grads = {path: p.grad.detach().clone()
@@ -551,9 +588,9 @@ def step_grads(trainer, inputs, targets, mask, plain, seed):
     return loss.item(), grads
 
 
-def grad_diffs(g_a, g_b):
+def grad_diffs(g_a, g_b, tol=STEP_GRAD_TOL):
     """{path: dict(max=max normalised |a - b|, bad=elements beyond
-    STEP_GRAD_TOL, rows=rows holding them, n_rows, fro=relative Frobenius
+    ``tol``, rows=rows holding them, n_rows, fro=relative Frobenius
     error, noise=whether b is rounding noise)} of a against b. A leaf
     whose gradient is under 1e-5 of the largest is a bias that feeds a
     training-mode BatchNorm: zero up to rounding noise, so it is
@@ -568,8 +605,8 @@ def grad_diffs(g_a, g_b):
         noise = scale < 1e-5 * top
         scale = (top if noise else scale) + 1e-6
         gn, en = g / scale, e / scale
-        bad = ((gn - en).abs() > STEP_GRAD_TOL["atol"]
-               + STEP_GRAD_TOL["rtol"] * en.abs()).reshape(e.shape[0], -1)
+        bad = ((gn - en).abs() > tol["atol"]
+               + tol["rtol"] * en.abs()).reshape(e.shape[0], -1)
         out[path] = dict(
             max=(gn - en).abs().max().item(), bad=int(bad.sum()),
             rows=int(bad.any(-1).sum()), n_rows=e.shape[0], noise=noise,
@@ -586,9 +623,11 @@ def log_worst(what, diffs, n=4):
                diffs[path]["n_rows"], diffs[path]["fro"]))
 
 
-def check_step_against_plain(scan, trainer, inputs, targets, mask, seed):
+def check_step_against_plain(scan, trainer, inputs, targets, mask, seed,
+                             **step_kw):
     """One step's loss and gradients on the kernels against the plain
-    versions, with the same noise and deterministic cuDNN.
+    versions, with the same noise and deterministic cuDNN (``step_kw``:
+    the step's branch).
 
     - Kernels against the forward kernel followed by the plain backward on
       the backward kernel's ReLU masks (``bfvi_scan_bwd_ref_on_masks``):
@@ -615,7 +654,7 @@ def check_step_against_plain(scan, trainer, inputs, targets, mask, seed):
     """
     torch.backends.cudnn.deterministic = True
     (l_k, g_k), rows = with_kernel_rows(scan, lambda: step_grads(
-        trainer, inputs, targets, mask, False, seed))
+        trainer, inputs, targets, mask, False, seed, **step_kw))
     check(len(rows) == len(SCAN_SHAPES), "the step launched the backward "
           "kernel %d times, expected %d" % (len(rows), len(SCAN_SHAPES)))
     margins, launch = [], iter(rows)
@@ -629,12 +668,16 @@ def check_step_against_plain(scan, trainer, inputs, targets, mask, seed):
     # run, the plain backward on the masks of the kernel's run above.
     bwd_kernel, scan.bfvi_scan_bwd_cuda = scan.bfvi_scan_bwd_cuda, on_masks
     try:
-        l_km, g_km = step_grads(trainer, inputs, targets, mask, False, seed)
+        l_km, g_km = step_grads(trainer, inputs, targets, mask, False, seed,
+                                **step_kw)
     finally:
         scan.bfvi_scan_bwd_cuda = bwd_kernel
-    l_kp, g_kp = step_grads(trainer, inputs, targets, mask, "bwd", seed)
-    l_p, g_p = step_grads(trainer, inputs, targets, mask, True, seed)
-    l_p2, g_p2 = step_grads(trainer, inputs, targets, mask, True, seed)
+    l_kp, g_kp = step_grads(trainer, inputs, targets, mask, "bwd", seed,
+                            **step_kw)
+    l_p, g_p = step_grads(trainer, inputs, targets, mask, True, seed,
+                          **step_kw)
+    l_p2, g_p2 = step_grads(trainer, inputs, targets, mask, True, seed,
+                            **step_kw)
     torch.backends.cudnn.deterministic = False
     log("  loss: kernels %.6f, forward kernel + plain backward %.6f (on the "
         "kernel's ReLU masks %.6f), plain %.6f, plain again %.6f"
@@ -675,12 +718,306 @@ def check_step_against_plain(scan, trainer, inputs, targets, mask, seed):
     log("  plain vs plain again: max %.3g over %d leaves"
         % (max(d["max"] for d in grad_diffs(g_p2, g_p).values()),
            len(g_p)))
-    bad = [p for p, d in d_all.items() if d["fro"] > STEP_GRAD_TOL["rtol"]
-           or (d["noise"] and d["bad"])]
+    bad = leaves_beyond(d_all, STEP_GRAD_TOL["rtol"])
     check(not bad, "step gradients of %d leaves differ beyond rtol %g in "
           "relative Frobenius norm: %s" % (len(bad), STEP_GRAD_TOL["rtol"],
                                            bad))
     log("  gradients: %d leaves agree" % len(d_all))
+
+def native_batch(batch, perms):
+    """``batch`` with the modalities of ``perms`` in the codec-native
+    layout (trailing dims permuted, contiguous), as the device loader
+    stores them."""
+    out = dict(batch)
+    for m, perm in perms.items():
+        out[m] = batch[m].permute(
+            (0, 1) + tuple(2 + p for p in perm)).contiguous()
+    return out
+
+
+def time_steps(trainer, inputs, targets, mask, n_data, n):
+    """``n`` optimizer steps, each timed by CUDA events around it; returns
+    the times in ms."""
+    times = []
+    for i in range(n):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss, applied = trainer.train_step(inputs, targets, mask, 1.0, n_data)
+        end.record()
+        torch.cuda.synchronize()
+        check(applied, "update skipped (non-finite gradient)")
+        check(np.isfinite(loss.item()), "non-finite loss")
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def device_profile(fn, n):
+    """(device busy ms, device kernels) per call of ``fn`` over ``n``
+    calls under torch.profiler: the sum of the kernels' device times,
+    which run on one stream and do not overlap. (None, None) if the
+    profiler saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    if not busy_us:
+        return None, None
+    return busy_us / 1e3 / n, len(kernels) / n
+
+
+def leaves_beyond(diffs, rtol):
+    """The leaves of ``grad_diffs`` whose relative Frobenius error exceeds
+    ``rtol``, and the rounding-noise leaves with an element beyond the
+    elementwise tolerance."""
+    return [p for p, d in diffs.items()
+            if d["fro"] > rtol or (d["noise"] and d["bad"])]
+
+
+def check_bench_step(scan, seed, targets, card, profile_path=None):
+    """Phase 7: the bench configuration's step (bf16 codecs, ragged, video
+    in the codec-native layout) on the kernels, on a batch of ``targets``
+    from the device loader, against the same trainer fed the loader's
+    edge-layout batch and against the f32 step, on the same noise; the
+    merged branch once; then the bench configuration timed beside the f32
+    two-scan and merged steps, with their device time (and, with
+    ``profile_path``, the profiler's table of one bench-configuration step
+    appended there). Returns (the bench steps' launches, {config: median
+    ms})."""
+    from multimodal_dmm_tpu_torch.apps import weizmann
+    from multimodal_dmm_tpu_torch.training.device_loader import \
+        DeviceTrainData
+    dev = targets["video"].device
+    trainer = weizmann.make_trainer(seed=seed, device=dev)
+    perms = trainer.model.native_input_perms()
+    bench_kw = dict(ragged_mode_scans=True, native_mods=tuple(perms))
+    bench = weizmann.make_trainer(seed=seed, device=dev,
+                                  model_args={"bf16": True},
+                                  train_args=bench_kw)
+
+    # One batch of the B_DATA sequences, stored native and stored edge:
+    # one seed, so one shuffle and the same bursts.
+    items = [dict({m: v[:, b].cpu().numpy() for m, v in targets.items()},
+                  length=T_MAIN) for b in range(B_DATA)]
+    batches = [next(DeviceTrainData(
+        items, list(targets), B_DATA, weizmann.DEFAULTS["burst_frac"],
+        native_perms=np_, device=dev).epoch(seed))[:3]
+        for np_ in (perms, None)]
+    (x_nat, y_nat, mask), (x_edge, y_edge, mask_edge) = batches
+    same = lambda a, b: torch.equal(a.nan_to_num(-1.0),  # noqa: E731
+                                    b.nan_to_num(-1.0))
+    check(torch.equal(mask, mask_edge) and all(
+        same(native_batch(e, perms)[m], n[m]) for e, n in
+        ((x_edge, x_nat), (y_edge, y_nat)) for m in targets),
+        "device loader: the native batch is not the edge batch permuted")
+    n_burst = int(torch.isnan(x_edge["video"]).any(-1).any(-1).any(-1).sum())
+    log("  device loader: native batch = edge batch permuted by %s, %d "
+        "video frames in bursts" % (perms, n_burst))
+
+    torch.backends.cudnn.deterministic = True
+    l_nat, g_nat = step_grads(bench, x_nat, y_nat, mask, False, seed,
+                              **bench_kw)
+    l_edge, g_edge = step_grads(bench, x_edge, y_edge, mask, False, seed,
+                                ragged_mode_scans=True)
+    l_f32, g_f32 = step_grads(trainer, x_edge, y_edge, mask, False, seed)
+    l_f32n, g_f32n = step_grads(trainer, x_nat, y_nat, mask, False, seed,
+                                native_mods=tuple(perms))
+    torch.backends.cudnn.deterministic = False
+    check(np.isfinite(l_nat), "bench step: non-finite loss")
+
+    def hold(what, l_a, g_a, l_b, g_b, loss_tol, grad_rtol, tol):
+        """Loss within ``loss_tol`` (rtol, atol) and every gradient leaf
+        within ``grad_rtol`` in relative Frobenius norm; the elementwise
+        counts at ``tol`` are logged."""
+        d = grad_diffs(g_a, g_b, tol)
+        log_worst(what, d)
+        log("  %s: loss %.6f vs %.6f (relative difference %.3g); "
+            "gradients: %d elements in %d leaves beyond rtol %g / atol %g "
+            "(normalised), largest relative Frobenius error %.3g; bit for "
+            "bit equal: %s"
+            % (what, l_a, l_b, (l_a - l_b) / abs(l_b),
+               sum(x["bad"] for x in d.values()),
+               sum(bool(x["bad"]) for x in d.values()), tol["rtol"],
+               tol["atol"], max(x["fro"] for x in d.values()),
+               l_a == l_b and all(torch.equal(g_a[p], g_b[p]) for p in g_b)))
+        check(abs(l_a - l_b) <= loss_tol[1] + loss_tol[0] * abs(l_b),
+              "%s: loss %r vs %r" % (what, l_a, l_b))
+        bad = leaves_beyond(d, grad_rtol)
+        check(not bad, "%s: gradients of %d leaves differ beyond rtol %g "
+              "in relative Frobenius norm: %s"
+              % (what, len(bad), grad_rtol, bad))
+
+    log("  (1) native layout vs the edge-layout batch, kernels, same noise: "
+        "f32 at the step's tolerance, then the bench configuration (bf16 "
+        "codecs, whose cotangents cuDNN rounds to bf16 after summing in a "
+        "layout-dependent order) at BF16_TOL")
+    hold("f32, native vs edge layout", l_f32n, g_f32n, l_f32, g_f32,
+         (STEP_LOSS_RTOL, 0.0), STEP_GRAD_TOL["rtol"], STEP_GRAD_TOL)
+    hold("bench step, native vs edge layout", l_nat, g_nat, l_edge, g_edge,
+         (STEP_LOSS_RTOL, 0.0), BF16_TOL["rtol"], BF16_TOL)
+    log("  (2) bench step (bf16 codecs, native) vs the f32 two-scan step "
+        "(edge), kernels, same noise")
+    hold("bench step, bf16 vs f32", l_nat, g_nat, l_f32, g_f32,
+         (BF16_TOL["rtol"], BF16_TOL["atol"]), BF16_GRAD_RTOL, BF16_TOL)
+
+    log("  (3) merged branch (one scan of 2 V B = %d columns at K = 25), "
+        "kernels" % (2 * V_MAIN * B_DATA))
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    l_m, g_m = step_grads(trainer, x_edge, y_edge, mask, False, seed,
+                          merge_mode_scans=True)
+    merged = {n: fn.launches for n, fn in wrappers.items()}
+    check(np.isfinite(l_m), "merged branch: non-finite loss")
+    check(all(bool(torch.isfinite(g).all()) for g in g_m.values()),
+          "merged branch: non-finite gradient")
+    check(merged == {"bfvi_scan_fwd": 2, "bfvi_scan_bwd": 2,
+                     "gtf_wgrad": 2, "poe_sample_cell": 0},
+          "merged branch launches %s, expected two of each scan kernel"
+          % merged)
+    log("  merged loss %.6f (two-scan %.6f, relative difference %.3g); "
+        "launches %s" % (l_m, l_f32, (l_m - l_f32) / abs(l_f32), merged))
+
+    log("  (4) steps timed in turns, %d per block [%s]" % (N_BENCH, card))
+    configs = {
+        "two_scan_f32": (trainer, x_edge, y_edge),
+        "merge_f32": (weizmann.make_trainer(
+            seed=seed, device=dev, train_args={"merge_mode_scans": True}),
+            x_edge, y_edge),
+        "bench_bf16_ragged_native": (bench, x_nat, y_nat),
+    }
+    n_data = float(mask.sum().item())
+    times = {name: [] for name in configs}
+    for name, (tr, x, y) in configs.items():
+        time_steps(tr, x, y, mask, n_data, 2)  # warm-up
+    bench_launches = None
+    order = list(configs) + list(configs)[::-1]
+    for i, name in enumerate(order):
+        tr, x, y = configs[name]
+        counted = name == "bench_bf16_ragged_native" and bench_launches is None
+        if counted:
+            for fn in wrappers.values():
+                fn.launches = 0
+        times[name] += time_steps(tr, x, y, mask, n_data, N_BENCH)
+        if counted:
+            bench_launches = {n: fn.launches for n, fn in wrappers.items()}
+    for name in SCAN_KERNELS:
+        check(bench_launches[name] == 3 * N_BENCH, "bench steps: %s launched "
+              "%d times in %d steps" % (name, bench_launches[name], N_BENCH))
+    check(bench_launches["poe_sample_cell"] == 0,
+          "the cell kernel launched during training")
+    ms = {name: statistics.median(v) for name, v in times.items()}
+    for name, v in times.items():
+        tr, x, y = configs[name]
+        busy, n_kern = device_profile(
+            lambda: tr.train_step(x, y, mask, 1.0, n_data), 3)
+        dev_note = ("device time not measured" if busy is None else
+                    "device busy %.2f ms, %d kernels a step" % (busy, n_kern))
+        log("  %-26s median %.2f ms per step over %d steps (blocks in turns),"
+            " %.1f seqs/s; %s (torch.profiler, 3 steps) [%s]"
+            % (name, ms[name], len(v), B_DATA / (ms[name] / 1e3), dev_note,
+               card))
+    log("  bench-configuration launches over %d steps: %s"
+        % (N_BENCH, bench_launches))
+    if profile_path:
+        from torch.profiler import ProfilerActivity, profile
+        tr, x, y = configs["bench_bf16_ragged_native"]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            tr.train_step(x, y, mask, 1.0, n_data)
+            torch.cuda.synchronize()
+        with open(profile_path, "a") as f:
+            f.write("\none step of the bench configuration (bf16 codecs, "
+                    "ragged, native layout; %.2f ms median without the "
+                    "profiler)\n" % ms["bench_bf16_ragged_native"])
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40))
+        log("  bench-configuration profile appended to %s" % profile_path)
+    return bench_launches, ms
+
+
+def run_cli(seed, card):
+    """Phase 8: the command line in a temporary working and save
+    directory. Returns (the training run's launches, its history)."""
+    from multimodal_dmm_tpu_torch.apps import weizmann
+    from multimodal_dmm_tpu_torch.data.weizmann import gen_synthetic
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        os.chdir(tmp)  # param_hist.tsv is written there
+        try:
+            data, save = os.path.join(tmp, "data"), os.path.join(tmp, "save")
+            t0 = time.perf_counter()
+            gen_synthetic(data)
+            log("  gen_synthetic: 90 sequences in %.1f s"
+                % (time.perf_counter() - t0))
+            flags = ["--data_dir", data, "--save_dir", save, "--method",
+                     "bfvi", "--model_args", "{bf16: true}", "--seed",
+                     str(seed)]
+            argv = flags + ["--epochs", str(CLI_EPOCHS), "--eval_freq", "1",
+                            "--save_freq", "1", "--train_args",
+                            "{ragged_mode_scans: true}"]
+            log("  main(%s)" % " ".join(argv[4:]))
+            wrappers = kernel_wrappers()
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            hist = weizmann.main(argv)
+            wall = time.perf_counter() - t0
+            launches = {n: fn.launches for n, fn in wrappers.items()}
+            names = sorted(os.listdir(save))
+            check(len(hist["epoch_loss"]) == CLI_EPOCHS
+                  and all(np.isfinite(hist["epoch_loss"])),
+                  "epoch losses %s" % hist["epoch_loss"])
+            check(all(np.isfinite(e["rec_loss"]) for e in hist["eval"]),
+                  "non-finite evaluation")
+            want = ["best.pth", "last.pth"] + ["epoch_%d.pth" % (e + 1)
+                                               for e in range(CLI_EPOCHS)]
+            check(sorted(want) == names, "checkpoints %s" % names)
+            n_bwd = launches["bfvi_scan_bwd"]
+            check(n_bwd > 0 and n_bwd % 3 == 0
+                  and launches["gtf_wgrad"] == n_bwd
+                  and launches["bfvi_scan_fwd"] == n_bwd + CLI_EPOCHS
+                  and launches["poe_sample_cell"] > 0,
+                  "command-line run launches %s: expected 3 of each scan "
+                  "kernel per step, one forward scan and the cell per "
+                  "evaluation" % launches)
+            log("  %d epochs of %d steps in %.1f s of command: losses %s, "
+                "seconds per epoch %s, evaluation seconds %s, eval rec_loss "
+                "%s [%s]" % (CLI_EPOCHS, n_bwd // 3 // CLI_EPOCHS, wall,
+                             ["%.1f" % v for v in hist["epoch_loss"]],
+                             ["%.2f" % v for v in hist["epoch_s"]],
+                             ["%.3f" % v for v in hist["eval_s"]],
+                             ["%.1f" % e["rec_loss"] for e in hist["eval"]],
+                             card))
+            log("  launches: %s; checkpoints %s" % (launches, names))
+
+            torch.backends.cudnn.deterministic = True
+            evals = [weizmann.main(flags + [
+                "--load", os.path.join(save, "last.pth"), "--evaluate",
+                "--save_args", "{skip: true}"]) for _ in range(2)]
+            torch.backends.cudnn.deterministic = False
+            for i, name in enumerate(("train", "test")):
+                a, b = dict(evals[0][i]), dict(evals[1][i])
+                check(a.keys() == b.keys() and all(
+                    a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k]))
+                    for k in a), "--load --evaluate on the %s set: two runs "
+                    "differ: %s vs %s" % (name, a, b))
+                check(np.isfinite(a["rec_loss"]) and 0 <= a["ssim"] <= 1,
+                      "--load --evaluate %s metrics %s" % (name, a))
+                log("  --load last.pth --evaluate, %s set, twice: identical;"
+                    " rec_loss %.2f, kld %.2f, mse %.4f, ssim %.4f"
+                    % (name, a["rec_loss"], a["kld_loss"], a["mse"],
+                       a["ssim"]))
+        finally:
+            os.chdir(cwd)
+    return launches, hist
 
 
 def main():
@@ -689,8 +1026,8 @@ def main():
     ap.add_argument("--steps", type=int, default=8,
                     help="timed optimizer steps (after 2 warm-up steps)")
     ap.add_argument("--profile", default=None,
-                    help="write torch.profiler tables of one step and one "
-                    "evaluation here")
+                    help="write torch.profiler tables of one step, one "
+                    "evaluation and one bench-configuration step here")
     args = ap.parse_args()
     check(args.steps >= 5, "--steps must be at least 5")
 
@@ -811,7 +1148,7 @@ def main():
     # -- phase 6: the evaluation path -----------------------------------------
     log("phase 6: Weizmann BFVI evaluation on the phase-4 weights [%s]"
         % card)
-    cell_launches, eval_ms, loader, eval_args = check_evaluation(
+    eval_launches, eval_ms, loader, eval_args = check_evaluation(
         trainer, args.seed, N_EVALS)
     if args.profile:
         with profile(activities=[ProfilerActivity.CPU,
@@ -825,10 +1162,21 @@ def main():
                 sort_by="self_device_time_total", row_limit=40))
         log("  evaluation profile appended to %s" % args.profile)
 
+    # -- phase 7: the bench configuration's step -----------------------------
+    log("phase 7: the bench configuration's step at full width [%s]" % card)
+    bench_launches, _ = check_bench_step(scan, args.seed, targets, card,
+                                         profile_path=args.profile)
+
+    # -- phase 8: the command line -------------------------------------------
+    log("phase 8: the Weizmann command line, bf16 ragged, %d epochs [%s]"
+        % (CLI_EPOCHS, card))
+    cli_launches, _ = run_cli(args.seed, card)
+
     # -- summary --------------------------------------------------------------
     log(card)
     rec["poe_sample_cell"] = cell_rec
-    launches["poe_sample_cell"] = cell_launches
+    by_phase = {"4": launches, "6": eval_launches, "7": bench_launches,
+                "8": cli_launches}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]
@@ -840,7 +1188,9 @@ def main():
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["err"],
+            "launches": cli_launches[name],
+            "launches_by_phase": {k: v[name] for k, v in by_phase.items()},
+            "max_abs_err": r["err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": bms, "bound_by": by_what, "library_ms": None})
         if name in SCAN_KERNELS:

@@ -27,3 +27,11 @@ def resolve_device(device="cuda"):
             "device %r requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run on the CPU" % (str(device),))
     return dev
+
+
+def not_ported(what, slice_):
+    """The error for a feature of the JAX package that a later slice of the
+    port brings (``slice_`` names it)."""
+    return NotImplementedError(
+        "%s is not ported yet; it comes with %s in a later slice of the "
+        "port" % (what, slice_))

@@ -1,19 +1,31 @@
 """Weizmann application: the model, the defaults it trains and evaluates
-with, and its metrics (counterpart of ``WeizmannTrainer`` in
+with, its data split, metrics and command line (counterpart of
 multimodal_dmm_tpu/apps/weizmann.py).
 
-Video (3x64x64, Bernoulli, conv codecs) + person and action (10-way
-Categorical), z = h = 256. Metrics: KLD and reconstruction loss, video
-(and mask) MSE and SSIM, person and action accuracy over time. The CLI,
-data loading, visualization and video export are not ported yet.
+Video (3x64x64, Bernoulli, conv codecs; ``--model_args '{bf16: true}'``
+runs the convolutions in bfloat16) + person and action (10-way
+Categorical), z = h = 256. Training holds out the person 'shahar' for
+the test set. Metrics: KLD and reconstruction loss, video (and mask) MSE
+and SSIM, person and action accuracy over time.
+
+    python -m multimodal_dmm_tpu_torch.apps.weizmann --data_dir D \\
+        --save_dir S --epochs E --method bfvi \\
+        --model_args '{bf16: true}' --train_args '{ragged_mode_scans: true}'
+
+runs on the GPU (``--device cpu`` for the CPU); ``--load S/best.pth
+--evaluate --save_args '{skip: true}'`` evaluates a checkpoint.
+Visualization and video export come in a later slice.
 """
 
+import copy
+import os
 import types
 from collections import defaultdict
 
 import numpy as np
 import torch
 
+from ..data import weizmann
 from ..models import codecs
 from ..models.dmm import MultiDMM
 from ..ops import losses
@@ -21,11 +33,18 @@ from ..ops.ssim import eval_ssim
 from ..training.eval_engine import time_avg_dev
 from ..training.trainer import Trainer, method_eval_args
 
+# The app's flag defaults, as the JAX app sets them.
 DEFAULTS = {
-    "modalities": ["video", "person", "action"],
-    "lr": 5e-4, "w_decay": 1e-4,
-    "rec_mults": {"video": 1, "mask": 1, "person": 10, "action": 10},
-    "batch_size": 25, "drop_frac": 0.5, "start_frac": 0, "stop_frac": 1,
+    'modalities': ['video', 'person', 'action'],
+    'batch_size': 25, 'split': 25, 'bylen': True,
+    'epochs': 500, 'lr': 5e-4, 'w_decay': 1e-4,
+    'rec_mults': {'video': 1, 'mask': 1, 'person': 10, 'action': 10},
+    'kld_anneal': 250, 'burst_frac': 0.2,
+    'drop_frac': 0.5, 'start_frac': 0, 'stop_frac': 1,
+    'eval_metric': 'rec_loss', 'viz_metric': 'ssim',
+    'eval_freq': 10, 'save_freq': 10,
+    'data_dir': './data/weizmann',
+    'save_dir': './weizmann_save',
 }
 DIMS = {"video": (3, 64, 64), "mask": (1, 64, 64), "person": 10,
         "action": 10}
@@ -34,18 +53,22 @@ DISTS = {"video": "Bernoulli", "mask": "Bernoulli", "person": "Categorical",
 
 
 def build_model(modalities=None, model_args=None):
-    """MultiDMM with conv codecs for the image modalities."""
+    """MultiDMM with conv codecs for the image modalities; ``bf16`` in
+    ``model_args`` runs their convolutions in bfloat16 (float32 weights,
+    BatchNorm and heads)."""
     modalities = list(modalities or DEFAULTS["modalities"])
     model_args = dict(model_args or {})
     z_dim = model_args.pop("z_dim", 256)
     h_dim = model_args.pop("h_dim", 256)
-    if model_args.pop("bf16", False):
-        raise NotImplementedError("bf16 codecs are not ported yet; they "
-                                  "come in a later slice of the port")
-    encoders = {"video": codecs.image_encoder_codec(z_dim),
-                "mask": codecs.image_encoder_codec(z_dim, n_channels=1)}
-    decoders = {"video": codecs.image_decoder_codec(z_dim),
-                "mask": codecs.image_decoder_codec(z_dim, n_channels=1)}
+    dt = torch.bfloat16 if model_args.pop("bf16", False) else None
+    encoders = {
+        "video": codecs.image_encoder_codec(z_dim, compute_dtype=dt),
+        "mask": codecs.image_encoder_codec(z_dim, n_channels=1,
+                                           compute_dtype=dt)}
+    decoders = {
+        "video": codecs.image_decoder_codec(z_dim, compute_dtype=dt),
+        "mask": codecs.image_decoder_codec(z_dim, n_channels=1,
+                                           compute_dtype=dt)}
     custom = [m for m in ("video", "mask") if m in modalities]
     return MultiDMM(modalities, dims=[DIMS[m] for m in modalities],
                     dists=[DISTS[m] for m in modalities],
@@ -55,7 +78,44 @@ def build_model(modalities=None, model_args=None):
 
 
 class WeizmannTrainer(Trainer):
-    """Trainer with the Weizmann app's metrics."""
+    """Trainer with the Weizmann app's defaults, data split and
+    metrics."""
+
+    # A deep copy: argparse's copy shares the actions, so set_defaults
+    # would reach the base parser.
+    parser = copy.deepcopy(Trainer.parser)
+    parser.add_argument('--viz_mod', type=str, default='video',
+                        metavar='M', help='image modality to visualize')
+    parser.set_defaults(**DEFAULTS)
+
+    @classmethod
+    def build_model(cls, args):
+        return build_model(args.modalities, args.model_args)
+
+    @classmethod
+    def post_build_args(cls, args):
+        """Scale rec_mults by 1 / (1 - the uniform corruption)."""
+        corrupt_mult = 1 / (1 - args.corrupt.get('uniform', 0.0))
+        args.rec_mults = {m: args.rec_mults[m] * corrupt_mult
+                          for m in args.modalities}
+        return args
+
+    @classmethod
+    def load_data(cls, modalities, args):
+        """The set in ``--data_dir``, person 'shahar' held out as the test
+        set; ``--normalize`` by the training set's statistics."""
+        print("Loading data...")
+        all_data = weizmann.WeizmannDataset(os.path.abspath(args.data_dir),
+                                            item_as_dict=True)
+        train_data = all_data.select([['shahar'], None], invert=True)
+        test_data = all_data.select([['shahar'], None])
+        print("Done.")
+        if len(args.normalize) > 0:
+            print("Normalizing ", args.normalize, "...")
+            test_data.normalize_(modalities=args.normalize,
+                                 ref_data=train_data)
+            train_data.normalize_(modalities=args.normalize)
+        return train_data, test_data
 
     def compute_metrics_device(self, model, infer, prior, recon, targets,
                                mask, lengths, rec_mults):
@@ -167,3 +227,14 @@ def eval_namespace(method="bfvi", modalities=None, **overrides):
     ns.update(overrides)
     ns["eval_args"] = method_eval_args(method, ns["eval_args"])
     return types.SimpleNamespace(**ns)
+
+
+def main(argv=None):
+    """The command line: parse ``argv``, build the trainer, run it;
+    returns what ``run`` returns."""
+    args = WeizmannTrainer.parser.parse_args(argv)
+    return WeizmannTrainer.from_args(args).run(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -58,7 +58,29 @@ def embed_gaussian_codec(num_embeddings, z_dim, h_dim, min_std=1e-3):
 
 
 class ModelBase:
-    """Helpers shared by the multimodal models."""
+    """The multimodal training objective and helpers shared by the
+    models."""
+
+    def step(self, params, state, inputs, mask, kld_mult, rec_mults, gen,
+             targets=None, uni_loss=True, train=True, **kwargs):
+        """The unfused objective: the joint ELBO (with more than one
+        modality) plus one unimodal ELBO per modality in ``inputs``, each
+        from its own ``forward(train=train, **kwargs)``, in that order.
+        Returns (loss, new_state)."""
+        inputs = {m: inputs[m] for m in inputs if m in self.modalities}
+        if targets is None:
+            targets = inputs
+        loss = 0.0
+        variants = [(inputs, targets)] if len(self.modalities) > 1 else []
+        if uni_loss:
+            variants += [({m: inputs[m]}, {m: targets[m]})
+                         for m in self.modalities if m in inputs]
+        for var, var_targets in variants:
+            (infer, prior, recon), state = self.forward(
+                params, state, var, gen=gen, train=train, **kwargs)
+            loss = loss + self.loss(var_targets, infer, prior, recon, mask,
+                                    kld_mult, rec_mults)
+        return loss, state
 
     def loss(self, inputs, infer, prior, recon, mask=None, kld_mult=1.0,
              rec_mults=None, avg=False):
@@ -97,6 +119,15 @@ class ModelBase:
                                                       recon[m][1], inputs[m],
                                                       mask)
         return loss
+
+    @staticmethod
+    def sample_gauss(gen, mean, std, shape=None):
+        """Reparameterised Gaussian sample: eps * std + mean, eps drawn
+        from ``gen`` with ``shape`` (default ``mean``'s)."""
+        eps = torch.randn(tuple(mean.shape) if shape is None else shape,
+                          generator=gen, dtype=mean.dtype,
+                          device=mean.device)
+        return eps * std + mean
 
     def _dim_of(self, m):
         d = self.dims[m]

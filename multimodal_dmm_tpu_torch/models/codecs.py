@@ -6,7 +6,9 @@ channel-first ``(N, C, H, W)`` at ``apply``; ``apply_native`` takes the
 channels-last ``(N, H, W, C)`` layout the training batches may be stored
 in; ``apply_logits`` returns pre-sigmoid activations in that same
 channels-last layout (``raw_perm`` maps edge dims to it). Internally the
-convolutions run NCHW, PyTorch's layout, in float32.
+convolutions run NCHW, PyTorch's layout, in float32, or with
+``compute_dtype`` (the ``bf16`` model arg) in that dtype with float32
+weights, biases, BatchNorm and heads, as the JAX package's codecs do.
 """
 
 import torch
@@ -45,13 +47,15 @@ def image_encoder_init(gen, z_dim, gauss_out=True, img_size=64,
     return params, {"bns": bn_states}
 
 
-def image_encoder_apply(params, state, x, train, gauss_out=True):
+def image_encoder_apply(params, state, x, train, gauss_out=True,
+                        compute_dtype=None):
     """x: (N, C, H, W) -> ((mean, std) or feats (N, feat_dim), state)."""
     h = x
     n_layers = len(params["convs"])
     new_bns = []
     for l in range(n_layers):
-        h = tnn.conv2d_apply(params["convs"][l], h, stride=2, padding=1)
+        h = tnn.conv2d_apply(params["convs"][l], h, stride=2, padding=1,
+                             compute_dtype=compute_dtype)
         if l < n_layers - 1:
             h, bn_s = tnn.batchnorm_apply(params["bns"][l],
                                           state["bns"][l], h, train)
@@ -85,7 +89,8 @@ def image_decoder_init(gen, z_dim, img_size=64, n_channels=3,
     return params, {"bns": bn_states}
 
 
-def image_decoder_apply(params, state, z, train, feat_shape, logits=False):
+def image_decoder_apply(params, state, z, train, feat_shape, logits=False,
+                        compute_dtype=None):
     """z: (N, z_dim) -> ((probs (N, C, H, W),), state); with ``logits``
     the pre-sigmoid activations in channels-last (N, H, W, C)."""
     feats = F.relu(tnn.linear_apply(params["z_to_feat"], z))
@@ -94,7 +99,7 @@ def image_decoder_apply(params, state, z, train, feat_shape, logits=False):
     new_bns = []
     for l in range(n_layers):
         h = tnn.deconv2d_apply(params["deconvs"][l], h, stride=2,
-                               padding=1)
+                               padding=1, compute_dtype=compute_dtype)
         if l < n_layers - 1:
             h, bn_s = tnn.batchnorm_apply(params["bns"][l],
                                           state["bns"][l], h, train)
@@ -108,19 +113,20 @@ def image_decoder_apply(params, state, z, train, feat_shape, logits=False):
 
 
 def image_encoder_codec(z_dim, gauss_out=True, img_size=64, n_channels=3,
-                        n_kernels=64, n_layers=3):
+                        n_kernels=64, n_layers=3, compute_dtype=None):
     """Conv image encoder as a Codec."""
     def init(gen):
         return image_encoder_init(gen, z_dim, gauss_out, img_size,
                                   n_channels, n_kernels, n_layers)
 
     def apply(params, state, x, train):
-        return image_encoder_apply(params, state, x, train, gauss_out)
+        return image_encoder_apply(params, state, x, train, gauss_out,
+                                   compute_dtype)
 
     def apply_native(params, state, x, train):
         """x channels-last (N, H, W, C)."""
         return image_encoder_apply(params, state, x.permute(0, 3, 1, 2),
-                                   train, gauss_out)
+                                   train, gauss_out, compute_dtype)
 
     codec = Codec(init, apply)
     codec.feat_dim = (img_size // 2 ** n_layers) ** 2 * n_kernels
@@ -130,7 +136,7 @@ def image_encoder_codec(z_dim, gauss_out=True, img_size=64, n_channels=3,
 
 
 def image_decoder_codec(z_dim, img_size=64, n_channels=3, n_kernels=64,
-                        n_layers=3):
+                        n_layers=3, compute_dtype=None):
     """Deconv image decoder as a Codec."""
     fs = img_size // 2 ** n_layers
     feat_shape = (n_kernels, fs, fs)
@@ -140,11 +146,12 @@ def image_decoder_codec(z_dim, img_size=64, n_channels=3, n_kernels=64,
                                   n_kernels, n_layers)
 
     def apply(params, state, z, train):
-        return image_decoder_apply(params, state, z, train, feat_shape)
+        return image_decoder_apply(params, state, z, train, feat_shape,
+                                   compute_dtype=compute_dtype)
 
     def apply_logits(params, state, z, train):
         return image_decoder_apply(params, state, z, train, feat_shape,
-                                   logits=True)
+                                   logits=True, compute_dtype=compute_dtype)
 
     codec = Codec(init, apply)
     codec.apply_logits = apply_logits

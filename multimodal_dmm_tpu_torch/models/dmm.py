@@ -8,21 +8,35 @@ through ``_z_next`` and the fused PoE + sampling cell of
 ``ops/cuda/poe_cell.py`` one time step at a time, as the JAX package's
 ``z_filter`` does with ``use_pallas``. Either way the CUDA kernels run for
 tensors on the GPU and their plain PyTorch versions for tensors on the
-CPU. The training objective is
-the fused one: encode once, stack the joint and unimodal variants into one
-(V*B) batch, run each objective mode's filtering (and smoothing) passes
-over it, decode only the active variant rows.
+CPU. The training objective is by
+default the fused one: encode once, stack the joint and unimodal variants
+into one (V*B) batch, run each objective mode's filtering (and smoothing)
+passes over it, decode only the active variant rows. Its two modes'
+filtering passes may also share one scan of 2*V*B columns with the f-mode
+noise broadcast to the s-mode's particle count (``merge_mode_scans``);
+``fused=False`` is the unfused composition of separate forwards
+(``ModelBase.step``). Either way each mode decodes separately, f-mode
+first, so BatchNorm's running statistics move in the same sequence.
+``ragged_mode_scans`` is accepted as a scheduling hint with no effect: the
+JAX package's ragged-K pass computes what one filtering pass per particle
+group computes (``z_filter_grouped``, kept with that API), and that is
+the two-scan step's loop, so the step runs the loop (which the JAX
+dispatch also prefers over ``merge_mode_scans`` when both are set).
 
 Noise is drawn outside the kernels from an explicit ``torch.Generator``
 (on the tensors' device), in this order per ``step``: the forward and
-backward prior-matching rollouts, then the f-mode passes, then the
-s-mode passes. ``z_filter`` also takes injected ``eps``.
+backward prior-matching rollouts, then the f-mode filtering pass, then
+the s-mode filtering pass, then the s-mode smoothing pass. The merged
+pass draws the f-mode group's noise, then the s-mode group's, then the
+smoothing pass's: the order of the two-scan step, so the same generator
+gives both the same noise. ``z_filter`` and ``z_filter_grouped`` also take
+injected ``eps``.
 """
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import not_ported, resolve_device
 from ..ops import losses
 from ..ops.cuda.bfvi_scan import bfvi_scan
 from ..ops.cuda.poe_cell import poe_sample_cell
@@ -34,20 +48,21 @@ from .base import (ModelBase, mlp_gaussian_codec, mlp_categorical_codec,
                    embed_gaussian_codec)
 
 
-def _not_ported(what, slice_="the grouped-K scan kernel (the ragged "
-                              "step)"):
-    return NotImplementedError(
-        "%s is not ported yet; it comes with %s in a later slice of the "
-        "port" % (what, slice_))
-
-
 class MultiDMM(ModelBase):
     """Multimodal deep Markov model with bidirectional factorized
     variational inference."""
 
     def __init__(self, modalities, dims, dists=None, encoders=None,
                  decoders=None, h_dim=32, z_dim=32, z0_mean=0.0, z0_std=1.0,
-                 min_std=1e-3):
+                 min_std=1e-3, use_pallas="auto", scan_unroll="auto",
+                 use_scan_kernel=False, bf16_gtf=False):
+        # use_pallas, scan_unroll and use_scan_kernel schedule the JAX
+        # package's passes; here the CUDA kernels always run on the GPU,
+        # so they are accepted and have no effect.
+        del use_pallas, scan_unroll, use_scan_kernel
+        if bf16_gtf:
+            raise not_ported("bf16_gtf (the GTF products in bfloat16)",
+                              "a performance slice")
         self.modalities = list(modalities)
         self.n_mods = len(self.modalities)
         self.dims = dict(zip(self.modalities, dims))
@@ -252,6 +267,26 @@ class MultiDMM(ModelBase):
                 lst.append(v)
         return tuple(torch.stack(v) for v in outs)
 
+    def z_filter_grouped(self, params, z_mean, z_std, z_masks, eps,
+                         k_groups, direction="fwd"):
+        """Several filtering passes over the same experts with particle
+        counts ``k_groups`` (ragged K): group g runs ``z_filter`` on its
+        slice of ``eps`` (T, sum K, B, D, scan time order), which is what
+        the JAX package's one ragged scan computes group by group. Returns
+        (infer, prior, samples) stacked on a leading group axis, (G, T, B,
+        D) each, in original time order."""
+        bounds = np.cumsum((0,) + tuple(int(k) for k in k_groups))
+        if eps.shape[1] != bounds[-1]:
+            raise ValueError("eps has %d particles, k_groups %s sum to %d"
+                             % (eps.shape[1], tuple(k_groups), bounds[-1]))
+        outs = [self.z_filter(params, z_mean, z_std, z_masks,
+                              direction=direction, eps=eps[:, s:e])
+                for s, e in zip(bounds[:-1], bounds[1:])]
+        stack = lambda i, j=None: torch.stack(  # noqa: E731
+            [o[i] if j is None else o[i][j] for o in outs])
+        return ((stack(0, 0), stack(0, 1)), (stack(1, 0), stack(1, 1)),
+                stack(2))
+
     def z_sample(self, params, t_max, b_dim, gen, direction="fwd",
                  sample=True, n_particles=1, z_init=None, inclusive=False):
         """Ancestral rollout of the latent chain."""
@@ -334,7 +369,7 @@ class MultiDMM(ModelBase):
         return recon
 
     def set_variant_mesh(self, mesh):
-        raise _not_ported("set_variant_mesh (sharding the stacked variant "
+        raise not_ported("set_variant_mesh (sharding the stacked variant "
                           "rows)", "multi-GPU data parallelism")
 
     # -- objective ------------------------------------------------------------
@@ -365,12 +400,8 @@ class MultiDMM(ModelBase):
         flt_particles = kwargs.pop("flt_particles", 1)
         kwargs.pop("smt_particles", None)
         sample = kwargs.pop("sample", True)
-        if kwargs.pop("merge_mode_scans", False):
-            raise _not_ported("merge_mode_scans")
-        if kwargs.pop("ragged_mode_scans", False):
-            raise _not_ported("ragged_mode_scans")
-        if not fused:
-            raise _not_ported("the unfused step (fused=False)")
+        merge_mode_scans = kwargs.pop("merge_mode_scans", False)
+        ragged_mode_scans = kwargs.pop("ragged_mode_scans", False)
         native_mods = tuple(kwargs.pop("native_mods", ()))
 
         loss = 0.0
@@ -379,6 +410,19 @@ class MultiDMM(ModelBase):
             for direction in ("fwd", "bwd"):
                 loss = loss + (match_mult * kld_mult * msum * self.kld_prior(
                     params, gen, match_particles, direction))
+
+        if not fused:
+            if native_mods:
+                raise ValueError("native_mods requires the fused step (the "
+                                 "unfused composition takes edge layout)")
+            for mult, mode, fp in ((f_mult, f_mode, flt_particles),
+                                   (s_mult, s_mode, train_particles)):
+                mode_loss, state = ModelBase.step(
+                    self, params, state, inputs, mask, kld_mult, rec_mults,
+                    gen, targets=targets, uni_loss=uni_loss, train=train,
+                    mode=mode, flt_particles=fp, sample=sample, **kwargs)
+                loss = loss + mult * mode_loss
+            return loss, state
 
         inputs = {m: inputs[m] for m in inputs if m in self.modalities}
         if targets is None:
@@ -402,6 +446,26 @@ class MultiDMM(ModelBase):
         vmat = np.stack(rows)
 
         dec_state = state["dec"]
+        fdir = "fwd" if f_mode in ("ffilter", "bsmooth") else "bwd"
+        sdir = "fwd" if s_mode in ("ffilter", "bsmooth") else "bwd"
+        two_modes = (f_mode in ("ffilter", "bfilter")
+                     and s_mode in ("fsmooth", "bsmooth") and fdir == sdir
+                     and not kwargs.get("sample_init", False))
+        # The ragged pass is the loop below (module docstring); it still
+        # takes precedence over the merged pass, as in the JAX dispatch.
+        can_ragged = ragged_mode_scans and two_modes
+        can_merge = (merge_mode_scans and two_modes and not can_ragged
+                     and flt_particles in (1, train_particles))
+        if can_merge:
+            f_loss, s_loss, dec_state = self._fused_two_mode_losses(
+                params, dec_state, obs_mean, obs_std, obs_mask, vmat,
+                targets, mask, kld_mult, rec_mults, gen, f_mode=f_mode,
+                s_mode=s_mode, flt_particles=flt_particles,
+                train_particles=train_particles, sample=sample,
+                train=train, native_mods=native_mods, **kwargs)
+            loss = loss + f_mult * f_loss + s_mult * s_loss
+            return loss, {"enc": enc_state, "dec": dec_state}
+
         for mult, mode, fp in ((f_mult, f_mode, flt_particles),
                                (s_mult, s_mode, train_particles)):
             mode_loss, dec_state = self._fused_mode_loss(
@@ -450,6 +514,52 @@ class MultiDMM(ModelBase):
         return self._variant_objective(
             params, dec_state, infer, prior, z_samples, vmat, targets, mask,
             kld_mult, rec_mults, train, native_mods=native_mods)
+
+    def _fused_two_mode_losses(self, params, dec_state, obs_mean, obs_std,
+                               obs_mask, vmat, targets, mask, kld_mult,
+                               rec_mults, gen, f_mode, s_mode, flt_particles,
+                               train_particles, sample, smt_particles=1,
+                               sample_init=False, train=True,
+                               native_mods=()):
+        """Both modes' filtering passes in one scan of 2*V*B columns at the
+        larger particle count, the f-mode noise broadcast over it, so each
+        f-mode particle follows the same trajectory (the JAX package's
+        ``merge_mode_scans``, exact up to the rounding of the particle
+        mean); then the s-mode's smoothing pass and the two modes'
+        objectives."""
+        t_max = obs_mean.shape[1]
+        vb = vmat.shape[0] * obs_mean.shape[2]
+        zm, zs, om = self._variant_experts(obs_mean, obs_std, obs_mask,
+                                           vmat)
+        direction = "fwd" if f_mode in ("ffilter", "bsmooth") else "bwd"
+        dev = zm.device
+        eps_f = self._filter_eps(gen, t_max, flt_particles, vb,
+                                 sample or flt_particles > 1, False, dev)
+        eps_s = self._filter_eps(gen, t_max, train_particles, vb,
+                                 sample or train_particles > 1, False, dev)
+        k_dim = max(eps_f.shape[1], eps_s.shape[1])
+        shape = (t_max, k_dim, vb, self.z_dim)
+        eps = torch.cat([eps_f.expand(shape), eps_s.expand(shape)], dim=2)
+        two = lambda x: torch.cat([x, x], dim=2)  # noqa: E731
+        infer, prior, z_samples = self.z_filter(
+            params, two(zm), two(zs), two(om), direction=direction, eps=eps)
+        f_infer = (infer[0][:, :vb], infer[1][:, :vb])
+        f_prior = (prior[0][:, :vb], prior[1][:, :vb])
+        f_samples = z_samples[:, :vb]
+        s_prior = (prior[0][:, vb:], prior[1][:, vb:])
+
+        s_direction = "fwd" if s_mode == "fsmooth" else "bwd"
+        szm, szs, som = self._smooth_experts(params, zm, zs, om, s_prior)
+        s_infer, s_prior, s_samples = self.z_filter(
+            params, szm, szs, som, gen, direction=s_direction, sample=sample,
+            n_particles=smt_particles, sample_init=sample_init)
+        f_loss, dec_state = self._variant_objective(
+            params, dec_state, f_infer, f_prior, f_samples, vmat, targets,
+            mask, kld_mult, rec_mults, train, native_mods=native_mods)
+        s_loss, dec_state = self._variant_objective(
+            params, dec_state, s_infer, s_prior, s_samples, vmat, targets,
+            mask, kld_mult, rec_mults, train, native_mods=native_mods)
+        return f_loss, s_loss, dec_state
 
     def _variant_objective(self, params, dec_state, infer, prior, z_samples,
                            vmat, targets, mask, kld_mult, rec_mults, train,

@@ -140,9 +140,20 @@ def conv2d_init(gen, c_in, c_out, ksize=3, xavier=True):
             "b": _uniform(gen, (c_out,), 1.0 / math.sqrt(fan_in))}
 
 
-def conv2d_apply(p, x, stride=2, padding=1):
-    """x: (N, C, H, W) -> (N, C', H', W')."""
-    return F.conv2d(x, p["w"], p["b"], stride=stride, padding=padding)
+def _biased(out, b):
+    """A reduced-precision convolution's output in float32, plus the bias
+    in float32 (the weights stay float32 masters)."""
+    return out.to(torch.float32) + b.reshape((-1,) + (1,) * (out.dim() - 2))
+
+
+def conv2d_apply(p, x, stride=2, padding=1, compute_dtype=None):
+    """x: (N, C, H, W) -> (N, C', H', W'). With ``compute_dtype`` (for
+    example bfloat16) the input and weights are cast to it and the
+    convolution's output is rounded to it, as the JAX package does."""
+    if compute_dtype is None:
+        return F.conv2d(x, p["w"], p["b"], stride=stride, padding=padding)
+    return _biased(F.conv2d(x.to(compute_dtype), p["w"].to(compute_dtype),
+                            stride=stride, padding=padding), p["b"])
 
 
 def deconv2d_init(gen, c_in, c_out, ksize=4, xavier=True):
@@ -156,10 +167,16 @@ def deconv2d_init(gen, c_in, c_out, ksize=4, xavier=True):
             "b": _uniform(gen, (c_out,), 1.0 / math.sqrt(fan_out))}
 
 
-def deconv2d_apply(p, x, stride=2, padding=1):
-    """out_size = (in - 1) * stride - 2 * padding + ksize."""
-    return F.conv_transpose2d(x, p["w"], p["b"], stride=stride,
-                              padding=padding)
+def deconv2d_apply(p, x, stride=2, padding=1, compute_dtype=None):
+    """out_size = (in - 1) * stride - 2 * padding + ksize;
+    ``compute_dtype`` as in ``conv2d_apply``."""
+    if compute_dtype is None:
+        return F.conv_transpose2d(x, p["w"], p["b"], stride=stride,
+                                  padding=padding)
+    return _biased(F.conv_transpose2d(x.to(compute_dtype),
+                                      p["w"].to(compute_dtype),
+                                      stride=stride, padding=padding),
+                   p["b"])
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
-"""The training step, its optimizer, and evaluation (counterpart of the
-optimizer chain, the jitted train step and ``evaluate`` of
-multimodal_dmm_tpu/training/trainer.py).
+"""The trainer: its command-line flags, the training step and optimizer,
+the epoch loop, evaluation, checkpoints and the run entry points
+(counterpart of multimodal_dmm_tpu/training/trainer.py).
 
 The optimizer is the JAX package's chain: optional global-norm clipping,
 then additive L2 weight decay, then Adam, with an update whose gradients
@@ -8,6 +8,23 @@ are not all finite skipped altogether (Adam's moments and step count are
 left as they were). Clip + L2 + Adam is ``torch.optim.Adam(weight_decay=
 ...)`` after ``clip_grad_norm_``, which tests/test_optimizer_parity.py
 holds equal to the optax chain.
+
+``Trainer(model, lr, ...)`` holds a model's weights, optimizer and
+sampling generator. ``Trainer.from_args(args)`` builds one from the
+parsed flags of ``Trainer.parser`` (the JAX package's flag surface, with
+``--device`` defaulting to ``cuda``; the dict flags take flow-style YAML
+through ``flow_yaml``, not PyYAML): the app's data and model, a checkpoint
+from ``--load``, and the derived args. ``run(args)`` then trains
+(``run_train``: corruption, split, the device-resident loader with burst
+deletion, ``train`` epochs with the KLD anneal and a one-step-delayed loss
+readback, evaluation every ``--eval_freq`` epochs, ``best.pth``,
+``epoch_N.pth`` and ``last.pth``, ``--resume_trial``) or evaluates
+(``--evaluate``: ``run_eval``). Flags whose feature comes in a later
+slice of the port raise ``NotImplementedError``: ``--mesh`` above 1,
+``--method``/``--model`` other than BFVI's ``dmm``, ``--visualize``,
+``--find_best``, ``--rng_impl``, and results export (``run_eval`` without
+``--save_args '{skip: true}'``). A device-loader failure raises; the host
+loader runs only under ``--host_loader``.
 
 ``evaluate(loader, args)`` composes each eval task (random deletion,
 kept segment, dropped and kept modalities), runs the model's forward
@@ -20,17 +37,167 @@ numpy. ``args`` is any namespace with ``drop_frac``, ``start_frac``,
 ``stop_frac``, ``drop_mods``, ``keep_mods``, ``eval_mods``,
 ``rec_mults``, ``eval_args`` and ``visualize``.
 
-The flag surface, training loop, checkpoints and visualization of the JAX
-Trainer are not ported yet.
+Randomness: ``--seed`` seeds numpy (corruption, the host loader) and the
+sampling generator on the device; the device loader's shuffle and bursts
+are functions of (seed, epoch); the weights come from a CPU generator
+seeded with ``--init_seed`` (default ``--seed``). Checkpoints carry the
+generator's state, so a resumed run reproduces the uninterrupted one.
 """
+
+import argparse
+import copy
+import csv
+import os
+import re
+import signal
+import time
 
 import numpy as np
 import torch
 
-from .. import resolve_device
+from .. import not_ported, resolve_device
+from ..convert import (adam_to_jax, load_adam, optax_adam_moments,
+                       params_from_jax, params_to_jax)
 from ..data import multiseq as mseq
-from ..tree import tree_leaves, tree_map
+from ..ops.schedules import anneal
+from ..tree import tree_leaves, tree_leaves_with_path, tree_map
+from . import checkpoint as ckpt
+from .device_loader import DeviceTrainData
+from .diagnostics import StepTimer, plot_grad_flow, profile_ctx
 from .eval_engine import DeviceEvalData, compose_task
+from .flow_yaml import safe_load
+from .loader import BatchLoader
+
+
+def _build_parser():
+    """The JAX Trainer's flags, flag for flag."""
+    parser = argparse.ArgumentParser(
+        formatter_class=argparse.ArgumentDefaultsHelpFormatter)
+    add = parser.add_argument
+    add('--modalities', type=str, nargs='+', default=[], metavar='M',
+        help='data modalities')
+    add('--model', type=str, default='dmm', metavar='S',
+        help='name of model to train (dmm)')
+    add('--method', type=str, default=None, metavar='S',
+        help='inference method: bfvi (the DKS methods b/f-mask and '
+             'b/f-skip come in a later slice)')
+    add('--model_args', type=safe_load, default={}, metavar='DICT',
+        help='additional model arguments as a YAML flow mapping')
+    add('--train_args', type=safe_load, default={}, metavar='DICT',
+        help='additional train arguments as a YAML flow mapping')
+    add('--eval_args', type=safe_load, default={}, metavar='DICT',
+        help='additional eval. arguments as a YAML flow mapping')
+    add('--save_args', type=safe_load, default={}, metavar='DICT',
+        help='results saving arguments as a YAML flow mapping '
+             '({skip: true}: metrics only)')
+    add('--batch_size', type=int, default=100, metavar='N')
+    add('--batch_sz_eval', type=int, default=None, metavar='N')
+    add('--len_bucket', type=int, default=0, metavar='N',
+        help='pad eval batches to multiples of N timesteps (0 = exact '
+             'pad)')
+    add('--split', type=int, default=1, metavar='N',
+        help='split each training sequence into N chunks')
+    add('--bylen', action='store_true', default=False,
+        help='whether to split by length')
+    add('--epochs', type=int, default=100, metavar='N')
+    add('--lr', type=float, default=1e-4, metavar='LR')
+    add('--w_decay', type=float, default=1e-4, metavar='F')
+    add('--clip_grad', type=float, default=None, metavar='F')
+    add('--seed', type=int, default=1, metavar='N')
+    add('--kld_mult', type=float, default=1.0, metavar='F')
+    add('--rec_mults', type=safe_load, default='auto', metavar='DICT')
+    add('--kld_anneal', type=int, default=100, metavar='N')
+    add('--data_workers', type=int, default=1, metavar='N',
+        help='(accepted for parity; the loader is in-process)')
+    add('--pin_memory', type=bool, default=True, metavar='B',
+        help='(accepted for parity; the training set lives on the '
+             'device)')
+    add('--no_skip_nonfinite', action='store_true', default=False,
+        help='apply optimizer updates even when grads are non-finite')
+    add('--host_loader', action='store_true', default=False,
+        help='use the host-side numpy batch loader for training instead '
+             'of the device-resident one')
+    add('--edge_layout', action='store_true', default=False,
+        help='store device-loader training batches in the edge layout '
+             '(channel-first) instead of the codec-native layout')
+    add('--normalize', type=str, default=[], nargs='+', metavar='M')
+    add('--corrupt', type=safe_load, default={}, metavar='DICT')
+    add('--burst_frac', type=float, default=0.1, metavar='F')
+    add('--drop_frac', type=float, default=0.5, metavar='F')
+    add('--start_frac', type=float, default=0.25, metavar='F')
+    add('--stop_frac', type=float, default=0.75, metavar='F')
+    add('--drop_mods', type=str, default=[], nargs='+', metavar='M')
+    add('--keep_mods', type=str, default=[], nargs='+', metavar='M')
+    add('--eval_mods', type=str, default='all', nargs='+', metavar='M')
+    add('--eval_metric', type=str, default='mse', metavar='S')
+    add('--viz_metric', type=str, default='mse', metavar='S')
+    add('--eval_freq', type=int, default=10, metavar='N')
+    add('--save_freq', type=int, default=10, metavar='N')
+    add('--load', type=str, default=None, metavar='PATH')
+    add('--resume_trial', action='store_true', default=False,
+        help='continue an interrupted training run from the latest '
+             'epoch_N.pth in save_dir (weights, Adam state, best loss and '
+             'the sampling generator are restored, so the resumed run '
+             'reproduces the uninterrupted one); also enabled by '
+             'MDMM_RESUME_TRIAL=1')
+    add('--data_dir', type=str, metavar='DIR')
+    add('--save_dir', type=str, metavar='DIR')
+    add('--visualize', action='store_true', default=False)
+    add('--gradients', action='store_true', default=False,
+        help='plot per-layer gradient flow each batch')
+    add('--profile_dir', type=str, default=None, metavar='DIR',
+        help='write a torch.profiler trace of epoch 2 to this dir and '
+             'print per-step timing summaries')
+    add('--device', type=str, default='cuda',
+        help='torch device (cuda/cpu); cuda raises without a GPU')
+    add('--mesh', type=str, default='0', metavar='SPEC',
+        help='device mesh: 0/1 = one device (multi-GPU comes in a later '
+             'slice)')
+    add('--anomaly_check', action='store_true', default=False,
+        help='enable torch.autograd anomaly detection')
+    add('--evaluate', '--test', action='store_true', default=False)
+    add('--eval_sets', type=str, nargs='+', metavar='S',
+        default=['train', 'test'])
+    add('--find_best', action='store_true', default=False)
+    add('--rng_impl', type=str, default='threefry2x32',
+        choices=['threefry2x32', 'rbg', 'unsafe_rbg'],
+        help='the JAX package\'s PRNG choice; the port draws from '
+             'torch.Generator and takes only the default')
+    add('--init_seed', type=int, default=None, metavar='S',
+        help='override the parameter-init stream only (--seed keeps '
+             'driving data shuffle, corruption, and model sampling)')
+    add('--matmul_precision', type=str, default='default',
+        choices=['default', 'bfloat16', 'bfloat16_3x', 'float32',
+                 'highest'],
+        help='float32 matmul precision: float32/highest = full float32 '
+             '(torch "highest", no TF32), bfloat16_3x = torch "high", '
+             'bfloat16 = torch "medium"; default leaves torch\'s setting')
+    return parser
+
+
+def _refuse_later_slices(args):
+    """Raise for flags whose feature comes in a later slice."""
+    if str(args.mesh or 0).lower() not in ("0", "1"):
+        raise not_ported("--mesh %s (multi-GPU)" % args.mesh,
+                           "multi-GPU data parallelism")
+    if args.method not in (None, "bfvi") or (args.method is None
+                                              and args.model != "dmm"):
+        raise not_ported("--method %s / --model %s" % (args.method,
+                                                          args.model),
+                           "DKS and VRNN")
+    if args.visualize:
+        raise not_ported("--visualize", "the apps' visualization")
+    if args.find_best:
+        raise not_ported("--find_best (run_find)", "the experiment "
+                           "suites")
+    if args.rng_impl != "threefry2x32":
+        raise not_ported("--rng_impl %s" % args.rng_impl, "JAX's PRNG "
+                           "implementations (the port draws from "
+                           "torch.Generator)")
+
+
+_PRECISION = {"float32": "highest", "highest": "highest",
+              "bfloat16_3x": "high", "bfloat16": "medium"}
 
 
 def method_eval_args(method, eval_args):
@@ -40,9 +207,7 @@ def method_eval_args(method, eval_args):
     if method == "bfvi" and "flt_particles" not in eval_args:
         return dict(eval_args, flt_particles=200)
     if method not in (None, "bfvi"):
-        raise NotImplementedError(
-            "method %r (a DKS variant) is not ported yet; it comes with "
-            "DKS in a later slice of the port" % (method,))
+        raise not_ported("method %r (a DKS variant)" % (method,), "DKS")
     return dict(eval_args)
 
 
@@ -50,18 +215,24 @@ class Trainer:
     """Holds a model's parameters, state, optimizer and sampling
     generator, and takes training steps.
 
-    ``params``/``state`` default to ``model.init(seed)``; when given
-    (for example from ``convert.params_from_jax``) they are moved to
-    ``device``.
+    ``params``/``state`` default to ``model.init(init_seed or seed)``;
+    when given (for example from ``convert.params_from_jax``) they are
+    moved to ``device``. ``from_args`` builds one from the command line's
+    flags through the app's hooks (``pre_build_args``, ``load_data``,
+    ``build_model``, ``post_build_args``).
     """
+
+    parser = _build_parser()
 
     def __init__(self, model, lr, w_decay=1e-4, clip_grad=None,
                  skip_nonfinite=True, rec_mults=None, train_args=None,
-                 seed=1, params=None, state=None, device="cuda"):
+                 seed=1, params=None, state=None, device="cuda",
+                 init_seed=None):
         self.device = resolve_device(device)
         self.model = model
         if params is None:
-            params, state = model.init(seed, device=self.device)
+            params, state = model.init(seed if init_seed is None
+                                       else init_seed, device=self.device)
         to_dev = lambda x: x.detach().to(self.device).clone()  # noqa: E731
         self.params = tree_map(to_dev, params)
         self.state = tree_map(to_dev, state)
@@ -76,6 +247,56 @@ class Trainer:
         self.train_args = dict(train_args or {})
         self.gen = torch.Generator(device=self.device).manual_seed(int(seed))
         self._eval_dev_cache = {}  # key -> (dataset, DeviceEvalData)
+
+    @classmethod
+    def from_args(cls, args):
+        """A trainer built from ``cls.parser``'s ``args``: the app's data
+        (``train_data``, ``test_data``) and model, weights from ``--load``
+        (or, with ``--evaluate``, ``save_dir/best.pth``), Adam's moments
+        where the checkpoint has them. ``args`` is updated in place as
+        the JAX Trainer updates it."""
+        # argparse shares its default containers between namespaces: own
+        # them before a hook changes one.
+        for k, v in list(vars(args).items()):
+            if isinstance(v, (dict, list)):
+                setattr(args, k, copy.deepcopy(v))
+        _refuse_later_slices(args)
+        device = resolve_device(args.device)
+        np.random.seed(args.seed)
+        if args.anomaly_check:
+            torch.autograd.set_detect_anomaly(True)
+        if args.matmul_precision != "default":
+            torch.set_float32_matmul_precision(
+                _PRECISION[args.matmul_precision])
+            torch.backends.cudnn.allow_tf32 = \
+                _PRECISION[args.matmul_precision] != "highest"
+        args = cls.pre_build_args(args)
+        os.makedirs(args.save_dir, exist_ok=True)
+
+        checkpoint = None
+        if args.load is not None:
+            checkpoint = ckpt.load_checkpoint(args.load)
+        elif args.evaluate:
+            checkpoint = ckpt.load_checkpoint(
+                os.path.join(args.save_dir, "best.pth"))
+        if checkpoint is not None:
+            args.modalities = checkpoint["modalities"]
+
+        train_data, test_data = cls.load_data(args.modalities, args)
+        print('Constructing model...')
+        model = cls.build_model(args)
+        trainer = cls(model, lr=args.lr, w_decay=args.w_decay,
+                      clip_grad=args.clip_grad,
+                      skip_nonfinite=not args.no_skip_nonfinite,
+                      seed=args.seed, init_seed=args.init_seed,
+                      device=device)
+        trainer.train_data, trainer.test_data = train_data, test_data
+        print('Number of parameters:',
+              sum(p.numel() for p in trainer.leaves))
+        if checkpoint is not None:
+            trainer.restore(checkpoint, opt=True)
+        cls.post_build_args(args)
+        return trainer
 
     def apply_gradients(self):
         """One optimizer update from the leaves' ``.grad``; returns False
@@ -103,6 +324,65 @@ class Trainer:
         applied = self.apply_gradients()
         self.state = tree_map(lambda x: x.detach(), new_state)
         return loss.detach(), applied
+
+    # -- the epoch loop -------------------------------------------------------
+
+    def train(self, loader, epoch, args):
+        """One epoch of updates over ``loader`` (a ``DeviceTrainData``, or
+        a host ``BatchLoader`` whose batches get ``burst_delete``); the
+        KLD multiplier anneals linearly over ``kld_anneal`` epochs of
+        batches. Each batch's loss is read back only after the next
+        batch's step is queued. Returns the epoch's loss per step."""
+        self.rec_mults = dict(args.rec_mults)
+        self.train_args = dict(args.train_args)
+        loss_sum, data_num, kld_mult = 0.0, 0, 0.0
+        n_batches = len(loader)
+        timer = StepTimer(self.device)
+        pending = None  # (batch number, loss on the device, n steps)
+
+        def drain(p):
+            nonlocal loss_sum, data_num
+            b_prev, loss_dev, n_prev = p
+            loss_sum += float(loss_dev)
+            data_num += n_prev
+            print('Batch: {:5d}\tLoss: {:10.1f}'.format(
+                b_prev, loss_sum / data_num))
+
+        if isinstance(loader, DeviceTrainData):
+            batches = loader.epoch(args.seed * 100003 + epoch)
+        else:
+            def host_batches():
+                for targets, mask, lengths, _, _ in loader:
+                    inputs = mseq.burst_delete(targets, args.burst_frac,
+                                               lengths)
+                    yield (self._to_device(inputs), self._to_device(targets),
+                           torch.as_tensor(mask, device=self.device),
+                           lengths)
+            batches = host_batches()
+
+        for b_num, (inputs, targets, mask, lengths) in enumerate(batches):
+            kld_mult = anneal(0.0, args.kld_mult, b_num + epoch * n_batches,
+                              args.kld_anneal * n_batches)
+            timer.start()
+            loss, _ = self.train_step(inputs, targets, mask, kld_mult,
+                                      float(sum(lengths)))
+            timer.stop()
+            if args.gradients:
+                plot_grad_flow(tree_map(lambda p: p.grad, self.params),
+                               save_path=os.path.join(args.save_dir,
+                                                      'grad_flow.pdf'))
+            if pending is not None:
+                drain(pending)
+            pending = (b_num, loss, sum(lengths))
+        if pending is not None:
+            drain(pending)
+        if args.profile_dir:
+            print('Step timing:', timer.summary())
+        loss = loss_sum / max(data_num, 1)
+        print('---')
+        print('Epoch: {}\tLoss: {:10.1f}\tKLD-Mult: {:0.3f}'.format(
+            epoch, loss, kld_mult))
+        return loss
 
     # -- evaluation -----------------------------------------------------------
 
@@ -211,7 +491,283 @@ class Trainer:
         return ({"seq_ids": [], "targets": [], "inputs": [], "recon": []},
                 self.summarize_metrics(metrics, n_timesteps))
 
+    # -- run entry points -----------------------------------------------------
+
+    def run_eval(self, args):
+        """Evaluate on the ``--eval_sets`` (train, test); returns (train
+        metrics, test metrics). Metrics only: ``--save_args '{skip:
+        true}'``; exporting results comes in a later slice."""
+        if not (isinstance(args.save_args, dict)
+                and args.save_args.get('skip')):
+            raise not_ported(
+                "saving evaluation results (save_results; pass --save_args "
+                "'{skip: true}' for metrics only)", "the apps' "
+                "visualization")
+        metrics = {}
+        for name, data in (('train', self.train_data),
+                           ('test', self.test_data)):
+            if name not in args.eval_sets:
+                continue
+            print("--{}--".format("Training" if name == 'train'
+                                  else "Testing"))
+            loader = BatchLoader(data, batch_size=args.batch_sz_eval,
+                                 len_bucket=args.len_bucket)
+            args.eval_set = name
+            _, metrics[name] = self.evaluate(loader, args,
+                                             collect_results=False)
+        self.save_params(args)
+        return metrics.get('train'), metrics.get('test')
+
+    def run_train(self, args, reporter=None):
+        """The training run: corrupt and split the training set, train
+        ``--epochs`` epochs from the device loader (or, with
+        ``--host_loader``, the host loader), evaluate on the test set every
+        ``--eval_freq`` epochs, write ``best.pth`` (best ``--eval_metric``
+        so far) and ``epoch_N.pth`` every ``--save_freq`` epochs and
+        ``last.pth`` at the end. Returns {"epoch_loss": [...], "epoch_s":
+        [...] (training, on the host's clock), "eval": [metrics, ...],
+        "eval_s": [...], "best_loss": x}."""
+        train_data, test_data = self.train_data, self.test_data
+        if 'uniform' in args.corrupt:
+            train_data = train_data.corrupt(args.corrupt['uniform'])
+        if 'burst' in args.corrupt:
+            train_data = train_data.corrupt(args.corrupt['burst'],
+                                            mode='burst')
+        if 'semi' in args.corrupt:
+            train_data = train_data.corrupt(
+                args.corrupt['semi'], mode='all_none',
+                modalities=args.corrupt['modalities'])
+        train_data = train_data.split(args.split, args.bylen)
+
+        args.train_args = {k: v for k, v in args.train_args.items()
+                           if k != 'native_mods'}
+        if args.host_loader:
+            train_loader = BatchLoader(train_data,
+                                       batch_size=args.batch_size,
+                                       shuffle=True)
+        else:
+            native = ({} if args.edge_layout
+                      else self.model.native_input_perms())
+            train_loader = DeviceTrainData(
+                train_data, self.model.modalities, args.batch_size,
+                args.burst_frac, native_perms=native, device=self.device)
+            if native:
+                args.train_args['native_mods'] = tuple(
+                    m for m in self.model.modalities if m in native)
+        test_loader = BatchLoader(test_data, batch_size=args.batch_sz_eval,
+                                  len_bucket=args.len_bucket)
+
+        best_loss, best_snapshot = float('inf'), None
+        loss, metrics = float('nan'), {}
+        history = {"epoch_loss": [], "epoch_s": [], "eval": [],
+                   "eval_s": []}
+        args.eval_set = None
+        start_epoch = 1
+        if (args.resume_trial
+                or os.environ.get('MDMM_RESUME_TRIAL') == '1'):
+            latest, ck = self._latest_epoch_checkpoint(args.save_dir)
+            if ck is not None:
+                self.restore(ck, opt=True)
+                if "torch_gen" in ck:
+                    self.gen.set_state(torch.as_tensor(ck["torch_gen"]))
+                start_epoch = int(ck.get("epoch", latest)) + 1
+                best_loss = float(ck.get("best_loss", best_loss))
+                print('--- Resuming from epoch {} checkpoint (best_loss '
+                      '{:0.4g}) ---'.format(latest, best_loss))
+
+        # A SIGTERM between writes would lose the pending best snapshot:
+        # turn it into an exception so that `finally` writes it first.
+        def on_term(signum, frame):
+            raise KeyboardInterrupt("SIGTERM")
+        try:
+            prev_term = signal.signal(signal.SIGTERM, on_term)
+        except ValueError:  # not the main thread
+            prev_term = None
+        try:
+            for epoch in range(start_epoch, args.epochs + 1):
+                print('---')
+                t0 = time.perf_counter()
+                with profile_ctx(args.profile_dir if epoch == 2 else None):
+                    history["epoch_loss"].append(
+                        self.train(train_loader, epoch, args))
+                history["epoch_s"].append(time.perf_counter() - t0)
+                if epoch % args.eval_freq == 0:
+                    t0 = time.perf_counter()
+                    _, metrics = self.evaluate(test_loader, args,
+                                               collect_results=False)
+                    history["eval_s"].append(time.perf_counter() - t0)
+                    history["eval"].append(dict(metrics))
+                    loss = metrics[args.eval_metric]
+                    if loss < best_loss:
+                        best_loss = loss
+                        # Written every save_freq epochs, not at each
+                        # improvement.
+                        best_snapshot = self._snapshot()
+                    if reporter is not None:
+                        reporter(mean_loss=loss, best_loss=best_loss,
+                                 training_iteration=epoch,
+                                 done=bool(np.isnan(loss)), **metrics)
+                if epoch % args.save_freq == 0:
+                    if best_snapshot is not None:
+                        self._write(os.path.join(args.save_dir, "best.pth"),
+                                    args.modalities, best_snapshot,
+                                    extra={"best_loss": float(best_loss)})
+                        best_snapshot = None
+                    self.save_checkpoint(
+                        args.modalities,
+                        os.path.join(args.save_dir,
+                                     "epoch_{}.pth".format(epoch)),
+                        extra={"epoch": epoch,
+                               "best_loss": float(best_loss)})
+        finally:
+            if best_snapshot is not None:
+                self._write(os.path.join(args.save_dir, "best.pth"),
+                            args.modalities, best_snapshot,
+                            extra={"best_loss": float(best_loss)})
+            if prev_term is not None:
+                signal.signal(signal.SIGTERM, prev_term)
+        self.save_checkpoint(args.modalities,
+                             os.path.join(args.save_dir, "last.pth"))
+        self.save_params(args)
+        if reporter is not None:
+            reporter(mean_loss=loss, best_loss=best_loss,
+                     training_iteration=args.epochs, done=True, **metrics)
+        history["best_loss"] = best_loss
+        return history
+
+    def run(self, args):
+        """``run_eval`` with ``--evaluate``, else ``run_train``; returns
+        what it returns."""
+        if args.evaluate:
+            return self.run_eval(args)
+        return self.run_train(args)
+
+    @classmethod
+    def tune(cls, config, reporter):
+        raise not_ported("tune (the experiment runner's trainable)",
+                           "the experiment suites")
+
+    # -- persistence ----------------------------------------------------------
+
+    def save_params(self, args):
+        """Append this run's settings to ``param_hist.tsv`` in the working
+        directory (the JAX package's columns, written with ``csv``)."""
+        fname = 'param_hist.tsv'
+        cols = ['save_dir', 'model', 'modalities', 'batch_size', 'split',
+                'epochs', 'lr', 'w_decay', 'seed', 'burst_frac', 'kld_mult',
+                'rec_mults', 'kld_anneal', 'model_args', 'train_args',
+                'eval_args']
+        row = [getattr(args, c) for c in cols] + [self.model.h_dim,
+                                                   self.model.z_dim]
+        header = not os.path.exists(fname)
+        with open(fname, 'a', newline='') as f:
+            w = csv.writer(f, delimiter='\t')
+            if header:
+                w.writerow([''] + cols + ['h_dim', 'z_dim'])
+            w.writerow([0] + row)
+
+    def _adam_states(self):
+        """{leaf path: Adam's state} for the leaves that have one."""
+        return {path: self.optimizer.state[p]
+                for path, p in tree_leaves_with_path(self.params)
+                if p in self.optimizer.state}
+
+    def _snapshot(self):
+        """(params, state, Adam state) cloned, on the device."""
+        clone = lambda x: x.detach().clone()  # noqa: E731
+        adam = {path: {k: (v.clone() if torch.is_tensor(v) else v)
+                       for k, v in st.items()}
+                for path, st in self._adam_states().items()}
+        return tree_map(clone, self.params), tree_map(clone, self.state), adam
+
+    @staticmethod
+    def _write(path, modalities, snapshot, extra=None):
+        """A checkpoint of (params, state, Adam state): params and state in
+        the JAX layout, Adam's moments under ``torch_adam``."""
+        params, state, adam = snapshot
+        jparams, jstate = params_to_jax(params, state)
+        ckpt.save_checkpoint(path, modalities, jparams, jstate, extra=dict(
+            extra or {}, torch_adam=adam_to_jax(adam, params)))
+
+    def save_checkpoint(self, modalities, path, extra=None):
+        """This trainer's checkpoint, with the sampling generator's
+        state."""
+        self._write(path, modalities,
+                    (self.params, self.state, self._adam_states()),
+                    extra=dict(extra or {},
+                               torch_gen=self.gen.get_state().numpy()))
+
+    def restore(self, checkpoint, opt=False):
+        """Weights and BatchNorm state from a checkpoint of either
+        package, copied into the leaves that the optimizer holds; with
+        ``opt``, also Adam's moments (``torch_adam``, or the JAX
+        package's ``opt_state``)."""
+        state = checkpoint.get("state")
+        if state is None:
+            state = params_to_jax(self.params, self.state)[1]
+        params, self.state = params_from_jax(checkpoint["params"], state,
+                                             self.model, self.device)
+        new = dict(tree_leaves_with_path(params))
+        with torch.no_grad():
+            for path, p in tree_leaves_with_path(self.params):
+                p.copy_(new[path].reshape(p.shape))
+        if not opt:
+            return
+        moments = checkpoint.get("torch_adam")
+        if moments is not None:
+            moments = (moments["count"], moments["mu"], moments["nu"])
+        elif "opt_state" in checkpoint:
+            moments = optax_adam_moments(checkpoint["opt_state"])
+        if moments is not None:
+            load_adam(self.optimizer, self.params, *moments)
+
+    @staticmethod
+    def _latest_epoch_checkpoint(save_dir):
+        """The newest loadable ``epoch_N.pth`` in ``save_dir`` as (N,
+        payload), (None, None) when there is none; an unreadable newest
+        file (killed mid-write) falls back to the one before."""
+        epochs = []
+        if os.path.isdir(save_dir):
+            for fname in os.listdir(save_dir):
+                m = re.fullmatch(r"epoch_(\d+)\.pth", fname)
+                if m:
+                    epochs.append(int(m.group(1)))
+        for n in sorted(epochs, reverse=True):
+            path = os.path.join(save_dir, "epoch_{}.pth".format(n))
+            try:
+                return n, ckpt.load_checkpoint(path)
+            except Exception as e:  # noqa: BLE001 -- try the next one
+                print("Skipping unreadable checkpoint {} ({!r})"
+                      .format(path, e))
+        return None, None
+
     # -- hooks of the apps ----------------------------------------------------
+
+    @classmethod
+    def pre_build_args(cls, args):
+        """``--method bfvi``: the ``dmm`` model, 200 filter particles in
+        evaluation unless ``--eval_args`` sets them; ``--batch_sz_eval``
+        defaults to ``--batch_size``."""
+        if args.batch_sz_eval is None:
+            args.batch_sz_eval = args.batch_size
+        if args.method == 'bfvi':
+            print("Setting up 'bfvi' inference method...")
+            args.model = 'dmm'
+        args.eval_args = method_eval_args(args.method, args.eval_args)
+        return args
+
+    @classmethod
+    def post_build_args(cls, args):
+        return args
+
+    @classmethod
+    def load_data(cls, modalities, args):
+        raise NotImplementedError
+
+    @classmethod
+    def build_model(cls, args):
+        raise NotImplementedError
+
 
     def compute_metrics(self, model, infer, prior, recon, targets, mask,
                         lengths, order, args, rec_mults=None):
@@ -221,6 +777,4 @@ class Trainer:
         raise NotImplementedError
 
     def visualize(self, results, metric, args):
-        raise NotImplementedError("visualize is not ported yet; it comes "
-                                  "with the apps' CLI in a later slice of "
-                                  "the port")
+        raise not_ported("visualize", "the apps' visualization")

@@ -40,3 +40,18 @@ def tree_map(fn, tree):
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     return tree
+
+
+def tree_map_with_path(fn, tree, path=()):
+    """Apply ``fn(path, leaf)`` to every tensor leaf; other leaves are
+    kept."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        out = [tree_map_with_path(fn, v, path + (i,))
+               for i, v in enumerate(tree)]
+        return out if isinstance(tree, list) else tuple(out)
+    if isinstance(tree, torch.Tensor):
+        return fn(path, tree)
+    return tree

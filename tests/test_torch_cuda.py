@@ -71,6 +71,14 @@ def test_kernels_match_plain_versions_at_weizmann_width(dev):
                                   k=25))
 
 
+def test_kernels_match_plain_versions_at_merged_width(dev):
+    """The merged step's scan: K = 25 over 2 V B = 200 columns at the
+    Weizmann width, T = 25 (5,000 rows a step, more tiles than the
+    cooperative grid holds at once)."""
+    _check_against_plain(*_inputs(dev, t_max=25, b_dim=200, d=256, h=256,
+                                  k=25))
+
+
 def test_backward_is_deterministic(dev):
     """No float atomics: two runs of the backward agree bit for bit."""
     x, gtf, eps, cots = _inputs(dev, t_max=5, b_dim=45, k=25)
@@ -137,6 +145,35 @@ def test_z_filter_cuda_matches_cpu(dev, direction):
         (im.sum() + istd.sum() + pm.sum() + (smp ** 2).sum()).backward()
         results.append([im, istd, pm, ps, smp, zm_t.grad]
                        + [p.grad for p in leaves])
+    for i, (c, g) in enumerate(zip(*results)):
+        _assert_grads(g.detach(), c.detach(), str(i))
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_grouped_filter_cuda_matches_cpu(dev, direction):
+    """The grouped pass (``z_filter_grouped``, one launch of the scan
+    kernels per particle group, K = 1 and 25) on the GPU equals the CPU's
+    plain versions, values and gradients."""
+    model = MultiDMM(["a", "b"], [4, 6], z_dim=32, h_dim=24)
+    rng = np.random.RandomState(4)
+    zm = rng.randn(2, 6, 5, 32).astype(np.float32)
+    zs = (rng.rand(2, 6, 5, 32) + 0.3).astype(np.float32)
+    zk = (rng.rand(2, 6, 5) > 0.3).astype(np.float32)
+    eps = rng.randn(6, 26, 5, 32).astype(np.float32)
+    results = []
+    for device in ("cpu", dev):
+        params, _ = model.init(0, device=device)
+        w = params["trans"][direction]["gate_1"]["w"].requires_grad_(True)
+        zm_t = torch.tensor(zm, device=device, requires_grad=True)
+        before = tscan.bfvi_scan_fwd_cuda.launches
+        (im, istd), (pm, ps), smp = model.z_filter_grouped(
+            params, zm_t, torch.tensor(zs, device=device),
+            torch.tensor(zk, device=device),
+            torch.tensor(eps, device=device), (1, 25), direction=direction)
+        assert tscan.bfvi_scan_fwd_cuda.launches - before == (
+            2 if device == dev else 0)
+        (im.sum() + istd.sum() + pm[1].sum() + (smp ** 2).sum()).backward()
+        results.append([im, istd, pm, ps, smp, zm_t.grad, w.grad])
     for i, (c, g) in enumerate(zip(*results)):
         _assert_grads(g.detach(), c.detach(), str(i))
 

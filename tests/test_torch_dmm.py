@@ -240,13 +240,20 @@ def test_nonfinite_gradient_skips_update(image_models):
                                     "unfused", "set_variant_mesh"])
 def test_unported_branches_raise(mlp_models, branch):
     """Branches of later slices raise instead of computing something
-    else."""
+    else: sharding the variant rows (multi-GPU). The step's merged and
+    unfused branches are ported, and ``ragged_mode_scans`` is accepted
+    (the two-scan loop computes the ragged pass; tests/test_torch_ragged.py
+    holds all three against the JAX package): they give a finite loss
+    here."""
     _, _, tmodel, _, _, tparams, tstate = mlp_models
     inputs = {m: t(v) for m, v in _mlp_inputs(4).items()}
     mask = torch.ones((T, B, 1))
-    kw = {"unfused": {"fused": False}}.get(branch, {branch: True})
-    with pytest.raises(NotImplementedError, match="later slice"):
-        if branch == "set_variant_mesh":
+    if branch == "set_variant_mesh":
+        with pytest.raises(NotImplementedError, match="later slice"):
             tmodel.set_variant_mesh(None)
-        else:
-            tmodel.step(tparams, tstate, inputs, mask, 1.0, {}, None, **kw)
+        return
+    kw = {"unfused": {"fused": False}}.get(branch, {branch: True})
+    loss, _ = tmodel.step(tparams, tstate, inputs, mask, 1.0, {},
+                          torch.Generator().manual_seed(0),
+                          train_particles=3, **kw)
+    assert torch.isfinite(loss)

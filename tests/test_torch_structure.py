@@ -1,7 +1,7 @@
 """Structure of the PyTorch port: it imports nothing of JAX or of the JAX
-package, its entry points default to the GPU and refuse to fall back to
-the CPU, and ``params_from_jax`` covers every leaf of the Weizmann
-model's trees."""
+package, nor at module level a package that the GPU machine lacks; its
+entry points default to the GPU and refuse to fall back to the CPU; and
+``params_from_jax`` covers every leaf of the Weizmann model's trees."""
 
 import ast
 import types
@@ -16,11 +16,16 @@ from multimodal_dmm_tpu.apps.weizmann import WeizmannTrainer
 from multimodal_dmm_tpu.models.dmm import MultiDMM as JMultiDMM
 from multimodal_dmm_tpu_torch.apps import weizmann as tw
 from multimodal_dmm_tpu_torch.convert import params_from_jax
+from multimodal_dmm_tpu_torch.data.weizmann import gen_synthetic
+from multimodal_dmm_tpu_torch.training.device_loader import DeviceTrainData
 from multimodal_dmm_tpu_torch.training.eval_engine import DeviceEvalData
 from multimodal_dmm_tpu_torch.tree import tree_leaves_with_path
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "multimodal_dmm_tpu")
+# Not installed on the GPU machine: imported only inside the functions
+# that need them, which the training and evaluation paths do not reach.
+NOT_ON_THE_CARD = ("yaml", "pandas", "matplotlib", "skimage", "skvideo")
 
 
 def _port_files():
@@ -46,29 +51,69 @@ def test_port_imports_no_jax():
         assert not bad, "%s imports %s" % (path.relative_to(ROOT), bad)
 
 
+def _module_level_roots(path):
+    """Roots of the imports that run when the module is imported (not
+    those inside a function)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        else:
+            todo += list(ast.iter_child_nodes(node))
+
+
+def test_port_imports_no_missing_package_at_module_level():
+    for path in _port_files():
+        bad = set(_module_level_roots(path)) & set(NOT_ON_THE_CARD)
+        assert not bad, "%s imports %s at module level" % (
+            path.relative_to(ROOT), bad)
+
+
 _ITEM = {"video": np.zeros((3, 3, 64, 64), np.float32),
          "person": np.zeros((3, 1)), "action": np.zeros((3, 1)),
          "length": 3, "id": ("p", "a")}
 
 
-@pytest.mark.parametrize("entry", ["model_init", "trainer", "eval_data"])
-def test_entry_points_default_to_cuda(entry):
+@pytest.mark.parametrize("entry", ["model_init", "trainer", "eval_data",
+                                   "train_data", "from_args", "main"])
+def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     """With no device given, entry points run on CUDA; without CUDA they
     raise instead of running on the CPU."""
+    monkeypatch.chdir(tmp_path)  # main writes param_hist.tsv there
+    data = str(tmp_path / "data")
+    gen_synthetic(data, persons_subset=["daria", "shahar"],
+                  actions_subset=["bend"], t_range=(4, 6))
+    argv = ["--data_dir", data, "--save_dir", str(tmp_path / "save"),
+            "--epochs", "0", "--model_args", "{z_dim: 8, h_dim: 8}"]
     call = {"model_init": lambda: tw.build_model(
                 model_args={"z_dim": 8, "h_dim": 8}).init(0),
             "trainer": lambda: tw.make_trainer(
                 seed=0, model_args={"z_dim": 8, "h_dim": 8}),
             "eval_data": lambda: DeviceEvalData(
-                [_ITEM], tw.DEFAULTS["modalities"], 2)}[entry]
+                [_ITEM], tw.DEFAULTS["modalities"], 2),
+            "train_data": lambda: DeviceTrainData(
+                [_ITEM], tw.DEFAULTS["modalities"], 2, 0.2),
+            "from_args": lambda: tw.WeizmannTrainer.from_args(
+                tw.WeizmannTrainer.parser.parse_args(argv)),
+            "main": lambda: tw.main(argv)}[entry]
     if torch.cuda.is_available():
         out = call()
+        if entry == "main":
+            assert (tmp_path / "save" / "last.pth").exists()
+            return
         leaf = {"model_init": lambda: out[0]["z0_mean"],
                 "trainer": lambda: out.params["z0_mean"],
-                "eval_data": lambda: out.batches[0].targets["video"]}[
-                    entry]()
+                "from_args": lambda: out.params["z0_mean"],
+                "eval_data": lambda: out.batches[0].targets["video"],
+                "train_data": lambda: out.data["video"]}[entry]()
         assert leaf.is_cuda
-        if entry == "trainer":
+        if entry in ("trainer", "from_args"):
             assert isinstance(out, tw.WeizmannTrainer)
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
