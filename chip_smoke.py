@@ -59,19 +59,45 @@ imports nothing of JAX or of the JAX package. Phases:
    evaluation after each, best.pth, epoch_N.pth and last.pth; every
    epoch's loss finite; then ``--load last.pth --evaluate`` twice under
    one seed, with identical metrics; the seconds per epoch and per
-   evaluation, and the launch counts of the run.
+   evaluation, and the launch counts of the run;
+9. the kernels at the spirals app's shapes (z = 5, h = 20, which the
+   scan kernels run zero-padded to D = 8): the (M, K) of the spirals
+   training step's three scans, read from one step on the kernels (the
+   rule that gives Weizmann's: M = 2, 2 and 4, K = 1, 25 and 1, at T =
+   100 and 3 V B = 300 columns), then phase 3's checks at those shapes
+   and at the evaluation's smoothing shape (T, B, M, K) = (100, 100, 4,
+   1), and the cell at (M, K, B, D) = (2, 200, 100, 5) and (4, 1, 100, 5)
+   with phase 5's;
+10. spirals BFVI at full width (T = 100, B = 100): one step's loss and
+   gradients on the kernels against the plain versions (phase 4's
+   checks) and timed steps; then ``apps.spirals.main`` in a temporary
+   directory on the corpus the port generates: 2 epochs of ``--method
+   bfvi`` with the 200-particle evaluation after each, every loss finite,
+   the launch counts checked; ``--load last.pth --evaluate`` twice under
+   one seed, with identical metrics;
+11. the baselines: on the spirals batch, the DKS (``b-skip``, ``f-mask``)
+   and VRNN MAP forward and one MAP step's loss and gradients on the card
+   against the port on the CPU (loss rtol 1e-4, each gradient leaf 5e-3
+   in relative Frobenius norm), with timed steps; one epoch each of
+   ``--method b-mask`` and ``--model vrnn`` through ``apps.spirals.main``;
+   Weizmann ``--method f-mask`` at full width through
+   ``apps.weizmann.main`` on a phase-8 fixture: one epoch and an
+   evaluation, then ``--load last.pth --evaluate`` twice, identical; the
+   Weizmann DKS step timed.
 
 Any failed check raises, so the script exits non-zero before its last
 line. The line before the last is a JSON object with one entry per
-kernel (for the scan kernels ``ms``, ``plain_ms`` and ``bound_ms`` are
-sums over the training step's three launches; ``bound_ms`` is the bound
-of the route the kernels take and ``bound_f32_ms`` that of float32
-outside the tensor cores; for the cell they are per launch at (3, 200,
-25, 256)); ``launches`` counts the launches of phase 8's command-line
-run, the main path of this slice, and ``launches_by_phase`` those of the
-runs of phases 4 (the training steps), 6 (one evaluation), 7 (the timed
-bench-configuration steps) and 8; the last is ``{"ok": true, "device":
-{...}}``.
+kernel and main path: the Weizmann rows, and the same kernels at the
+spirals shapes (``... (spirals)``). For the scan kernels ``ms``,
+``plain_ms`` and ``bound_ms`` are sums over the training step's three
+launches (phase 3, or 9); ``bound_ms`` is the bound of the route the
+kernels take and ``bound_f32_ms`` that of float32 outside the tensor
+cores, both for the real (unpadded) work; for the cell they are per
+launch at the evaluation's 200-particle shape. ``launches`` counts the
+launches of the row's command-line run (phase 8, or 10), and
+``launches_by_phase`` those of the runs of phases 4 (the training
+steps), 6 (one evaluation), 7 (the timed bench-configuration steps), 8
+and 10; the last is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -105,7 +131,8 @@ KERNELS = {
                         "multimodal_dmm_tpu/ops/pallas/poe_cell.py:32"),
 }
 SCAN_KERNELS = ("bfvi_scan_fwd", "bfvi_scan_bwd", "gtf_wgrad")
-CELL_SHAPES = ((3, 200), (5, 1))  # (M, K) at B = 25, D = 256
+# (M, K, smoothing) at B = 25, D = 256
+CELL_SHAPES = ((3, 200, False), (5, 1, True))
 N_EVAL_SEQS = 10
 N_EVALS = 10                # timed evaluations, after one warm-up call
 FWD_TOL = dict(rtol=5e-4, atol=5e-5)
@@ -124,10 +151,24 @@ BF16_TOL = dict(rtol=5e-2, atol=5e-2)  # bf16 codecs vs f32, as on the CPU
 BF16_GRAD_RTOL = 0.25
 N_BENCH = 10                # timed steps per block in phase 7
 CLI_EPOCHS = 2
+SP_T, SP_B = 100, 100       # the spirals app's T and batch_size
+SP_STEPS = 3                # timed steps of each phase 10-11 model, after 1
+# The baselines' MAP forward on the card against the CPU: max error over
+# the largest value, float32 both sides (TF32 off), through T = 100 steps
+# of recurrence.
+BASELINE_FWD_TOL = 1e-4
+
+
+_START = time.perf_counter()
 
 
 def log(*a):
     print(*a, flush=True)
+
+
+def log_phase(text):
+    """A phase's heading, with the seconds since the script started."""
+    log("%s (at %.1f s)" % (text, time.perf_counter() - _START))
 
 
 def check(cond, msg):
@@ -204,23 +245,25 @@ def bound_ms(flops, nbytes, peak=PEAK_F32_FLOPS):
                                        else "bytes")
 
 
-def scan_inputs(n_exp, k, dev, seed, t_max=T_MAIN, b_dim=V_MAIN * B_DATA):
+def scan_inputs(n_exp, k, dev, seed, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
+                d=Z_DIM, smoothing=False):
     """Inputs shaped like one pass of the training step (by default: V*B =
-    100 columns), 10 % of expert cells masked; the 5-expert case carries
-    the smoothing pass's filter prior and inverse global prior."""
+    100 columns at D = 256), 10 % of expert cells masked; with
+    ``smoothing`` the last two experts are the smoothing pass's filter
+    prior and inverse global prior."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    shape = (t_max, n_exp, b_dim, Z_DIM)
+    shape = (t_max, n_exp, b_dim, d)
     obs_mean = torch.randn(shape, generator=gen, device=dev)
     obs_std = 0.1 + torch.rand(shape, generator=gen, device=dev)
     obs_mask = (torch.rand(shape[:3], generator=gen, device=dev)
                 > 0.1).float()
     glb_mean = torch.zeros(shape[2:], device=dev)
     glb_std = torch.full(shape[2:], 1.001, device=dev)
-    if n_exp == 5:
-        obs_std[:, 3] = 0.9 * glb_std      # filter prior
-        obs_mean[:, 4] = glb_mean          # inverse global prior
-        obs_std[:, 4] = -glb_std
-        obs_mask[:, 3:] = 1.0
+    if smoothing:
+        obs_std[:, -2] = 0.9 * glb_std      # filter prior
+        obs_mean[:, -1] = glb_mean          # inverse global prior
+        obs_std[:, -1] = -glb_std
+        obs_mask[:, -2:] = 1.0
     eps = torch.randn((t_max, k) + shape[2:], generator=gen, device=dev)
     cots = [torch.randn((t_max,) + shape[2:], generator=gen, device=dev)
             for _ in range(5)]
@@ -287,14 +330,20 @@ def bwd_pairs(scan, out_a, out_b):
                     for n in scan.GTF_LAYERS for kk in ("w", "b")]
 
 
-def check_kernels(scan, gtf, dev):
-    """Phase 3: every kernel against its plain version at the main
-    path's shapes; returns per-kernel records."""
+def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
+                  shapes=SCAN_SHAPES, smooth_shape=SMOOTH_SHAPE, seed=100):
+    """Phases 3 and 9: every scan kernel against its plain version at a
+    training step's shapes (T, V B columns, the step's three (M, K), the
+    last the smoothing pass; D and H those of ``gtf``), and the forward
+    at the evaluation's smoothing shape (T, B, M, K); returns per-kernel
+    records, sums over the step's three launches."""
+    h, d = gtf["gate_1"]["w"].shape
     rec = {name: dict(err=0.0, ms=0.0, plain_ms=0.0, bound_f32_ms=0.0,
                       bound_ms={"operations": 0.0, "bytes": 0.0})
            for name in SCAN_KERNELS}
-    for i, (n_exp, k) in enumerate(SCAN_SHAPES):
-        x, eps, cots = scan_inputs(n_exp, k, dev, seed=100 + i)
+    for i, (n_exp, k) in enumerate(shapes):
+        x, eps, cots = scan_inputs(n_exp, k, dev, seed + i, t_max, b_dim, d,
+                                   smoothing=i == len(shapes) - 1)
         what = "(M, K) = (%d, %d)" % (n_exp, k)
         exp, err = check_fwd(scan, x, gtf, eps, what)
         res = tuple(x) + (gtf, eps, exp[5], exp[0], exp[1])
@@ -304,11 +353,11 @@ def check_kernels(scan, gtf, dev):
                                                          rows[0])
         g_again = scan.bfvi_scan_bwd_cuda(res, cots, 1e-3)
         torch.cuda.synchronize()
-        flips, worst = check_flips(scan, margins, Z_DIM, what)
+        flips, worst = check_flips(scan, margins, d, what)
         log("  bfvi_scan_bwd %s: %d ReLU flips against the plain backward "
             "in the GTF first layers (held on the kernel's masks), largest "
             "exact margin %.3g of the bound %.3g"
-            % (what, flips, worst, scan.relu_flip_bound(Z_DIM)))
+            % (what, flips, worst, scan.relu_flip_bound(d)))
         berr = 0.0
         for name, g, e in bwd_pairs(scan, g_out, e_out):
             check(bool(torch.isfinite(g).all()), "non-finite %s" % name)
@@ -322,10 +371,10 @@ def check_kernels(scan, gtf, dev):
                   "at (M, K) = (%d, %d)" % (name, n_exp, k))
         # The weight-gradient kernel alone, on rows shaped like those the
         # backward kernel writes.
-        gen = torch.Generator(device=dev).manual_seed(200 + i)
-        n_rows = (T_MAIN - 1) * k * V_MAIN * B_DATA
-        xs = torch.randn((n_rows, 3 * Z_DIM), generator=gen, device=dev)
-        ys = torch.randn((n_rows, 6 * Z_DIM), generator=gen, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed + 100 + i)
+        n_rows = (t_max - 1) * k * b_dim
+        xs = torch.randn((n_rows, 2 * h + d), generator=gen, device=dev)
+        ys = torch.randn((n_rows, 2 * h + 4 * d), generator=gen, device=dev)
         w_got = scan.gtf_wgrad_cuda(exp[5], xs, ys)
         w_exp = scan.gtf_wgrad_ref(exp[5], xs, ys)
         torch.cuda.synchronize()
@@ -336,16 +385,19 @@ def check_kernels(scan, gtf, dev):
                 werr = max(werr, a)
                 check(ok, "weight-gradient kernel %s.%s disagrees at K = %d: "
                       "max abs err %.3g" % (n, kk, k, a))
-        reps = 3 if k > 1 else 10
-        times = [time_ms(fn, reps) for fn in (
-            lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3),
-            lambda: scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3),
-            lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3),
-            lambda: scan.bfvi_scan_bwd_ref(res, cots, 1e-3),
-            lambda: scan.gtf_wgrad_cuda(exp[5], xs, ys),
-            lambda: scan.gtf_wgrad_ref(exp[5], xs, ys))]
-        (ff, fb), (bf, bb), (wf, wb) = scan_work(
-            T_MAIN, n_exp, V_MAIN * B_DATA, k, Z_DIM, Z_DIM)
+        reps = 3 if k > 1 or t_max > T_MAIN else 10
+        # The plain scans' Python loops take 0.2-0.5 s a call at T = 100:
+        # one timed call there.
+        plain_reps = 1 if t_max > T_MAIN else reps
+        times = [time_ms(fn, r) for fn, r in (
+            (lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3), reps),
+            (lambda: scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3), plain_reps),
+            (lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3), reps),
+            (lambda: scan.bfvi_scan_bwd_ref(res, cots, 1e-3), plain_reps),
+            (lambda: scan.gtf_wgrad_cuda(exp[5], xs, ys), reps),
+            (lambda: scan.gtf_wgrad_ref(exp[5], xs, ys), reps))]
+        (ff, fb), (bf, bb), (wf, wb) = scan_work(t_max, n_exp, b_dim, k, d,
+                                                 h)
         for name, e, ms, pms, fl, by in (
                 ("bfvi_scan_fwd", err, times[0], times[1], ff, fb),
                 ("bfvi_scan_bwd", berr, times[2], times[3], bf, bb),
@@ -364,16 +416,16 @@ def check_kernels(scan, gtf, dev):
                               f32_by, e))
 
     # The evaluation's MAP smoothing pass: its own row, not in the sums.
-    t_max, b_dim, n_exp, k = SMOOTH_SHAPE
-    x, eps, _ = scan_inputs(n_exp, k, dev, seed=110, t_max=t_max,
-                            b_dim=b_dim)
-    what = "(T, B, M, K) = (%d, %d, %d, %d)" % SMOOTH_SHAPE
+    t_max, b_dim, n_exp, k = smooth_shape
+    x, eps, _ = scan_inputs(n_exp, k, dev, seed + 10, t_max, b_dim, d,
+                            smoothing=True)
+    what = "(T, B, M, K) = (%d, %d, %d, %d)" % smooth_shape
     _, err = check_fwd(scan, x, gtf, eps, what)
     rec["bfvi_scan_fwd"]["err"] = max(rec["bfvi_scan_fwd"]["err"], err)
-    ms, pms = [time_ms(fn, 10) for fn in (
-        lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3),
-        lambda: scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3))]
-    fl, by = scan_work(t_max, n_exp, b_dim, k, Z_DIM, Z_DIM)[0]
+    ms, pms = [time_ms(fn, 10 if t_max <= T_MAIN * 3 else r) for fn, r in (
+        (lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3), 3),
+        (lambda: scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3), 1))]
+    fl, by = scan_work(t_max, n_exp, b_dim, k, d, h)[0]
     bms, by_what = bound_ms(TF32_PASSES * fl, by, PEAK_TF32_FLOPS)
     f32_ms, f32_by = bound_ms(fl, by)
     log("  bfvi_scan_fwd, evaluation smoothing %s: kernel %.3f ms, plain "
@@ -394,40 +446,42 @@ def cell_work(n_exp, k, b_dim, d):
     return flops, nbytes
 
 
-def cell_inputs(n_exp, k, dev, seed):
-    """Inputs shaped like one step of the evaluation's passes at B = 25,
-    D = 256: a positive prior, M experts with 10 % of cells masked; the
-    5-expert case carries the filter prior and the inverse global prior,
-    as the smoothing pass does."""
+def cell_inputs(n_exp, k, dev, seed, b_dim=B_DATA, d=Z_DIM,
+                smoothing=False):
+    """Inputs shaped like one step of the evaluation's passes (by default
+    at B = 25, D = 256): a positive prior, M experts with 10 % of cells
+    masked; with ``smoothing`` the last two experts are the filter prior
+    and the inverse global prior, as in the smoothing pass."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    b_dim = B_DATA
-    prior_mean = torch.randn((b_dim, Z_DIM), generator=gen, device=dev)
-    prior_std = 0.1 + torch.rand((b_dim, Z_DIM), generator=gen, device=dev)
-    obs_mean = torch.randn((n_exp, b_dim, Z_DIM), generator=gen, device=dev)
-    obs_std = 0.1 + torch.rand((n_exp, b_dim, Z_DIM), generator=gen,
+    prior_mean = torch.randn((b_dim, d), generator=gen, device=dev)
+    prior_std = 0.1 + torch.rand((b_dim, d), generator=gen, device=dev)
+    obs_mean = torch.randn((n_exp, b_dim, d), generator=gen, device=dev)
+    obs_std = 0.1 + torch.rand((n_exp, b_dim, d), generator=gen,
                                device=dev)
     mask = (torch.rand((n_exp, b_dim), generator=gen, device=dev)
             > 0.1).float()
-    if n_exp == 5:  # filter prior, inverse global prior (std 1.001)
-        obs_std[3] = 0.9 * 1.001
-        obs_mean[4] = 0.0
-        obs_std[4] = -1.001
-        mask[3:] = 1.0
-    eps = torch.randn((k, b_dim, Z_DIM), generator=gen, device=dev)
+    if smoothing:  # filter prior, inverse global prior (std 1.001)
+        obs_std[-2] = 0.9 * 1.001
+        obs_mean[-1] = 0.0
+        obs_std[-1] = -1.001
+        mask[-2:] = 1.0
+    eps = torch.randn((k, b_dim, d), generator=gen, device=dev)
     return prior_mean, prior_std, obs_mean, obs_std, mask, eps
 
 
-def check_cell(cell, dev):
-    """Phase 5: the cell kernel against its plain version; returns its
-    record (time, plain time and bound per launch at the evaluation's
-    200-particle shape, largest error over both shapes)."""
+def check_cell(cell, dev, shapes=CELL_SHAPES, b_dim=B_DATA, d=Z_DIM,
+               seed=300):
+    """Phases 5 and 9: the cell kernel against its plain version at
+    ``shapes`` ((M, K, smoothing) at B, D); returns its record (time,
+    plain time and bound per launch at the first shape, the evaluation's
+    200-particle filter step; largest error over all shapes)."""
     rec = dict(err=0.0)
-    for i, (n_exp, k) in enumerate(CELL_SHAPES):
-        x = cell_inputs(n_exp, k, dev, seed=300 + i)
+    for i, (n_exp, k, smoothing) in enumerate(shapes):
+        x = cell_inputs(n_exp, k, dev, seed + i, b_dim, d, smoothing)
         got = cell.poe_sample_cell_cuda(*x)
         exp = cell.poe_sample_cell_ref(*x)
         torch.cuda.synchronize()
-        tol = CELL_TOL * (10 if n_exp == 5 else 1)
+        tol = CELL_TOL * (10 if smoothing else 1)
         for name, g, e in zip(("infer_mean", "infer_std", "z", "sample"),
                               got, exp):
             check(bool(torch.isfinite(g).all()), "non-finite cell %s" % name)
@@ -439,11 +493,11 @@ def check_cell(cell, dev):
         ms = time_device_ms(lambda: cell.poe_sample_cell_cuda(*x), 200)
         pms = time_device_ms(lambda: cell.poe_sample_cell_ref(*x), 50)
         host_ms = time_ms(lambda: cell.poe_sample_cell_cuda(*x), 200)
-        bms, by_what = bound_ms(*cell_work(n_exp, k, B_DATA, Z_DIM))
+        bms, by_what = bound_ms(*cell_work(n_exp, k, b_dim, d))
         log("  poe_sample_cell (M, K, B, D) = (%d, %d, %d, %d): kernel "
             "%.4f ms (%.4f ms a call with the host's launch), plain %.4f "
             "ms, bound %.4f ms (%s), max abs err %.3g"
-            % (n_exp, k, B_DATA, Z_DIM, ms, host_ms, pms, bms, by_what,
+            % (n_exp, k, b_dim, d, ms, host_ms, pms, bms, by_what,
                rec["err"]))
         if i == 0:  # the evaluation's filter pass
             rec.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by_what)
@@ -624,7 +678,7 @@ def log_worst(what, diffs, n=4):
 
 
 def check_step_against_plain(scan, trainer, inputs, targets, mask, seed,
-                             **step_kw):
+                             n_launches=len(SCAN_SHAPES), **step_kw):
     """One step's loss and gradients on the kernels against the plain
     versions, with the same noise and deterministic cuDNN (``step_kw``:
     the step's branch).
@@ -655,8 +709,8 @@ def check_step_against_plain(scan, trainer, inputs, targets, mask, seed,
     torch.backends.cudnn.deterministic = True
     (l_k, g_k), rows = with_kernel_rows(scan, lambda: step_grads(
         trainer, inputs, targets, mask, False, seed, **step_kw))
-    check(len(rows) == len(SCAN_SHAPES), "the step launched the backward "
-          "kernel %d times, expected %d" % (len(rows), len(SCAN_SHAPES)))
+    check(len(rows) == n_launches, "the step launched the backward "
+          "kernel %d times, expected %d" % (len(rows), n_launches))
     margins, launch = [], iter(rows)
 
     def on_masks(res, cots, min_std):
@@ -688,7 +742,8 @@ def check_step_against_plain(scan, trainer, inputs, targets, mask, seed,
     check(abs(l_k - l_p) <= STEP_LOSS_RTOL * abs(l_p),
           "step loss: kernels %r vs plain %r" % (l_k, l_p))
 
-    flips = [check_flips(scan, m, Z_DIM, "step, backward launch %d" % i)
+    d = trainer.model.z_dim
+    flips = [check_flips(scan, m, d, "step, backward launch %d" % i)
              for i, m in enumerate(margins)]
     d_own = grad_diffs(g_k, g_kp)
     log("  backward kernel: %d ReLU flips in the GTF first layers against "
@@ -696,7 +751,7 @@ def check_step_against_plain(scan, trainer, inputs, targets, mask, seed,
         "on its own masks the plain backward differs beyond the "
         "elementwise tolerance in %d rows of %d leaves"
         % (sum(n for n, _ in flips), max(w for _, w in flips),
-           scan.relu_flip_bound(Z_DIM),
+           scan.relu_flip_bound(d),
            sum(d["rows"] for d in d_own.values()),
            sum(bool(d["bad"]) for d in d_own.values())))
     d_bwd = grad_diffs(g_k, g_km)
@@ -752,13 +807,15 @@ def time_steps(trainer, inputs, targets, mask, n_data, n):
     return times
 
 
-def device_profile(fn, n):
+def device_profile(fn, n, warm=True):
     """(device busy ms, device kernels) per call of ``fn`` over ``n``
-    calls under torch.profiler: the sum of the kernels' device times,
-    which run on one stream and do not overlap. (None, None) if the
-    profiler saw no device activity."""
+    calls under torch.profiler (after one call outside it, with
+    ``warm``): the sum of the kernels' device times, which run on one
+    stream and do not overlap. (None, None) if the profiler saw no device
+    activity."""
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1020,6 +1077,331 @@ def run_cli(seed, card):
     return launches, hist
 
 
+# -- phases 9-11: the spirals app and the baselines ---------------------------
+
+def spirals_batch(seed, dev):
+    """A full-width spirals batch (T = 100, B = 100): every tenth spiral
+    of the app's corpus (both directions), its noisy x and y, 10 % of
+    each modality's steps deleted (NaN) in the inputs, full targets."""
+    from multimodal_dmm_tpu_torch.data.spirals import gen_spirals
+    _, spirals = gen_spirals()
+    arr = np.stack(spirals[::10][:SP_B], axis=1)  # (T, B, 8)
+    rng = np.random.RandomState(seed)
+    targets = {"spiral-x": arr[..., 2:3], "spiral-y": arr[..., 3:4]}
+    inputs = {m: v.copy() for m, v in targets.items()}
+    for v in inputs.values():
+        v[rng.rand(SP_T, SP_B) < 0.1] = np.nan
+    def to(d):
+        return {m: torch.tensor(v, dtype=torch.float32, device=dev)
+                for m, v in d.items()}
+    return to(inputs), to(targets), torch.ones((SP_T, SP_B, 1), device=dev)
+
+
+def scan_launch_shapes(scan, fn):
+    """``fn()``, and the (T, M, columns, K) of each forward scan launch in
+    it, in launch order."""
+    shapes, launch = [], scan.bfvi_scan_fwd_cuda
+
+    def recorded(obs_mean, *rest):
+        shapes.append(tuple(obs_mean.shape[:3]) + (rest[5].shape[1],))
+        return launch(obs_mean, *rest)
+    # The wrapper counts its launches under the module's name, which is
+    # the recording one's while it is in place.
+    recorded.launches = launch.launches
+    scan.bfvi_scan_fwd_cuda = recorded
+    try:
+        out = fn()
+    finally:
+        launch.launches = recorded.launches
+        scan.bfvi_scan_fwd_cuda = launch
+    return out, shapes
+
+
+def check_spirals_kernels(scan, cell, seed, dev):
+    """Phase 9: the kernels at the spirals app's shapes against their
+    plain versions. The (M, K) of the step's three scans come from one
+    spirals training step on the kernels. Returns (the trainer, the
+    batch, the scan records, the cell record)."""
+    from multimodal_dmm_tpu_torch.apps import spirals
+    trainer = spirals.make_trainer(seed=seed, device=dev)
+    model = trainer.model
+    inputs, targets, mask = spirals_batch(seed, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        _, launched = scan_launch_shapes(scan, lambda: model.step(
+            trainer.params, trainer.state, inputs, mask, 1.0,
+            trainer.rec_mults, gen, targets=targets, train=True))
+    n, vb = model.n_mods, (1 + model.n_mods) * SP_B
+    want = [(SP_T, n, vb, 1), (SP_T, n, vb, 25), (SP_T, n + 2, vb, 1)]
+    check(launched == want, "the spirals step's scans (T, M, V B, K) are %s, "
+          "expected %s" % (launched, want))
+    log("  the spirals step's three forward scans (T, M, V B, K): %s, by the "
+        "rule that gives Weizmann's (3, 1), (3, 25), (5, 1): M = the %d "
+        "modalities (the smoothing pass: + the filter prior and the inverse "
+        "global prior), K = 1 (f-mode filter), 25 (train_particles), 1 "
+        "(smoothing), V = 1 + %d variants; D = %d, H = %d"
+        % (launched, n, n, model.z_dim, model.h_dim))
+    gtf = {k: {kk: v.detach() for kk, v in p.items()}
+           for k, p in trainer.params["trans"]["bwd"].items()}
+    rec = check_kernels(scan, gtf, dev, SP_T, vb,
+                        [(m, k) for _, m, _, k in launched],
+                        smooth_shape=(SP_T, SP_B, n + 2, 1), seed=500)
+    cell_rec = check_cell(cell, dev, ((n, 200, False), (n + 2, 1, True)),
+                          SP_B, model.z_dim, seed=600)
+    return trainer, (inputs, targets, mask), rec, cell_rec
+
+
+def spirals_cli(argv):
+    """``apps.spirals.main(argv)`` with the launch counts set to 0 just
+    before and read just after; returns (what main returns, launches,
+    seconds)."""
+    from multimodal_dmm_tpu_torch.apps import spirals
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = spirals.main(argv)
+    return (out, {n: fn.launches for n, fn in wrappers.items()},
+            time.perf_counter() - t0)
+
+
+def check_reload(main_fn, flags, save, what):
+    """``--load last.pth --evaluate --eval_sets test`` twice under one
+    seed, deterministic cuDNN: identical finite metrics. Returns them."""
+    torch.backends.cudnn.deterministic = True
+    a, b = [dict(main_fn(flags + [
+        "--load", os.path.join(save, "last.pth"), "--evaluate",
+        "--eval_sets", "test", "--save_args", "{skip: true}"])[1])
+        for _ in range(2)]
+    torch.backends.cudnn.deterministic = False
+    check(a.keys() == b.keys() and all(
+        a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k])) for k in a),
+        "%s: --load --evaluate: two runs differ: %s vs %s" % (what, a, b))
+    check(np.isfinite(a["rec_loss"]) and np.isfinite(a["kld_loss"]),
+          "%s: --load --evaluate metrics %s" % (what, a))
+    return a
+
+
+def busy_note(trainer, batch, n, warm=True):
+    """The device's busy time and kernels of ``n`` training steps on
+    ``batch`` under torch.profiler, as a note for the log."""
+    inputs, targets, mask = batch
+    n_data = float(mask.sum().item())
+    busy, n_kern = device_profile(
+        lambda: trainer.train_step(inputs, targets, mask, 1.0, n_data), n,
+        warm=warm)
+    if busy is None:
+        return "device time not measured"
+    return ("device busy %.2f ms, %d kernels a step (torch.profiler, %d "
+            "step%s)" % (busy, n_kern, n, "s" if n > 1 else ""))
+
+
+def check_spirals_bfvi(scan, trainer, batch, seed, tmp, card,
+                       profile_path=None):
+    """Phase 10: one spirals BFVI step on the kernels against the plain
+    versions, timed steps (with ``profile_path``, the profiler's table of
+    one step appended there), then the command line: 2 epochs and an
+    evaluation after each, then ``--load last.pth --evaluate`` twice.
+    Returns (the command line's launches, a record of its times)."""
+    inputs, targets, mask = batch
+    check_step_against_plain(scan, trainer, inputs, targets, mask, seed,
+                             n_launches=3)
+    n_data = float(mask.sum().item())
+    times = time_steps(trainer, inputs, targets, mask, n_data,
+                       1 + SP_STEPS)[1:]
+    step_ms = statistics.median(times)
+    log("  step: median %.2f ms over %d steps, %.1f seqs/s; %s [%s]"
+        % (step_ms, len(times), SP_B / (step_ms / 1e3),
+           busy_note(trainer, batch, 2), card))
+    if profile_path:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(inputs, targets, mask, 1.0, n_data)
+            torch.cuda.synchronize()
+        with open(profile_path, "a") as f:
+            f.write("\none spirals BFVI step (T = B = 100, z = 5, h = 20; "
+                    "%.2f ms median without the profiler)\n" % step_ms)
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=30))
+
+    data, save = os.path.join(tmp, "spirals"), os.path.join(tmp, "sp_bfvi")
+    flags = ["--data_dir", data, "--save_dir", save, "--method", "bfvi",
+             "--seed", str(seed)]
+    argv = flags + ["--epochs", str(CLI_EPOCHS), "--eval_freq", "1",
+                    "--save_freq", "1"]
+    log("  main(%s), the corpus generated by the port" % " ".join(argv[4:]))
+    hist, launches, wall = spirals_cli(argv)
+    n_test = len(os.listdir(os.path.join(data, "test")))
+    n_eval = CLI_EPOCHS * -(-n_test // SP_B)  # evaluation batches
+    n_bwd = launches["bfvi_scan_bwd"]
+    check(len(hist["epoch_loss"]) == CLI_EPOCHS
+          and all(np.isfinite(hist["epoch_loss"]))
+          and all(np.isfinite(e["mse"]) for e in hist["eval"]),
+          "spirals run: losses %s, evaluations %s" % (hist["epoch_loss"],
+                                                     hist["eval"]))
+    check(n_bwd > 0 and n_bwd % 3 == 0 and launches["gtf_wgrad"] == n_bwd
+          and launches["bfvi_scan_fwd"] == n_bwd + n_eval
+          and launches["poe_sample_cell"] == n_eval * SP_T,
+          "spirals run launches %s: expected 3 of each scan kernel a step, "
+          "and per evaluation batch (%d) one forward scan and the cell T = "
+          "%d times" % (launches, n_eval, SP_T))
+    log("  %d epochs of %d steps in %.1f s of command: losses %s, seconds "
+        "per epoch %s, evaluation seconds %s, eval mse %s; launches %s [%s]"
+        % (CLI_EPOCHS, n_bwd // 3 // CLI_EPOCHS, wall,
+           ["%.3f" % v for v in hist["epoch_loss"]],
+           ["%.2f" % v for v in hist["epoch_s"]],
+           ["%.3f" % v for v in hist["eval_s"]],
+           ["%.4f" % e["mse"] for e in hist["eval"]], launches, card))
+    from multimodal_dmm_tpu_torch.apps import spirals
+    test = check_reload(spirals.main, flags, save, "spirals BFVI")
+    log("  --load last.pth --evaluate twice: identical; test mse %.4f, "
+        "rec_loss %.3f, kld %.3f" % (test["mse"], test["rec_loss"],
+                                      test["kld_loss"]))
+    return launches, dict(step_ms=step_ms, epoch_s=hist["epoch_s"],
+                          eval_s=hist["eval_s"])
+
+
+def baseline_grads(model, params, state, inputs, targets, mask, rec_mults,
+                   **step_kw):
+    """Loss and gradients {path: grad} of one MAP step of ``model`` (no
+    update) on ``params`` (a tree of leaves on one device)."""
+    from multimodal_dmm_tpu_torch.tree import tree_leaves_with_path, tree_map
+    params = tree_map(lambda x: x.detach().clone().requires_grad_(True),
+                      params)
+    loss, _ = model.step(params, state, inputs, mask, 1.0, rec_mults, None,
+                         targets=targets, train=True, sample=False,
+                         **step_kw)
+    loss.backward()
+    return loss.item(), {path: p.grad for path, p in
+                         tree_leaves_with_path(params)}
+
+
+def check_baselines(seed, dev, batch, tmp, card):
+    """Phase 11: the DKS (b-skip, f-mask) and VRNN MAP forward and step on
+    the card against the port on the CPU at the spirals width, timed
+    steps; one epoch of ``--method b-mask`` and of ``--model vrnn``
+    through ``apps.spirals.main``; Weizmann ``--method f-mask`` at full
+    width through ``apps.weizmann.main``: one epoch and an evaluation,
+    then its checkpoint reloaded twice. Returns {config: step ms}."""
+    from multimodal_dmm_tpu_torch.apps import spirals, weizmann
+    from multimodal_dmm_tpu_torch.data.weizmann import gen_synthetic
+    from multimodal_dmm_tpu_torch.tree import tree_map
+    cpu = lambda d: {m: v.cpu() for m, v in d.items()}  # noqa: E731
+    inputs, targets, mask = batch
+    step_ms = {}
+    for name, model_name, model_args, train_args in (
+            ("dks b-skip", "dks", dict(rnn_dir="bwd", rnn_skip=True,
+                                       feat_to_z=False), dict(uni_loss=False)),
+            ("dks f-mask", "dks", dict(rnn_dir="fwd", rnn_skip=False,
+                                       feat_to_z=False), dict(uni_loss=False)),
+            ("vrnn", "vrnn", {}, {})):
+        trainer = spirals.make_trainer(seed=seed, device=dev,
+                                       model=model_name,
+                                       model_args=model_args,
+                                       train_args=train_args)
+        model = trainer.model
+        p_cpu, s_cpu = model.init(seed, device="cpu")
+        with torch.no_grad():
+            got = model.forward(trainer.params, trainer.state, inputs,
+                                sample=False)[0]
+            exp = model.forward(p_cpu, s_cpu, cpu(inputs), sample=False)[0]
+        outs = [(n, g, e) for n, g, e in zip(
+            ("infer_mean", "infer_std", "prior_mean", "prior_std"),
+            got[0] + got[1], exp[0] + exp[1])]
+        outs += [("recon %s %d" % (m, i), g, e) for m in model.modalities
+                 for i, (g, e) in enumerate(zip(got[2][m], exp[2][m]))]
+        worst = 0.0
+        for what, g, e in outs:
+            check(bool(torch.isfinite(g).all()), "%s: non-finite %s"
+                  % (name, what))
+            err = ((g.cpu() - e).abs().max() / (e.abs().max() + 1e-6)).item()
+            worst = max(worst, err)
+            check(err <= BASELINE_FWD_TOL, "%s MAP forward %s: card vs CPU "
+                  "max error %.3g of the largest value" % (name, what, err))
+        l_g, g_g = baseline_grads(model, trainer.params, trainer.state,
+                                  inputs, targets, mask, trainer.rec_mults,
+                                  **train_args)
+        l_c, g_c = baseline_grads(model, p_cpu, s_cpu, cpu(inputs),
+                                  cpu(targets), mask.cpu(), trainer.rec_mults,
+                                  **train_args)
+        d = grad_diffs(g_g, {k: v.to(dev) for k, v in g_c.items()})
+        bad = leaves_beyond(d, STEP_GRAD_TOL["rtol"])
+        check(abs(l_g - l_c) <= STEP_LOSS_RTOL * abs(l_c),
+              "%s step loss: card %r vs CPU %r" % (name, l_g, l_c))
+        check(not bad, "%s step gradients of %d leaves differ beyond rtol %g "
+              "in relative Frobenius norm: %s"
+              % (name, len(bad), STEP_GRAD_TOL["rtol"], bad))
+        n_data = float(mask.sum().item())
+        times = time_steps(trainer, inputs, targets, mask, n_data,
+                           1 + SP_STEPS)[1:]
+        step_ms[name] = statistics.median(times)
+        log("  %s (spirals, T = B = 100): MAP forward card vs CPU within %.3g "
+            "of the largest value; step loss %.6f vs %.6f, largest leaf "
+            "relative Frobenius error %.3g over %d leaves; step median "
+            "%.2f ms over %d steps; %s [%s]"
+            % (name, worst, l_g, l_c, max(x["fro"] for x in d.values()),
+               len(d), step_ms[name], len(times),
+               busy_note(trainer, batch, 1, warm=False), card))
+
+    data = os.path.join(tmp, "spirals")
+    for flags in (["--method", "b-mask"], ["--model", "vrnn"]):
+        save = os.path.join(tmp, "sp_" + flags[1])
+        hist, launches, wall = spirals_cli(
+            ["--data_dir", data, "--save_dir", save, "--seed", str(seed),
+             "--epochs", "1", "--eval_freq", "1", "--save_freq", "1"]
+            + flags)
+        check(all(np.isfinite(hist["epoch_loss"]))
+              and np.isfinite(hist["eval"][0]["mse"]),
+              "spirals %s: loss %s, evaluation %s"
+              % (flags[1], hist["epoch_loss"], hist["eval"]))
+        check(not any(launches.values()), "spirals %s launched kernels: %s"
+              % (flags[1], launches))
+        log("  spirals %s: 1 epoch in %.2f s, evaluation %.2f s, loss %.3f, "
+            "eval mse %.4f (%.1f s of command) [%s]"
+            % (" ".join(flags), hist["epoch_s"][0], hist["eval_s"][0],
+               hist["epoch_loss"][0], hist["eval"][0]["mse"], wall, card))
+
+    data, save = os.path.join(tmp, "weizmann"), os.path.join(tmp, "wz_dks")
+    gen_synthetic(data)
+    flags = ["--data_dir", data, "--save_dir", save, "--method", "f-mask",
+             "--seed", str(seed)]
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    hist = weizmann.main(flags + ["--epochs", "1", "--eval_freq", "1",
+                                  "--save_freq", "1"])
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    check(all(np.isfinite(hist["epoch_loss"]))
+          and np.isfinite(hist["eval"][0]["rec_loss"]),
+          "Weizmann f-mask: loss %s, evaluation %s" % (hist["epoch_loss"],
+                                                       hist["eval"]))
+    check(not any(launches.values()), "Weizmann f-mask launched kernels: %s"
+          % launches)
+    test = check_reload(weizmann.main, flags, save, "Weizmann f-mask")
+    log("  Weizmann --method f-mask (z = h = 256): 1 epoch in %.2f s, "
+        "evaluation %.2f s, loss %.1f (%.1f s of command); --load "
+        "last.pth --evaluate twice: identical, test rec_loss %.1f, ssim "
+        "%.4f [%s]" % (hist["epoch_s"][0], hist["eval_s"][0],
+                       hist["epoch_loss"][0], wall, test["rec_loss"],
+                       test["ssim"], card))
+    dks = weizmann.make_trainer(
+        seed=seed, device=dev, model="dks", model_args=dict(
+            rnn_dir="fwd", rnn_skip=False, feat_to_z=True),
+        train_args=dict(uni_loss=True))
+    w_inputs, w_targets, w_mask = synthetic_batch(seed, dev)
+    times = time_steps(dks, w_inputs, w_targets, w_mask,
+                       float(w_mask.sum().item()), 1 + SP_STEPS)[1:]
+    step_ms["dks f-mask weizmann"] = statistics.median(times)
+    log("  Weizmann DKS f-mask step (T = B = 25): median %.2f ms over %d "
+        "steps; %s [%s]" % (step_ms["dks f-mask weizmann"], len(times),
+                            busy_note(dks, (w_inputs, w_targets, w_mask), 1,
+                                      warm=False), card))
+    return step_ms
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1068,15 +1450,15 @@ def main():
            for n, p in trainer.params["trans"]["bwd"].items()}
 
     # -- phase 3: kernels against their plain versions -----------------------
-    log("phase 3: kernels vs plain versions [%s]" % card)
+    log_phase("phase 3: kernels vs plain versions [%s]" % card)
     rec = check_kernels(scan, gtf, dev)
     log("  no single PyTorch call computes the scan, or the weight "
         "gradients' four products with their sums: library_ms is null "
         "(gtf_wgrad's plain version is those four cuBLAS products)")
 
     # -- phase 4: the training path -------------------------------------------
-    log("phase 4: Weizmann BFVI training step, T = B = %d, z = h = %d"
-        % (T_MAIN, model.z_dim))
+    log_phase("phase 4: Weizmann BFVI training step, T = B = %d, z = h = %d"
+              % (T_MAIN, model.z_dim))
     inputs, targets, mask = synthetic_batch(args.seed, dev)
     n_data = float(mask.sum().item())
     # At the seed's weights, before any update, so that the comparison
@@ -1141,13 +1523,13 @@ def main():
         log("  profile written to %s" % args.profile)
 
     # -- phase 5: the cell kernel against its plain version -------------------
-    log("phase 5: poe_sample_cell vs its plain version [%s]" % card)
+    log_phase("phase 5: poe_sample_cell vs its plain version [%s]" % card)
     cell_rec = check_cell(cell, dev)
     log("  no single PyTorch call computes the cell: library_ms is null")
 
     # -- phase 6: the evaluation path -----------------------------------------
-    log("phase 6: Weizmann BFVI evaluation on the phase-4 weights [%s]"
-        % card)
+    log_phase("phase 6: Weizmann BFVI evaluation on the phase-4 weights [%s]"
+              % card)
     eval_launches, eval_ms, loader, eval_args = check_evaluation(
         trainer, args.seed, N_EVALS)
     if args.profile:
@@ -1163,38 +1545,69 @@ def main():
         log("  evaluation profile appended to %s" % args.profile)
 
     # -- phase 7: the bench configuration's step -----------------------------
-    log("phase 7: the bench configuration's step at full width [%s]" % card)
+    log_phase("phase 7: the bench configuration's step at full width [%s]"
+              % card)
     bench_launches, _ = check_bench_step(scan, args.seed, targets, card,
                                          profile_path=args.profile)
 
     # -- phase 8: the command line -------------------------------------------
-    log("phase 8: the Weizmann command line, bf16 ragged, %d epochs [%s]"
-        % (CLI_EPOCHS, card))
+    log_phase("phase 8: the Weizmann command line, bf16 ragged, %d epochs "
+              "[%s]" % (CLI_EPOCHS, card))
     cli_launches, _ = run_cli(args.seed, card)
+
+    profile = os.path.abspath(args.profile) if args.profile else None
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        cwd = os.getcwd()
+        os.chdir(tmp)  # param_hist.tsv is written there
+        try:
+            # -- phase 9: the kernels at the spirals shapes -------------------
+            log_phase("phase 9: the kernels at the spirals shapes (T = %d, "
+                      "B = %d, z = 5, h = 20) vs their plain versions [%s]"
+                      % (SP_T, SP_B, card))
+            sp_trainer, sp_batch, sp_rec, sp_cell = check_spirals_kernels(
+                scan, cell, args.seed, dev)
+
+            # -- phase 10: spirals BFVI at full width -------------------------
+            log_phase("phase 10: spirals BFVI at full width, step and "
+                      "command line [%s]" % card)
+            sp_launches, _ = check_spirals_bfvi(
+                scan, sp_trainer, sp_batch, args.seed, tmp, card,
+                profile_path=profile)
+
+            # -- phase 11: the baselines --------------------------------------
+            log_phase("phase 11: the DKS and VRNN baselines on spirals, "
+                      "card vs CPU, and Weizmann f-mask [%s]" % card)
+            check_baselines(args.seed, dev, sp_batch, tmp, card)
+        finally:
+            os.chdir(cwd)
 
     # -- summary --------------------------------------------------------------
     log(card)
     rec["poe_sample_cell"] = cell_rec
+    sp_rec["poe_sample_cell"] = sp_cell
     by_phase = {"4": launches, "6": eval_launches, "7": bench_launches,
-                "8": cli_launches}
+                "8": cli_launches, "10": sp_launches}
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
-        r = rec[name]
-        if name in SCAN_KERNELS:
-            by_what = max(r["bound_ms"], key=r["bound_ms"].get)
-            bms = sum(r["bound_ms"].values())
-        else:
-            by_what, bms = r["bound_by"], r["bound_ms"]
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": cli_launches[name],
-            "launches_by_phase": {k: v[name] for k, v in by_phase.items()},
-            "max_abs_err": r["err"],
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": bms, "bound_by": by_what, "library_ms": None})
-        if name in SCAN_KERNELS:
-            kernels[-1]["bound_f32_ms"] = r["bound_f32_ms"]
+    for rows, suffix, main_path in ((rec, "", cli_launches),
+                                    (sp_rec, " (spirals)", sp_launches)):
+        for name, (source, replaces) in KERNELS.items():
+            r = rows[name]
+            if name in SCAN_KERNELS:
+                by_what = max(r["bound_ms"], key=r["bound_ms"].get)
+                bms = sum(r["bound_ms"].values())
+            else:
+                by_what, bms = r["bound_by"], r["bound_ms"]
+            kernels.append({
+                "name": name + suffix, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": main_path[name],
+                "launches_by_phase": {k: v[name]
+                                      for k, v in by_phase.items()},
+                "max_abs_err": r["err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": bms, "bound_by": by_what, "library_ms": None})
+            if name in SCAN_KERNELS:
+                kernels[-1]["bound_f32_ms"] = r["bound_f32_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

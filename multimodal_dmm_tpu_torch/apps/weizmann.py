@@ -13,8 +13,10 @@ and SSIM, person and action accuracy over time.
         --model_args '{bf16: true}' --train_args '{ragged_mode_scans: true}'
 
 runs on the GPU (``--device cpu`` for the CPU); ``--load S/best.pth
---evaluate --save_args '{skip: true}'`` evaluates a checkpoint.
-Visualization and video export come in a later slice.
+--evaluate --save_args '{skip: true}'`` evaluates a checkpoint. The DKS
+baselines: ``--method b-mask`` (``f-mask``, ``b-skip``, ``f-skip``), over
+the conv encoder's features. Visualization and video export come in a
+later slice.
 """
 
 import copy
@@ -26,8 +28,7 @@ import numpy as np
 import torch
 
 from ..data import weizmann
-from ..models import codecs
-from ..models.dmm import MultiDMM
+from ..models import codecs, get_model
 from ..ops import losses
 from ..ops.ssim import eval_ssim
 from ..training.eval_engine import time_avg_dev
@@ -52,29 +53,32 @@ DISTS = {"video": "Bernoulli", "mask": "Bernoulli", "person": "Categorical",
          "action": "Categorical"}
 
 
-def build_model(modalities=None, model_args=None):
-    """MultiDMM with conv codecs for the image modalities; ``bf16`` in
-    ``model_args`` runs their convolutions in bfloat16 (float32 weights,
-    BatchNorm and heads)."""
+def build_model(modalities=None, model_args=None, model="dmm"):
+    """The registry's ``model`` (default MultiDMM) with conv codecs for the
+    image modalities: Gaussian heads, except for DKS, whose encoders give
+    the conv features; ``bf16`` in ``model_args`` runs their convolutions
+    in bfloat16 (float32 weights, BatchNorm and heads)."""
     modalities = list(modalities or DEFAULTS["modalities"])
     model_args = dict(model_args or {})
     z_dim = model_args.pop("z_dim", 256)
     h_dim = model_args.pop("h_dim", 256)
+    gauss_out = model not in ("MultiDKS", "dks")
     dt = torch.bfloat16 if model_args.pop("bf16", False) else None
     encoders = {
-        "video": codecs.image_encoder_codec(z_dim, compute_dtype=dt),
-        "mask": codecs.image_encoder_codec(z_dim, n_channels=1,
+        "video": codecs.image_encoder_codec(z_dim, gauss_out,
+                                            compute_dtype=dt),
+        "mask": codecs.image_encoder_codec(z_dim, gauss_out, n_channels=1,
                                            compute_dtype=dt)}
     decoders = {
         "video": codecs.image_decoder_codec(z_dim, compute_dtype=dt),
         "mask": codecs.image_decoder_codec(z_dim, n_channels=1,
                                            compute_dtype=dt)}
     custom = [m for m in ("video", "mask") if m in modalities]
-    return MultiDMM(modalities, dims=[DIMS[m] for m in modalities],
-                    dists=[DISTS[m] for m in modalities],
-                    encoders={m: encoders[m] for m in custom},
-                    decoders={m: decoders[m] for m in custom},
-                    z_dim=z_dim, h_dim=h_dim, **model_args)
+    return get_model(model)(modalities, dims=[DIMS[m] for m in modalities],
+                            dists=[DISTS[m] for m in modalities],
+                            encoders={m: encoders[m] for m in custom},
+                            decoders={m: decoders[m] for m in custom},
+                            z_dim=z_dim, h_dim=h_dim, **model_args)
 
 
 class WeizmannTrainer(Trainer):
@@ -90,7 +94,17 @@ class WeizmannTrainer(Trainer):
 
     @classmethod
     def build_model(cls, args):
-        return build_model(args.modalities, args.model_args)
+        return build_model(args.modalities, args.model_args, args.model)
+
+    @classmethod
+    def pre_build_args(cls, args):
+        """The trainer's ``--method`` remap; the DKS baselines feed the
+        features to the combiner and add the unimodal ELBOs."""
+        args = super().pre_build_args(args)
+        if args.method in ("b-skip", "f-skip", "b-mask", "f-mask"):
+            args.model_args["feat_to_z"] = True
+            args.train_args["uni_loss"] = True
+        return args
 
     @classmethod
     def post_build_args(cls, args):
@@ -200,11 +214,12 @@ class WeizmannTrainer(Trainer):
 
 
 def make_trainer(seed=1, device="cuda", modalities=None, model_args=None,
-                 train_args=None, clip_grad=None):
-    """The Weizmann model with weights drawn from ``seed`` and the app's
-    optimizer defaults (lr 5e-4, L2 1e-4, rec_mults 1/10/10)."""
+                 train_args=None, clip_grad=None, model="dmm"):
+    """The Weizmann model (the registry's ``model``) with weights drawn
+    from ``seed`` and the app's optimizer defaults (lr 5e-4, L2 1e-4,
+    rec_mults 1/10/10)."""
     modalities = list(modalities or DEFAULTS["modalities"])
-    model = build_model(modalities, model_args)
+    model = build_model(modalities, model_args, model)
     rec_mults = {m: DEFAULTS["rec_mults"][m] for m in modalities}
     return WeizmannTrainer(model, lr=DEFAULTS["lr"],
                            w_decay=DEFAULTS["w_decay"], clip_grad=clip_grad,

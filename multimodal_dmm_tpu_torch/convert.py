@@ -16,8 +16,10 @@ state. Nothing here imports JAX or optax. Layout changes:
 - deconv ``w``: the JAX package stores the spatially flipped HWIO kernel
   of the equivalent input-dilated forward convolution; ``ConvTranspose2d``
   wants (in, out, kH, kW) unflipped;
-- embeddings, biases, BatchNorm scale/bias/running mean/var and the global
-  prior ``z0_mean``/``z0_log_std`` are copied as they are.
+- embeddings, biases, BatchNorm scale/bias/running mean/var, the global
+  prior ``z0_mean``/``z0_log_std``, the GRUs' weights (``w_ih`` (in, 3H),
+  ``w_hh`` (H, 3H), which the port keeps in the JAX layout) and initial
+  states ``h0`` are copied as they are.
 """
 
 import numpy as np
@@ -58,12 +60,13 @@ def tree_from_jax(tree, device, path=()):
 
 def params_from_jax(params, state, model, device="cuda"):
     """(params, state) of the port from the JAX package's trees for
-    ``model`` (the port's MultiDMM); each leaf's mapping is decided by
-    its path."""
+    ``model`` (the port's MultiDMM, MultiDKS or MultiVRNN); each leaf's
+    mapping is decided by its path (the GRUs' ``w_ih``/``w_hh`` keep the
+    JAX layout)."""
     dev = resolve_device(device)
     for tree in (params, state):
         for side in ("enc", "dec"):
-            if set(tree[side]) != set(model.modalities):
+            if side in tree and set(tree[side]) != set(model.modalities):
                 raise ValueError(
                     "JAX tree has %s modalities %s, the model has %s"
                     % (side, sorted(tree[side]), sorted(model.modalities)))

@@ -67,6 +67,15 @@
 // PERF.md), and wgmma is the way past it. At K = 1 the work is 25 times
 // smaller and the bound is latency: 24 steps of 4 dependent phases, each a
 // grid barrier apart, with one wave of small tiles.
+//
+// D and H must be multiples of 4 here. Other widths (the spirals model's
+// D = 5, H = 20) run zero-padded by the wrapper (ops/cuda/bfvi_scan.py) to
+// the next multiple of 4, so the kernels do the padded work: at D = 5,
+// H = 20 they run D = 8, whose products cost 1,536 FLOPs a particle row a
+// step against the real 900 (1.7x) and whose elementwise phases take 8
+// threads' work per column against 5 (1.6x). At those widths the bound is
+// latency, as at K = 1 above: T - 1 steps of dependent phases, a grid
+// barrier apart, each with a few tiles.
 
 #include <cuda_runtime.h>
 #include <stdint.h>

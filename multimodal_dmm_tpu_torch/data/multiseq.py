@@ -2,7 +2,8 @@
 multimodal_dmm_tpu/data/multiseq.py).
 
 - ``MultiseqDataset``: per-modality files matched by regex and loaded
-  (``.npy``; ``.csv``/``.tsv`` through pandas, imported only for those),
+  (``.npy``; ``.csv``/``.tsv`` read with the ``csv`` module into a
+  ``CsvTable`` that the preprocessors select and drop columns of),
   resampled to a base rate, with sequence-ID fields as label modalities,
   and its algebra: ``normalize_``, ``split_``, ``corrupt_``, ``select``,
   ``merge``.
@@ -18,6 +19,7 @@ helpers for them; they compute the same values).
 """
 
 import copy
+import csv
 import itertools
 import os
 import re
@@ -258,13 +260,44 @@ class MultiseqDataset:
         return merged
 
 
+class CsvTable:
+    """A numeric table read from a delimited text file with a header row:
+    ``columns`` (names) and ``values`` ((rows, columns) float64, each
+    field parsed by ``float``, which reads back exactly the shortest
+    round-trip repr that the corpus writers emit). ``np.array(table)``
+    gives ``values``."""
+
+    def __init__(self, columns, values):
+        self.columns = list(columns)
+        self.values = values
+
+    @classmethod
+    def read(cls, path, sep=","):
+        with open(path, newline="") as f:
+            rows = list(csv.reader(f, delimiter=sep))
+        values = np.array([[float(v) for v in row] for row in rows[1:]],
+                          dtype=np.float64).reshape(-1, len(rows[0]))
+        return cls(rows[0], values)
+
+    def select(self, names):
+        """The columns ``names``, in that order."""
+        return CsvTable(names, self.values[:, [self.columns.index(n)
+                                               for n in names]])
+
+    def drop(self, names):
+        """Every column but ``names``."""
+        return self.select([c for c in self.columns if c not in names])
+
+    def __array__(self, dtype=None, copy=None):
+        return self.values if dtype is None else self.values.astype(dtype)
+
+
 def _load(path, preprocess):
     if re.match(r"^.*\.npy", path):
         return np.load(path)
     if re.match(r"^.*\.(csv|txt|tsv)", path):
-        import pandas as pd
         sep = "\t" if path.endswith(".tsv") else ","
-        return np.array(preprocess(pd.read_csv(path, sep=sep)))
+        return np.array(preprocess(CsvTable.read(path, sep=sep)))
     raise Exception("Unsupported file type: " + path)
 
 

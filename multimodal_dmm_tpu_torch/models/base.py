@@ -11,6 +11,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import losses
+from ..ops.poe import mean_of_experts, product_of_experts
 from . import nn as tnn
 
 
@@ -60,6 +61,20 @@ def embed_gaussian_codec(num_embeddings, z_dim, h_dim, min_std=1e-3):
 class ModelBase:
     """The multimodal training objective and helpers shared by the
     models."""
+
+    @staticmethod
+    def product_of_experts(mean, std, mask=None, eps=1e-8):
+        return product_of_experts(mean, std, mask, eps)
+
+    @staticmethod
+    def mean_of_experts(mean, std, mask=None):
+        return mean_of_experts(mean, std, mask)
+
+    def native_input_perms(self):
+        """Trailing-dim permutations for the modalities whose training
+        batches the step takes in the codec-native layout: none here
+        (``MultiDMM`` overrides)."""
+        return {}
 
     def step(self, params, state, inputs, mask, kld_mult, rec_mults, gen,
              targets=None, uni_loss=True, train=True, **kwargs):

@@ -128,6 +128,50 @@ def gtf_apply_packed(pk, z, min_std=0.0):
 
 
 # ---------------------------------------------------------------------------
+# GRU (torch.nn.GRU's equations), for the DKS and VRNN recurrences
+# ---------------------------------------------------------------------------
+
+def gru_init(gen, in_dim, h_dim, n_layers=1, bias=True):
+    """A stack of GRU layers, torch.nn.GRU's initialisation (U(-1/sqrt(H),
+    1/sqrt(H))), in the JAX package's layout: ``w_ih`` (in, 3H), ``w_hh``
+    (H, 3H), gates in the order r, z, n; zero biases without ``bias``."""
+    bound = 1.0 / math.sqrt(h_dim)
+    layers = []
+    for layer in range(n_layers):
+        d_in = in_dim if layer == 0 else h_dim
+        p = {"w_ih": _uniform(gen, (d_in, 3 * h_dim), bound),
+             "w_hh": _uniform(gen, (h_dim, 3 * h_dim), bound)}
+        for name in ("b_ih", "b_hh"):
+            p[name] = (_uniform(gen, (3 * h_dim,), bound) if bias
+                       else torch.zeros((3 * h_dim,)))
+        layers.append(p)
+    return {"layers": layers}
+
+
+def gru_cell(p_layer, x, h):
+    """One step of one layer: x (..., in), h (..., H) -> h' (..., H)."""
+    gi = x @ p_layer["w_ih"] + p_layer["b_ih"]
+    gh = h @ p_layer["w_hh"] + p_layer["b_hh"]
+    i_r, i_z, i_n = gi.chunk(3, dim=-1)
+    h_r, h_z, h_n = gh.chunk(3, dim=-1)
+    r = torch.sigmoid(i_r + h_r)
+    z = torch.sigmoid(i_z + h_z)
+    n = torch.tanh(i_n + r * h_n)
+    return (1 - z) * n + z * h
+
+
+def gru_step(p, x, h_stack):
+    """One step through every layer; h_stack (n_layers, B, H) -> the new
+    stack."""
+    new_h = []
+    inp = x
+    for i, layer in enumerate(p["layers"]):
+        inp = gru_cell(layer, inp, h_stack[i])
+        new_h.append(inp)
+    return torch.stack(new_h)
+
+
+# ---------------------------------------------------------------------------
 # Convolutions (NCHW)
 # ---------------------------------------------------------------------------
 

@@ -28,8 +28,10 @@ plus the particle trajectory z_traj (T, K, B, D) that the backward reads.
   the weight gradients are products of, and ``gtf_wgrad_cuda`` (plain
   version ``gtf_wgrad_ref``) forms those products. Each wrapper counts
   its launches in ``.launches``. The kernels read the GTF weights in
-  PyTorch's layout; the wrapper only joins gate_1, nonlin_1 and z_lin
-  into one (2H + D, D) matrix.
+  PyTorch's layout; the wrapper joins gate_1, nonlin_1 and z_lin into
+  one (2H + D, D) matrix and, where D or H is no multiple of 4 (the
+  spirals model's D = 5), zero-pads every operand to the next multiple
+  of 4 and slices the outputs back (``_check_sizes``).
 - ``bfvi_scan``: differentiable entry. CPU tensors go through the plain
   pair, CUDA tensors through the kernels; there is no fallback between
   them. To hold the kernels against the plain pair on the GPU, the caller
@@ -333,12 +335,98 @@ def _check_tensor(name, x, shape):
 
 
 def _check_sizes(k, d, h):
+    """Raise unless 1 <= K <= MAX_K; return the widths (D', H') that the
+    kernels run at: D and H rounded up to multiples of 4, for the 16-byte
+    rows of their tile loads (``csrc/tf32x3.cuh``)."""
     if not 1 <= k <= MAX_K:
         raise ValueError("the scan kernels take 1 <= K <= %d particles, "
                          "got K = %d" % (MAX_K, k))
-    if d % 4 or h % 4:
-        raise ValueError("the scan kernels need z_dim and h_dim divisible "
-                         "by 4, got %d and %d" % (d, h))
+    return _padded(d), _padded(h)
+
+
+def _padded(n):
+    return -(-n // 4) * 4
+
+
+# Zero-padding to the kernels' widths. A padded input dim meets only zero
+# weights, so the real dims never see the padded ones; the padded dims
+# carry mean 0, std 1 (global prior, experts, the recomputed prior std)
+# and zero noise, trajectories and cotangents, so they stay finite (the
+# transition's std there is softplus(0) + min_std) and their cotangents
+# stay 0. The real outputs equal the unpadded computation up to summation
+# order.
+
+def _pad_last(x, width, value=0.0):
+    """``x`` with its last dim padded to ``width`` with ``value``."""
+    n = x.shape[-1]
+    if n == width:
+        return x
+    out = x.new_full(tuple(x.shape[:-1]) + (width,), value)
+    out[..., :n] = x
+    return out
+
+
+def _pad_blocks(x, sizes, widths):
+    """The column blocks of ``x`` (of ``sizes``) each padded with zeros to
+    its entry of ``widths``."""
+    if tuple(sizes) == tuple(widths):
+        return x
+    return torch.cat([_pad_last(b, w) for b, w in
+                      zip(torch.split(x, list(sizes), dim=-1), widths)], -1)
+
+
+def _unpad_blocks(x, sizes, widths):
+    """The inverse of ``_pad_blocks``: the real columns of each block."""
+    if tuple(sizes) == tuple(widths):
+        return x
+    return torch.cat([b[..., :n] for b, n in
+                      zip(torch.split(x, list(widths), dim=-1), sizes)], -1)
+
+
+def _gtf_shapes(d, h):
+    return {"gate_1": (h, d), "gate_2": (d, h), "z_lin": (d, d),
+            "nonlin_1": (h, d), "nonlin_2": (d, h), "z_to_std": (d, d)}
+
+
+def _unpad_gtf(grads, d, h):
+    """GTF weight gradients at the padded widths, sliced to (D, H)."""
+    out = {}
+    for name, (n_out, n_in) in _gtf_shapes(d, h).items():
+        out[name] = {"w": grads[name]["w"][:n_out, :n_in].contiguous(),
+                     "b": grads[name]["b"][:n_out].contiguous()}
+    return out
+
+
+def _pad_gtf(gtf, dp, hp):
+    """The six GTF layers zero-padded to (D', H')."""
+    out = {}
+    for name, shape in _gtf_shapes(dp, hp).items():
+        w, b = gtf[name]["w"], gtf[name]["b"]
+        if tuple(w.shape) != shape:
+            wp = w.new_zeros(shape)
+            wp[:w.shape[0], :w.shape[1]] = w
+            w, b = wp, _pad_last(b, shape[0])
+        out[name] = {"w": w, "b": b}
+    return out
+
+
+def _pad_scan_inputs(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
+                    eps, dp, hp):
+    """The forward scan's inputs padded to (D', H') as the kernels get
+    them: ([obs_mean, obs_std, obs_mask, glb_mean, glb_std], gtf, eps)."""
+    return ([_pad_last(obs_mean, dp), _pad_last(obs_std, dp, 1.0), obs_mask,
+             _pad_last(glb_mean, dp), _pad_last(glb_std, dp, 1.0)],
+            _pad_gtf(gtf, dp, hp), _pad_last(eps, dp))
+
+
+def _pad_bwd_inputs(res, cots, dp, hp):
+    """The backward scan's ``res`` and ``cots`` padded to (D', H')."""
+    x, gtf, eps = _pad_scan_inputs(*res[:7], dp, hp)
+    z_traj, prior_mean, prior_std = res[7:]
+    res = tuple(x) + (gtf, eps, _pad_last(z_traj, dp),
+                      _pad_last(prior_mean, dp),
+                      _pad_last(prior_std, dp, 1.0))
+    return res, [_pad_last(c, dp) for c in cots]
 
 
 def _kernel_weights(gtf):
@@ -361,9 +449,7 @@ def _ptr(x):
 
 
 def _check_gtf(gtf, d, h):
-    shapes = {"gate_1": (h, d), "gate_2": (d, h), "z_lin": (d, d),
-              "nonlin_1": (h, d), "nonlin_2": (d, h), "z_to_std": (d, d)}
-    for name, shape in shapes.items():
+    for name, shape in _gtf_shapes(d, h).items():
         _check_tensor(name + ".w", gtf[name]["w"], shape)
         _check_tensor(name + ".b", gtf[name]["b"], shape[:1])
 
@@ -383,26 +469,30 @@ def _check_inputs(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
 
 def bfvi_scan_fwd_cuda(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
                        eps, min_std):
-    """Launch the forward kernel on the current stream; same outputs as
+    """Launch the forward kernel on the current stream, at widths padded
+    to multiples of 4 (``_check_sizes``); same outputs as
     ``bfvi_scan_fwd_ref``."""
     t_max, n_exp, b_dim, k, d, h = _check_inputs(
         obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps)
-    _check_sizes(k, d, h)
+    dp, hp = _check_sizes(k, d, h)
     opts = dict(dtype=torch.float32, device=obs_mean.device)
-    outs = [torch.empty((t_max, b_dim, d), **opts) for _ in range(5)]
-    outs.append(torch.empty((t_max, k, b_dim, d), **opts))
-    work = torch.empty((k * b_dim, 2 * h + 4 * d), **opts)
+    outs = [torch.empty((t_max, b_dim, dp), **opts) for _ in range(5)]
+    outs.append(torch.empty((t_max, k, b_dim, dp), **opts))
+    work = torch.empty((k * b_dim, 2 * hp + 4 * dp), **opts)
+    x, gtf, eps = _pad_scan_inputs(obs_mean, obs_std, obs_mask, glb_mean,
+                                  glb_std, gtf, eps, dp, hp)
     stream = torch.cuda.current_stream(obs_mean.device).cuda_stream
     rc = _lib().bfvi_scan_fwd(
-        *[_ptr(x) for x in [obs_mean, obs_std, obs_mask, glb_mean, glb_std]
-          + _kernel_weights(gtf) + [eps] + outs
+        *[_ptr(v) for v in x + _kernel_weights(gtf) + [eps] + outs
           + [work, _barrier(obs_mean.device)]],
-        t_max, n_exp, b_dim, k, d, h, float(min_std),
+        t_max, n_exp, b_dim, k, dp, hp, float(min_std),
         ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("bfvi_scan_fwd kernel launch failed: CUDA error "
                            "%d" % rc)
     bfvi_scan_fwd_cuda.launches += 1
+    if dp != d:
+        outs = [o[..., :d].contiguous() for o in outs]
     return tuple(outs)
 
 
@@ -418,56 +508,78 @@ def partial_size(d, h):
 
 def bfvi_scan_bwd_cuda(res, cots, min_std):
     """Launch the backward scan kernel on the current stream, then the
-    weight-gradient kernel on the rows it wrote (``gtf_wgrad_cuda``);
-    same outputs as ``bfvi_scan_bwd_ref``."""
+    weight-gradient kernel on the rows it wrote, at widths padded to
+    multiples of 4; same outputs as ``bfvi_scan_bwd_ref``."""
     (obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps, z_traj,
      prior_mean, prior_std) = res
     t_max, n_exp, b_dim, k, d, h = _check_inputs(
         obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps)
-    _check_sizes(k, d, h)
+    dp, hp = _check_sizes(k, d, h)
     _check_tensor("z_traj", z_traj, (t_max, k, b_dim, d))
     for name, x in zip(("prior_mean", "prior_std", "g_prior_mean",
                         "g_prior_std", "g_infer_mean", "g_infer_std",
                         "g_samples"), (prior_mean, prior_std) + tuple(cots)):
         _check_tensor(name, x, (t_max, b_dim, d))
     opts = dict(dtype=torch.float32, device=obs_mean.device)
-    d_obs_mean = torch.empty_like(obs_mean)
-    d_obs_std = torch.empty_like(obs_std)
-    d_glb_mean = torch.zeros((b_dim, d), **opts)
-    d_glb_std = torch.zeros((b_dim, d), **opts)
+    d_obs_mean = torch.empty((t_max, n_exp, b_dim, dp), **opts)
+    d_obs_std = torch.empty((t_max, n_exp, b_dim, dp), **opts)
+    d_glb_mean = torch.zeros((b_dim, dp), **opts)
+    d_glb_std = torch.zeros((b_dim, dp), **opts)
     n_rows = (t_max - 1) * k * b_dim
-    xs = torch.empty((n_rows, 2 * h + d), **opts)
-    ys = torch.empty((n_rows, 2 * h + 4 * d), **opts)
-    gz = torch.zeros((3, k * b_dim, d), **opts)
+    xs = torch.empty((n_rows, 2 * hp + dp), **opts)
+    ys = torch.empty((n_rows, 2 * hp + 4 * dp), **opts)
+    gz = torch.zeros((3, k * b_dim, dp), **opts)
+    res, cots = _pad_bwd_inputs(res, cots, dp, hp)
+    z_traj = res[7]
+    x = (list(res[:5]) + _kernel_weights(res[5]) + list(res[6:])
+         + list(cots))
     stream = torch.cuda.current_stream(obs_mean.device).cuda_stream
     rc = _lib().bfvi_scan_bwd(
-        *[_ptr(x) for x in [obs_mean, obs_std, obs_mask, glb_mean, glb_std]
-          + _kernel_weights(gtf) + [eps, z_traj, prior_mean, prior_std]
-          + list(cots) + [d_obs_mean, d_obs_std, d_glb_mean, d_glb_std,
-                          xs, ys, gz, _barrier(obs_mean.device)]],
-        t_max, n_exp, b_dim, k, d, h, float(min_std),
+        *[_ptr(v) for v in x + [d_obs_mean, d_obs_std, d_glb_mean,
+                                d_glb_std, xs, ys, gz,
+                                _barrier(obs_mean.device)]],
+        t_max, n_exp, b_dim, k, dp, hp, float(min_std),
         ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("bfvi_scan_bwd kernel launch failed: CUDA error "
                            "%d" % rc)
     bfvi_scan_bwd_cuda.launches += 1
     if bfvi_scan_bwd_cuda.rows is not None:
-        bfvi_scan_bwd_cuda.rows.append(xs)
-    return (d_obs_mean, d_obs_std, d_glb_mean, d_glb_std,
-            gtf_wgrad_cuda(z_traj, xs, ys))
+        bfvi_scan_bwd_cuda.rows.append(
+            _unpad_blocks(xs, (h, h, d), (hp, hp, dp)))
+    d_gtf = _gtf_wgrad_launch(z_traj, xs, ys, n_rows, dp, hp)
+    outs = (d_obs_mean, d_obs_std, d_glb_mean, d_glb_std)
+    if dp != d:
+        outs = tuple(o[..., :d].contiguous() for o in outs)
+    if (dp, hp) != (d, h):
+        d_gtf = _unpad_gtf(d_gtf, d, h)
+    return outs + (d_gtf,)
 
 
 bfvi_scan_bwd_cuda.launches = 0
-# A list to which each launch appends the xs rows it wrote (their h1 and
-# hn hold the kernel's ReLU masks, for bfvi_scan_bwd_ref_on_masks), or
-# None.
+# A list to which each launch appends the xs rows it wrote, at the real
+# widths (their h1 and hn hold the kernel's ReLU masks, for
+# bfvi_scan_bwd_ref_on_masks), or None.
 bfvi_scan_bwd_cuda.rows = None
 
 
-# Row ranges that the weight-gradient kernel splits its rows into, each
-# with its own partial: the 48 output tiles of D = H = 256 times 11 are
-# 528 CTAs, two full waves of two CTAs on each of the H100's 132 SMs.
-WGRAD_SPLITS = 11
+# The weight-gradient kernel's CTAs: its output tiles (128 x 64, the
+# LargePromoted shape of csrc/tf32x3.cuh) times the row ranges it splits
+# the rows into, each with its own partial. 528 CTAs are two full waves of
+# two CTAs on each of the H100's 132 SMs: at D = H = 256 the 48 tiles
+# times 11 ranges; at the spirals widths (D = 8 padded, H = 20) 4 tiles
+# times 132 ranges, where 11 ranges left most SMs idle while each CTA
+# summed 67,500 rows.
+WGRAD_CTAS = 528
+WGRAD_TILE = (128, 64)
+
+
+def wgrad_splits(d, h):
+    """The row ranges of the weight-gradient kernel at widths (D, H)."""
+    la = 2 * h + d
+    tiles = sum(-(-m // WGRAD_TILE[0]) * -(-n // WGRAD_TILE[1])
+                for m, n in ((d, la), (h, d), (h, d), (d, d)))
+    return -(-WGRAD_CTAS // tiles)
 
 
 def _wgrad_dims(z_traj, xs):
@@ -497,23 +609,35 @@ def gtf_wgrad_ref(z_traj, xs, ys):
     }
 
 
-def gtf_wgrad_cuda(z_traj, xs, ys):
-    """Launch the weight-gradient kernel on the current stream and sum its
-    partials in a fixed order; same outputs as ``gtf_wgrad_ref``."""
-    n_rows, d, h = _wgrad_dims(z_traj, xs)
-    _check_tensor("z_traj", z_traj, tuple(z_traj.shape))
-    _check_tensor("xs", xs, (n_rows, 2 * h + d))
-    _check_tensor("ys", ys, (n_rows, 2 * h + 4 * d))
-    partial = torch.empty((WGRAD_SPLITS, partial_size(d, h)),
-                          dtype=torch.float32, device=xs.device)
+def _gtf_wgrad_launch(z_traj, xs, ys, n_rows, d, h):
+    """Launch the weight-gradient kernel on rows at widths (D, H) that are
+    multiples of 4 and sum its partials in a fixed order."""
+    splits = wgrad_splits(d, h)
+    partial = torch.empty((splits, partial_size(d, h)), dtype=torch.float32,
+                          device=xs.device)
     stream = torch.cuda.current_stream(xs.device).cuda_stream
     rc = _lib().gtf_wgrad(_ptr(z_traj), _ptr(xs), _ptr(ys), _ptr(partial),
-                          WGRAD_SPLITS, n_rows, d, h, ctypes.c_void_p(stream))
+                          splits, n_rows, d, h, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("gtf_wgrad kernel launch failed: CUDA error %d"
                            % rc)
     gtf_wgrad_cuda.launches += 1
     return unpack_partial(partial.sum(0), d, h)
+
+
+def gtf_wgrad_cuda(z_traj, xs, ys):
+    """Launch the weight-gradient kernel on the current stream, at widths
+    padded to multiples of 4; same outputs as ``gtf_wgrad_ref``."""
+    n_rows, d, h = _wgrad_dims(z_traj, xs)
+    _check_tensor("z_traj", z_traj, tuple(z_traj.shape))
+    _check_tensor("xs", xs, (n_rows, 2 * h + d))
+    _check_tensor("ys", ys, (n_rows, 2 * h + 4 * d))
+    dp, hp = _padded(d), _padded(h)
+    grads = _gtf_wgrad_launch(
+        _pad_last(z_traj, dp), _pad_blocks(xs, (h, h, d), (hp, hp, dp)),
+        _pad_blocks(ys, (h, h) + (d,) * 4, (hp, hp) + (dp,) * 4), n_rows,
+        dp, hp)
+    return grads if (dp, hp) == (d, h) else _unpad_gtf(grads, d, h)
 
 
 gtf_wgrad_cuda.launches = 0

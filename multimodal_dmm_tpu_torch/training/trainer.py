@@ -19,12 +19,15 @@ from ``--load``, and the derived args. ``run(args)`` then trains
 deletion, ``train`` epochs with the KLD anneal and a one-step-delayed loss
 readback, evaluation every ``--eval_freq`` epochs, ``best.pth``,
 ``epoch_N.pth`` and ``last.pth``, ``--resume_trial``) or evaluates
-(``--evaluate``: ``run_eval``). Flags whose feature comes in a later
-slice of the port raise ``NotImplementedError``: ``--mesh`` above 1,
-``--method``/``--model`` other than BFVI's ``dmm``, ``--visualize``,
-``--find_best``, ``--rng_impl``, and results export (``run_eval`` without
-``--save_args '{skip: true}'``). A device-loader failure raises; the host
-loader runs only under ``--host_loader``.
+(``--evaluate``: ``run_eval``). ``--method`` picks the model as the JAX
+package does (``bfvi``: ``dmm``; the four DKS baselines: ``dks`` with
+their ``rnn_dir``/``rnn_skip``), and ``--model`` names it in the registry
+(``models.get_model``). Flags whose feature comes in a later slice of the
+port raise ``NotImplementedError``: ``--mesh`` above 1, ``--visualize``,
+``--find_best``, ``--rng_impl``, and results export where the app has
+none (``save_results``; ``--save_args '{skip: true}'`` skips it). A
+device-loader failure raises; the host loader runs only under
+``--host_loader``.
 
 ``evaluate(loader, args)`` composes each eval task (random deletion,
 kept segment, dropped and kept modalities), runs the model's forward
@@ -77,10 +80,9 @@ def _build_parser():
     add('--modalities', type=str, nargs='+', default=[], metavar='M',
         help='data modalities')
     add('--model', type=str, default='dmm', metavar='S',
-        help='name of model to train (dmm)')
+        help='name of model to train (dmm, dks, vrnn)')
     add('--method', type=str, default=None, metavar='S',
-        help='inference method: bfvi (the DKS methods b/f-mask and '
-             'b/f-skip come in a later slice)')
+        help='inference method: bfvi, b/f-mask, or b/f-skip')
     add('--model_args', type=safe_load, default={}, metavar='DICT',
         help='additional model arguments as a YAML flow mapping')
     add('--train_args', type=safe_load, default={}, metavar='DICT',
@@ -180,11 +182,6 @@ def _refuse_later_slices(args):
     if str(args.mesh or 0).lower() not in ("0", "1"):
         raise not_ported("--mesh %s (multi-GPU)" % args.mesh,
                            "multi-GPU data parallelism")
-    if args.method not in (None, "bfvi") or (args.method is None
-                                              and args.model != "dmm"):
-        raise not_ported("--method %s / --model %s" % (args.method,
-                                                          args.model),
-                           "DKS and VRNN")
     if args.visualize:
         raise not_ported("--visualize", "the apps' visualization")
     if args.find_best:
@@ -200,14 +197,16 @@ _PRECISION = {"float32": "highest", "highest": "highest",
               "bfloat16_3x": "high", "bfloat16": "medium"}
 
 
+# The inference methods of --method: BFVI and the four DKS baselines.
+METHODS = ("bfvi", "b-mask", "f-mask", "b-skip", "f-skip")
+
+
 def method_eval_args(method, eval_args):
     """The eval args that ``--method`` sets (the JAX Trainer's
     ``pre_build_args``): ``bfvi`` filters with 200 particles unless
-    ``eval_args`` says otherwise."""
+    ``eval_args`` says otherwise; the other methods set none."""
     if method == "bfvi" and "flt_particles" not in eval_args:
         return dict(eval_args, flt_particles=200)
-    if method not in (None, "bfvi"):
-        raise not_ported("method %r (a DKS variant)" % (method,), "DKS")
     return dict(eval_args)
 
 
@@ -295,7 +294,7 @@ class Trainer:
               sum(p.numel() for p in trainer.leaves))
         if checkpoint is not None:
             trainer.restore(checkpoint, opt=True)
-        cls.post_build_args(args)
+        trainer.post_build_args(args)
         return trainer
 
     def apply_gradients(self):
@@ -494,15 +493,12 @@ class Trainer:
     # -- run entry points -----------------------------------------------------
 
     def run_eval(self, args):
-        """Evaluate on the ``--eval_sets`` (train, test); returns (train
-        metrics, test metrics). Metrics only: ``--save_args '{skip:
-        true}'``; exporting results comes in a later slice."""
-        if not (isinstance(args.save_args, dict)
-                and args.save_args.get('skip')):
-            raise not_ported(
-                "saving evaluation results (save_results; pass --save_args "
-                "'{skip: true}' for metrics only)", "the apps' "
-                "visualization")
+        """Evaluate on the ``--eval_sets`` (train, test) and hand each
+        set's results to the app's ``save_results``; returns (train
+        metrics, test metrics). ``--save_args '{skip: true}'``: metrics
+        only, nothing saved."""
+        skip_save = (isinstance(args.save_args, dict)
+                     and bool(args.save_args.get('skip')))
         metrics = {}
         for name, data in (('train', self.train_data),
                            ('test', self.test_data)):
@@ -513,8 +509,10 @@ class Trainer:
             loader = BatchLoader(data, batch_size=args.batch_sz_eval,
                                  len_bucket=args.len_bucket)
             args.eval_set = name
-            _, metrics[name] = self.evaluate(loader, args,
-                                             collect_results=False)
+            results, metrics[name] = self.evaluate(
+                loader, args, collect_results=not skip_save)
+            if not skip_save:
+                self.save_results(results, args)
         self.save_params(args)
         return metrics.get('train'), metrics.get('test')
 
@@ -745,19 +743,33 @@ class Trainer:
 
     @classmethod
     def pre_build_args(cls, args):
-        """``--method bfvi``: the ``dmm`` model, 200 filter particles in
-        evaluation unless ``--eval_args`` sets them; ``--batch_sz_eval``
-        defaults to ``--batch_size``."""
+        """The ``--method`` remap: ``bfvi`` is the ``dmm`` model with 200
+        filter particles in evaluation unless ``--eval_args`` sets them;
+        ``b-mask``, ``f-mask``, ``b-skip`` and ``f-skip`` are the ``dks``
+        model with ``--model_args`` replaced by their ``rnn_dir`` and
+        ``rnn_skip``; an unknown method is reported and ignored.
+        ``--batch_sz_eval`` defaults to ``--batch_size``."""
         if args.batch_sz_eval is None:
             args.batch_sz_eval = args.batch_size
-        if args.method == 'bfvi':
-            print("Setting up 'bfvi' inference method...")
-            args.model = 'dmm'
+        if args.method in METHODS:
+            print("Setting up '{}' inference method...".format(args.method))
+            print("The --model and --model_args flags will be overwritten.")
+            if args.method == 'bfvi':
+                args.model = 'dmm'
+            else:
+                args.model = 'dks'
+                args.model_args = {
+                    "rnn_skip": 'skip' in args.method,
+                    "rnn_dir": 'bwd' if args.method[0] == 'b' else 'fwd',
+                }
+        elif args.method is not None:
+            print("Ignoring unknown inference method '{}'".format(
+                args.method))
         args.eval_args = method_eval_args(args.method, args.eval_args)
         return args
 
-    @classmethod
-    def post_build_args(cls, args):
+    def post_build_args(self, args):
+        """Derived args once the model is built (the app's hook)."""
         return args
 
     @classmethod
@@ -778,3 +790,8 @@ class Trainer:
 
     def visualize(self, results, metric, args):
         raise not_ported("visualize", "the apps' visualization")
+
+    def save_results(self, results, args):
+        raise not_ported(
+            "saving evaluation results (save_results; pass --save_args "
+            "'{skip: true}' for metrics only)", "the apps' visualization")

@@ -205,10 +205,11 @@ def test_kernel_wrappers_refuse_cpu_tensors(case):
 
 
 def test_kernel_size_limits_stated():
-    """The kernels keep activations in device memory, so only K and the
-    16-byte rows of their tile loads limit them."""
+    """The kernels keep activations in device memory, so only K limits
+    them; the 16-byte rows of their tile loads want widths that are
+    multiples of 4, which the wrapper pads other widths to."""
     with pytest.raises(ValueError, match="particles"):
         tscan._check_sizes(tscan.MAX_K + 1, 256, 256)
-    with pytest.raises(ValueError, match="divisible by 4"):
-        tscan._check_sizes(4, 30, 24)
-    tscan._check_sizes(tscan.MAX_K, 512, 512)
+    assert tscan._check_sizes(4, 30, 24) == (32, 24)
+    assert tscan._check_sizes(4, 5, 20) == (8, 20)
+    assert tscan._check_sizes(tscan.MAX_K, 512, 512) == (512, 512)

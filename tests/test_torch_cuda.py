@@ -79,6 +79,38 @@ def test_kernels_match_plain_versions_at_merged_width(dev):
                                   k=25))
 
 
+# Widths that are no multiple of 4 run zero-padded to the next one: the
+# spirals model's D = 5, H = 20, and D = 7, H = 13 (both padded).
+@pytest.mark.parametrize("d,h", [(5, 20), (7, 13)])
+@pytest.mark.parametrize("k", [1, 25])
+def test_kernels_match_plain_versions_at_unaligned_widths(dev, k, d, h):
+    _check_against_plain(*_inputs(dev, t_max=10, b_dim=45, d=d, h=h, k=k))
+
+
+def test_kernels_match_plain_versions_at_spirals_shapes(dev):
+    """The spirals training step's K = 25 filtering pass: T = 100, 3 V B =
+    300 columns, M = 2, D = 5, H = 20."""
+    _check_against_plain(*_inputs(dev, t_max=100, n_exp=2, b_dim=300, d=5,
+                                  h=20, k=25))
+
+
+@pytest.mark.parametrize("d,h", [(5, 20), (7, 13)])
+def test_weight_gradient_kernel_at_unaligned_widths(dev, d, h):
+    """``gtf_wgrad_cuda`` alone on rows at the real widths."""
+    x, gtf, eps, _ = _inputs(dev, t_max=6, b_dim=13, d=d, h=h, k=3)
+    z_traj = tscan.bfvi_scan_fwd_ref(*x, gtf, eps, MIN_STD)[5]
+    n_rows = 5 * 3 * 13
+    gen = torch.Generator(device=dev).manual_seed(0)
+    xs = torch.randn((n_rows, 2 * h + d), generator=gen, device=dev)
+    ys = torch.randn((n_rows, 2 * h + 4 * d), generator=gen, device=dev)
+    got = tscan.gtf_wgrad_cuda(z_traj, xs, ys)
+    exp = tscan.gtf_wgrad_ref(z_traj, xs, ys)
+    for name in tscan.GTF_LAYERS:
+        for kk in ("w", "b"):
+            assert got[name][kk].shape == exp[name][kk].shape
+            _assert_grads(got[name][kk], exp[name][kk], name + kk)
+
+
 def test_backward_is_deterministic(dev):
     """No float atomics: two runs of the backward agree bit for bit."""
     x, gtf, eps, cots = _inputs(dev, t_max=5, b_dim=45, k=25)
@@ -205,6 +237,23 @@ def test_cell_kernel_matches_plain_version(dev, b_dim, d, k, inverse):
         assert g.shape == e.shape
         np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(),
                                    rtol=tol, atol=tol, err_msg=str(i))
+
+
+@pytest.mark.parametrize("d", [5, 7])
+def test_cell_kernel_at_spirals_shapes(dev, d):
+    """The spirals evaluation's 200-particle filter step: (M, K, B) = (2,
+    200, 100), D = 5 (and 7)."""
+    rng = np.random.RandomState(d)
+    arrays = [rng.randn(100, d), rng.rand(100, d) + 0.2,
+              rng.randn(2, 100, d), rng.rand(2, 100, d) + 0.2,
+              rng.rand(2, 100) > 0.4, rng.randn(200, 100, d)]
+    x = [torch.tensor(np.asarray(a, np.float32), device=dev)
+         for a in arrays]
+    got = tcell.poe_sample_cell(*x)
+    exp = tcell.poe_sample_cell_ref(*x)
+    for i, (g, e) in enumerate(zip(got, exp)):
+        np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=str(i))
 
 
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])

@@ -1,7 +1,8 @@
-"""Structure of the PyTorch port: it imports nothing of JAX or of the JAX
-package, nor at module level a package that the GPU machine lacks; its
-entry points default to the GPU and refuse to fall back to the CPU; and
-``params_from_jax`` covers every leaf of the Weizmann model's trees."""
+"""Structure of the PyTorch port: it imports nothing of JAX, of the JAX
+package or of pandas, nor at module level a package that the GPU machine
+lacks; its entry points default to the GPU and refuse to fall back to the
+CPU; and ``params_from_jax`` covers every leaf of the apps' model trees
+(the Weizmann BFVI and DKS models, the spirals DMM, DKS and VRNN)."""
 
 import ast
 import types
@@ -12,8 +13,10 @@ import numpy as np
 import pytest
 import torch
 
+from multimodal_dmm_tpu.apps.spirals import SpiralsTrainer
 from multimodal_dmm_tpu.apps.weizmann import WeizmannTrainer
-from multimodal_dmm_tpu.models.dmm import MultiDMM as JMultiDMM
+from multimodal_dmm_tpu.models import get_model as jget_model
+from multimodal_dmm_tpu_torch.apps import spirals as tsa
 from multimodal_dmm_tpu_torch.apps import weizmann as tw
 from multimodal_dmm_tpu_torch.convert import params_from_jax
 from multimodal_dmm_tpu_torch.data.weizmann import gen_synthetic
@@ -22,10 +25,11 @@ from multimodal_dmm_tpu_torch.training.eval_engine import DeviceEvalData
 from multimodal_dmm_tpu_torch.tree import tree_leaves_with_path
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "multimodal_dmm_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "pandas",
+             "multimodal_dmm_tpu")
 # Not installed on the GPU machine: imported only inside the functions
 # that need them, which the training and evaluation paths do not reach.
-NOT_ON_THE_CARD = ("yaml", "pandas", "matplotlib", "skimage", "skvideo")
+NOT_ON_THE_CARD = ("yaml", "matplotlib", "skimage", "skvideo")
 
 
 def _port_files():
@@ -120,14 +124,50 @@ def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
             call()
 
 
+@pytest.mark.parametrize("entry", ["dks_init", "vrnn_init", "main"])
+def test_spirals_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
+    """The spirals app's models and command line, like the Weizmann
+    app's, run on CUDA by default and raise without it."""
+    monkeypatch.chdir(tmp_path)
+    data = str(tmp_path / "data")
+    from multimodal_dmm_tpu_torch.data.spirals import gen_dataset
+    gen_dataset(n_examples=4, n_train=2, timesteps=5, data_dir=data)
+    call = {"dks_init": lambda: tsa.build_model(model="dks").init(0),
+            "vrnn_init": lambda: tsa.build_model(model="vrnn").init(0),
+            "main": lambda: tsa.main(["--data_dir", data, "--save_dir",
+                                      str(tmp_path / "save"), "--epochs",
+                                      "0", "--method", "b-skip"])}[entry]
+    if torch.cuda.is_available():
+        out = call()
+        if entry != "main":
+            assert out[0]["h0"].is_cuda if entry == "vrnn_init" else \
+                out[0]["h0"]["spiral-x"].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
 def test_params_from_jax_covers_weizmann_trees():
-    args = types.SimpleNamespace(model_args={}, model="dmm",
-                                 modalities=tw.DEFAULTS["modalities"])
-    jmodel = WeizmannTrainer.build_model(None, JMultiDMM, args)
+    _check_params_from_jax("weizmann", "dmm")
+
+
+@pytest.mark.parametrize("app,model", [
+    ("weizmann", "dks"), ("spirals", "dmm"), ("spirals", "dks"),
+    ("spirals", "vrnn")])
+def test_params_from_jax_covers_the_baselines_and_spirals(app, model):
+    _check_params_from_jax(app, model)
+
+
+def _check_params_from_jax(app, model):
+    jcls, tmod = {"weizmann": (WeizmannTrainer, tw),
+                  "spirals": (SpiralsTrainer, tsa)}[app]
+    args = types.SimpleNamespace(model_args={}, model=model,
+                                 modalities=tmod.DEFAULTS["modalities"])
+    jmodel = jcls.build_model(None, jget_model(model), args)
     shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0))
     jparams, jstate = jax.tree_util.tree_map(
         lambda s: np.zeros(s.shape, s.dtype), shapes)
-    tmodel = tw.build_model()
+    tmodel = tmod.build_model(model=model)
     got_p, got_s = params_from_jax(jparams, jstate, tmodel, device="cpu")
     exp_p, exp_s = tmodel.init(0, device="cpu")
     for got, exp in ((got_p, exp_p), (got_s, exp_s)):
@@ -138,6 +178,6 @@ def test_params_from_jax_covers_weizmann_trees():
             assert got_leaves[path].shape == leaf.shape, path
     n_jax = len(jax.tree_util.tree_leaves((jparams, jstate)))
     n_bn_scalars = 2 * sum(len(s["bns"]) for side in ("enc", "dec")
-                           for s in jstate[side].values() if s)
+                           for s in jstate.get(side, {}).values() if s)
     assert n_jax == (len(tree_leaves_with_path(got_p))
                      + len(tree_leaves_with_path(got_s)) + n_bn_scalars)

@@ -1,6 +1,7 @@
 """The port's Weizmann command line on the CPU (apps/weizmann.main,
 training/trainer.py): a few-sequence fixture with 'shahar' held out,
-narrow latent widths, 2 epochs. Training leaves best.pth, epoch_N.pth and
+narrow latent widths (the DKS baseline at the app's z = h = 256), 2
+epochs. Training leaves best.pth, epoch_N.pth and
 last.pth; ``--load ... --evaluate`` runs and repeats under one seed;
 ``--resume_trial`` reproduces the uninterrupted run bit for bit; flags of
 later slices raise; the flag surface is the JAX app's."""
@@ -36,7 +37,10 @@ TRAIN = {"ragged_bf16": ["--model_args", "{bf16: true, z_dim: 8, h_dim: 8}",
                    "match_particles: 4}"],
          "two_scan_host_loader": ["--model_args", "{z_dim: 8, h_dim: 8}",
                                   "--train_args", "{train_particles: 3, "
-                                  "match_particles: 4}", "--host_loader"]}
+                                  "match_particles: 4}", "--host_loader"],
+         # The DKS baseline over the conv features; --method replaces
+         # --model_args, so z = h = 256.
+         "dks_f_mask": ["--method", "f-mask"]}
 
 
 def _argv(data_dir, save_dir, *extra, epochs=2):
@@ -111,8 +115,7 @@ def _leaves(tree):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2"], ["--method", "b-skip"], ["--model", "dks"],
-    ["--visualize"], ["--find_best"], ["--rng_impl", "rbg"],
+    ["--mesh", "2"], ["--visualize"], ["--find_best"], ["--rng_impl", "rbg"],
     ["--model_args", "{bf16_gtf: true}"],
     ["--evaluate", "--save_args", "{}"]], ids=lambda f: f[0].strip("-"))
 def test_later_slice_flags_raise(data_dir, tmp_path, flags):
@@ -120,9 +123,6 @@ def test_later_slice_flags_raise(data_dir, tmp_path, flags):
         _run(data_dir, tmp_path / "save", *TRAIN["merge"], epochs=1)
         flags = flags + ["--model_args", "{z_dim: 8, h_dim: 8}"]
     argv = _argv(data_dir, tmp_path / "save", *flags)
-    if flags[0] == "--model":  # --method bfvi would set the model to dmm
-        i = argv.index("--method")
-        del argv[i:i + 2]
     with pytest.raises(NotImplementedError, match="later slice"):
         tw.main(argv)
 
