@@ -83,21 +83,35 @@ imports nothing of JAX or of the JAX package. Phases:
    Weizmann ``--method f-mask`` at full width through
    ``apps.weizmann.main`` on a phase-8 fixture: one epoch and an
    evaluation, then ``--load last.pth --evaluate`` twice, identical; the
-   Weizmann DKS step timed.
+   Weizmann DKS step timed;
+12. the VidTIMIT app at full width (video 3x64x64 and audio 10x1281, both
+   Bernoulli, z = h = 256) on a ``gen_synthetic`` fixture of the real
+   corpus's size (43 subjects x 10 sentences, 40-80 steps): the (M, K)
+   of the training step's three scans read from one step on a fixture
+   batch ((2, 1), (2, 25), (4, 1) at 3 V B = 75 columns), phase 3's checks
+   at those shapes at T = 80 and at the smoothing shape (80, 25, 4, 1),
+   the cell at (2, 200, 25, 256) and (4, 1, 25, 256); one BFVI step on
+   the kernels against the plain versions (phase 4's checks, the batch
+   in the codec-native layout); timed f32, bf16 and DKS f-mask steps with
+   their device busy time; then ``apps.vidtimit.main``: 2 epochs of
+   ``--method bfvi`` with the 200-particle evaluation after each, the
+   checkpoints, the launch counts (3 of each scan kernel a step, per
+   evaluation one forward scan a batch and the cell at each step), and
+   ``--load last.pth --evaluate`` twice, identical.
 
 Any failed check raises, so the script exits non-zero before its last
 line. The line before the last is a JSON object with one entry per
 kernel and main path: the Weizmann rows, and the same kernels at the
-spirals shapes (``... (spirals)``). For the scan kernels ``ms``,
-``plain_ms`` and ``bound_ms`` are sums over the training step's three
-launches (phase 3, or 9); ``bound_ms`` is the bound of the route the
-kernels take and ``bound_f32_ms`` that of float32 outside the tensor
-cores, both for the real (unpadded) work; for the cell they are per
-launch at the evaluation's 200-particle shape. ``launches`` counts the
-launches of the row's command-line run (phase 8, or 10), and
-``launches_by_phase`` those of the runs of phases 4 (the training
-steps), 6 (one evaluation), 7 (the timed bench-configuration steps), 8
-and 10; the last is ``{"ok": true, "device": {...}}``.
+spirals and VidTIMIT shapes (``... (spirals)``, ``... (vidtimit)``). For
+the scan kernels ``ms``, ``plain_ms`` and ``bound_ms`` are sums over the
+training step's three launches (phase 3, 9 or 12); ``bound_ms`` is the
+bound of the route the kernels take and ``bound_f32_ms`` that of float32
+outside the tensor cores, both for the real (unpadded) work; for the cell
+they are per launch at the evaluation's 200-particle shape. ``launches``
+counts the launches of the row's command-line run (phase 8, 10 or 12),
+and ``launches_by_phase`` those of the runs of phases 4 (the training
+steps), 6 (one evaluation), 7 (the timed bench-configuration steps), 8,
+10 and 12; the last is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -157,6 +171,11 @@ SP_STEPS = 3                # timed steps of each phase 10-11 model, after 1
 # the largest value, float32 both sides (TF32 off), through T = 100 steps
 # of recurrence.
 BASELINE_FWD_TOL = 1e-4
+# Phase 12, VidTIMIT: the longest sequence (t_range 40-80), the batch, the
+# fixture (the real corpus's 43 subjects x 10 sentences), timed steps.
+VT_T, VT_B = 80, 25
+VT_SUBJECTS, VT_SENTENCES = 43, 10
+VT_STEPS = 3
 
 
 _START = time.perf_counter()
@@ -1402,6 +1421,188 @@ def check_baselines(seed, dev, batch, tmp, card):
     return step_ms
 
 
+# -- phase 12: the VidTIMIT app ----------------------------------------------
+
+def vidtimit_batch(data, seed, dev):
+    """A training batch of the VidTIMIT fixture in ``data``: its training
+    set (sentences other than sa1/sa2) split into 25-step chunks, one
+    batch of VT_B from the device loader (burst deletion), in the edge
+    layout; returns (inputs, targets, mask) and the lengths."""
+    from multimodal_dmm_tpu_torch.apps import vidtimit
+    from multimodal_dmm_tpu_torch.data.vidtimit import VidTIMITDataset
+    from multimodal_dmm_tpu_torch.training.device_loader import \
+        DeviceTrainData
+    ds = VidTIMITDataset(data, item_as_dict=True)
+    train = ds.select([None, ["sa1", "sa2"]], invert=True)
+    train = train.split(vidtimit.DEFAULTS["split"], True)
+    loader = DeviceTrainData(train, vidtimit.DEFAULTS["modalities"], VT_B,
+                             vidtimit.DEFAULTS["burst_frac"], device=dev)
+    inputs, targets, mask, lengths = next(loader.epoch(seed))
+    return (inputs, targets, mask), lengths
+
+
+def vidtimit_eval_cells(data):
+    """The cell launches of one evaluation of the fixture's test set (the
+    sa1/sa2 sequences, in the dataset's order, in batches of VT_B): the
+    sum of each batch's longest sequence, the video's frame count (the
+    audio has one frame more, which the dataset truncates)."""
+    vdir = os.path.join(data, "video")
+    names = sorted(f for f in os.listdir(vdir)
+                   if f.endswith(("_sa1.npy", "_sa2.npy")))
+    lengths = [np.load(os.path.join(vdir, f), mmap_mode="r").shape[0]
+               for f in names]
+    batches = [lengths[i:i + VT_B] for i in range(0, len(lengths), VT_B)]
+    return len(batches), sum(max(b) for b in batches)
+
+
+def check_vidtimit(scan, cell, seed, dev, tmp, card, profile_path=None):
+    """Phase 12: the VidTIMIT app at full width (z = h = 256, video 3x64x64
+    and audio 10x1281, both Bernoulli). (a) the kernels at its shapes
+    against their plain versions; (b) one BFVI step on the kernels
+    against the plain versions, on a fixture batch in the codec-native
+    layout; (c) timed f32, bf16 and DKS f-mask steps; (d) the command
+    line: 2 epochs of --method bfvi with an evaluation after each, then
+    ``--load last.pth --evaluate`` twice. With ``profile_path``, the
+    profiler's table of one f32 step is appended there. Returns (the scan
+    records, the cell record, the command line's launches)."""
+    from multimodal_dmm_tpu_torch.apps import vidtimit
+    from multimodal_dmm_tpu_torch.data.vidtimit import gen_synthetic
+    data, small = os.path.join(tmp, "vidtimit"), os.path.join(tmp, "vt_3")
+    t0 = time.perf_counter()
+    gen_synthetic(data, n_subjects=VT_SUBJECTS, n_sentences=VT_SENTENCES,
+                  t_range=(40, 80))
+    log("  gen_synthetic: %d subjects x %d sentences in %.1f s"
+        % (VT_SUBJECTS, VT_SENTENCES, time.perf_counter() - t0))
+    # The same seed writes the same first subjects: a 3-subject copy for
+    # the step's batch, quicker to load than the whole fixture.
+    gen_synthetic(small, n_subjects=3, n_sentences=VT_SENTENCES,
+                  t_range=(40, 80))
+
+    trainer = vidtimit.make_trainer(seed=seed, device=dev)
+    model = trainer.model
+    perms = model.native_input_perms()
+    batch, lengths = vidtimit_batch(small, seed, dev)
+    inputs, targets, mask = batch
+    nat_in, nat_tg = native_batch(inputs, perms), native_batch(targets, perms)
+    step_kw = dict(native_mods=tuple(m for m in model.modalities
+                                     if m in perms))
+    t_batch = int(mask.shape[0])
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        _, launched = scan_launch_shapes(scan, lambda: model.step(
+            trainer.params, trainer.state, nat_in, mask, 1.0,
+            trainer.rec_mults, gen, targets=nat_tg, train=True, **step_kw))
+    n, vb = model.n_mods, (1 + model.n_mods) * VT_B
+    want = [(t_batch, n, vb, 1), (t_batch, n, vb, 25),
+            (t_batch, n + 2, vb, 1)]
+    check(launched == want, "the VidTIMIT step's scans (T, M, V B, K) are "
+          "%s, expected %s" % (launched, want))
+    log("  the VidTIMIT step's three forward scans (T, M, V B, K): %s on a "
+        "fixture batch of lengths %s; native layout %s"
+        % (launched, lengths, perms))
+
+    log("  (a) kernels at T = %d, V B = %d, (M, K) = %s, smoothing (T, B, "
+        "M, K) = (%d, %d, %d, 1); cell (M, K, B, D) = (%d, 200, %d, %d)"
+        % (VT_T, vb, [(m, k) for _, m, _, k in want], VT_T, VT_B, n + 2,
+           n, VT_B, model.z_dim))
+    gtf = {k: {kk: v.detach() for kk, v in p.items()}
+           for k, p in trainer.params["trans"]["bwd"].items()}
+    rec = check_kernels(scan, gtf, dev, VT_T, vb,
+                        [(m, k) for _, m, _, k in want],
+                        smooth_shape=(VT_T, VT_B, n + 2, 1), seed=700)
+    cell_rec = check_cell(cell, dev, ((n, 200, False), (n + 2, 1, True)),
+                          VT_B, model.z_dim, seed=800)
+
+    log("  (b) one BFVI step on the kernels vs the plain versions, fixture "
+        "batch, native layout")
+    check_step_against_plain(scan, trainer, nat_in, nat_tg, mask, seed,
+                             **step_kw)
+
+    log("  (c) timed steps [%s]" % card)
+    n_data = float(mask.sum().item())
+    step_ms = {}
+    bf16 = vidtimit.make_trainer(seed=seed, device=dev,
+                                 model_args={"bf16": True})
+    dks = vidtimit.make_trainer(seed=seed, device=dev, model="dks",
+                                model_args=dict(rnn_dir="fwd",
+                                                rnn_skip=False),
+                                train_args=dict(uni_loss=True))
+    for name, tr, x, y, kw in (
+            ("bfvi f32", trainer, nat_in, nat_tg, step_kw),
+            ("bfvi bf16", bf16, nat_in, nat_tg, step_kw),
+            ("dks f-mask", dks, inputs, targets, {})):
+        tr.train_args = dict(tr.train_args, **kw)
+        times = time_steps(tr, x, y, mask, n_data, 1 + VT_STEPS)[1:]
+        step_ms[name] = statistics.median(times)
+        log("  %s step (T = %d, B = %d): median %.2f ms over %d steps, %.1f "
+            "seqs/s; %s [%s]" % (name, t_batch, VT_B, step_ms[name],
+                                 len(times), VT_B / (step_ms[name] / 1e3),
+                                 busy_note(tr, (x, y, mask), 2), card))
+    if profile_path:
+        from torch.profiler import ProfilerActivity, profile
+        trainer.train_args = dict(step_kw)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(nat_in, nat_tg, mask, 1.0, n_data)
+            torch.cuda.synchronize()
+        with open(profile_path, "a") as f:
+            f.write("\none VidTIMIT BFVI step (T = B = 25, z = h = 256, "
+                    "f32, native layout; %.2f ms median without the "
+                    "profiler)\n" % step_ms["bfvi f32"])
+            f.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=30))
+
+    log("  (d) the command line, --method bfvi, %d epochs" % CLI_EPOCHS)
+    save = os.path.join(tmp, "vt_bfvi")
+    flags = ["--data_dir", data, "--save_dir", save, "--method", "bfvi",
+             "--seed", str(seed)]
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    hist = vidtimit.main(flags + ["--epochs", str(CLI_EPOCHS),
+                                  "--eval_freq", "1", "--save_freq", "1"])
+    wall = time.perf_counter() - t0
+    launches = {nm: fn.launches for nm, fn in wrappers.items()}
+    names = sorted(os.listdir(save))
+    check(len(hist["epoch_loss"]) == CLI_EPOCHS
+          and all(np.isfinite(hist["epoch_loss"]))
+          and all(np.isfinite(e["rec_loss"]) and np.isfinite(e["a_mse"])
+                  for e in hist["eval"]),
+          "VidTIMIT run: losses %s, evaluations %s" % (hist["epoch_loss"],
+                                                      hist["eval"]))
+    want_ck = ["best.pth", "last.pth"] + ["epoch_%d.pth" % (e + 1)
+                                          for e in range(CLI_EPOCHS)]
+    check(sorted(want_ck) == names, "VidTIMIT checkpoints %s" % names)
+    n_eval, eval_cells = vidtimit_eval_cells(data)
+    n_bwd = launches["bfvi_scan_bwd"]
+    check(n_bwd > 0 and n_bwd % 3 == 0 and launches["gtf_wgrad"] == n_bwd
+          and launches["bfvi_scan_fwd"] == n_bwd + CLI_EPOCHS * n_eval
+          and launches["poe_sample_cell"] == CLI_EPOCHS * eval_cells,
+          "VidTIMIT run launches %s: expected 3 of each scan kernel a step, "
+          "and per evaluation (%d batches, %d cell steps) one forward scan a "
+          "batch and the cell at each step" % (launches, n_eval, eval_cells))
+    log("  %d epochs of %d steps in %.1f s of command: losses %s, seconds "
+        "per epoch %s, evaluation seconds %s, eval rec_loss %s, a_mse %s; "
+        "launches %s; checkpoints %s [%s]"
+        % (CLI_EPOCHS, n_bwd // 3 // CLI_EPOCHS, wall,
+           ["%.1f" % v for v in hist["epoch_loss"]],
+           ["%.2f" % v for v in hist["epoch_s"]],
+           ["%.3f" % v for v in hist["eval_s"]],
+           ["%.1f" % e["rec_loss"] for e in hist["eval"]],
+           ["%.4f" % e["a_mse"] for e in hist["eval"]], launches, names,
+           card))
+    t0 = time.perf_counter()
+    test = check_reload(vidtimit.main, flags, save, "VidTIMIT BFVI")
+    check(0.0 <= test["ssim"] <= 1.0 and np.isfinite(test["a_mse"]),
+          "VidTIMIT --load --evaluate metrics %s" % test)
+    log("  --load last.pth --evaluate twice (%.1f s): identical; test "
+        "rec_loss %.1f, kld %.2f, v_mse %.4f, ssim %.4f, a_mse %.4f"
+        % (time.perf_counter() - t0, test["rec_loss"], test["kld_loss"],
+           test["v_mse"], test["ssim"], test["a_mse"]))
+    return rec, cell_rec, launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1409,7 +1610,8 @@ def main():
                     help="timed optimizer steps (after 2 warm-up steps)")
     ap.add_argument("--profile", default=None,
                     help="write torch.profiler tables of one step, one "
-                    "evaluation and one bench-configuration step here")
+                    "evaluation, one bench-configuration step, one spirals "
+                    "step and one VidTIMIT step here")
     args = ap.parse_args()
     check(args.steps >= 5, "--steps must be at least 5")
 
@@ -1578,6 +1780,12 @@ def main():
             log_phase("phase 11: the DKS and VRNN baselines on spirals, "
                       "card vs CPU, and Weizmann f-mask [%s]" % card)
             check_baselines(args.seed, dev, sp_batch, tmp, card)
+
+            # -- phase 12: the VidTIMIT app -----------------------------------
+            log_phase("phase 12: VidTIMIT at full width, kernels, step and "
+                      "command line [%s]" % card)
+            vt_rec, vt_cell, vt_launches = check_vidtimit(
+                scan, cell, args.seed, dev, tmp, card, profile_path=profile)
         finally:
             os.chdir(cwd)
 
@@ -1585,11 +1793,13 @@ def main():
     log(card)
     rec["poe_sample_cell"] = cell_rec
     sp_rec["poe_sample_cell"] = sp_cell
+    vt_rec["poe_sample_cell"] = vt_cell
     by_phase = {"4": launches, "6": eval_launches, "7": bench_launches,
-                "8": cli_launches, "10": sp_launches}
+                "8": cli_launches, "10": sp_launches, "12": vt_launches}
     kernels = []
     for rows, suffix, main_path in ((rec, "", cli_launches),
-                                    (sp_rec, " (spirals)", sp_launches)):
+                                    (sp_rec, " (spirals)", sp_launches),
+                                    (vt_rec, " (vidtimit)", vt_launches)):
         for name, (source, replaces) in KERNELS.items():
             r = rows[name]
             if name in SCAN_KERNELS:

@@ -19,14 +19,13 @@ Visualization comes in a later slice.
 import copy
 import os
 
-import numpy as np
 import torch
 
 from ..data.spirals import SpiralsDataset
 from ..models import get_model
 from ..ops import losses
 from ..training.eval_engine import time_avg_dev
-from ..training.trainer import Trainer
+from ..training.trainer import Trainer, summarize
 
 # The app's flag defaults, as the JAX app sets them.
 DEFAULTS = {
@@ -125,36 +124,10 @@ class SpiralsTrainer(Trainer):
         mets["mse"] = time_avg_dev(mse, mask, lengths)
         return mets
 
-    def compute_metrics(self, model, infer, prior, recon, targets, mask,
-                        lengths, order, args, rec_mults=None):
-        """The host path's metrics of one batch: those of
-        ``compute_metrics_device`` with ``args.rec_mults`` (as the JAX
-        host path), per-sequence values as lists in input order."""
-        dev = infer[0].device
-        b_dim = np.asarray(mask).shape[1]
-        lengths_pad = np.zeros((b_dim,), np.float32)
-        lengths_pad[:len(lengths)] = lengths
-        mets = self.compute_metrics_device(
-            model, infer, prior, recon,
-            {m: torch.as_tensor(np.asarray(targets[m]), device=dev)
-             for m in recon}, torch.as_tensor(np.asarray(mask), device=dev),
-            torch.as_tensor(lengths_pad, device=dev), args.rec_mults)
-        out = {}
-        for k, v in mets.items():
-            v = v.cpu().numpy()
-            out[k] = float(v) if v.ndim == 0 else [v[i] for i in order]
-        return out
-
     def summarize_metrics(self, metrics, n_timesteps):
         """Means and stds of per-sequence metrics, sums divided by
         ``n_timesteps``; printed as the JAX app prints them."""
-        summary = {}
-        for key, val in metrics.items():
-            if isinstance(val, list):
-                summary[key] = np.mean(val)
-                summary[key + '_std'] = np.std(val)
-            else:
-                summary[key] = val / n_timesteps
+        summary = summarize(metrics, n_timesteps)
         print(('Evaluation\tKLD: {:7.1f}\tRecon: {:7.1f}\t' +
                'MSE: {:6.3f} +-{:2.3f}').format(
                    summary['kld_loss'], summary['rec_loss'],

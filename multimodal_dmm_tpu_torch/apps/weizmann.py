@@ -22,7 +22,6 @@ later slice.
 import copy
 import os
 import types
-from collections import defaultdict
 
 import numpy as np
 import torch
@@ -32,7 +31,7 @@ from ..models import codecs, get_model
 from ..ops import losses
 from ..ops.ssim import eval_ssim
 from ..training.eval_engine import time_avg_dev
-from ..training.trainer import Trainer, method_eval_args
+from ..training.trainer import Trainer, method_eval_args, summarize
 
 # The app's flag defaults, as the JAX app sets them.
 DEFAULTS = {
@@ -168,37 +167,10 @@ class WeizmannTrainer(Trainer):
             mets[m] = time_avg_dev(correct.to(torch.float32), mask, lengths)
         return mets
 
-    def compute_metrics(self, model, infer, prior, recon, targets, mask,
-                        lengths, order, args, rec_mults=None):
-        """The host path's metrics of one batch: those of
-        ``compute_metrics_device`` with ``args.rec_mults`` (as the JAX
-        host path, which does not read ``rec_mults``), per-sequence values
-        as lists in input order."""
-        dev = infer[0].device
-        b_dim = np.asarray(mask).shape[1]
-        lengths_pad = np.zeros((b_dim,), np.float32)
-        lengths_pad[:len(lengths)] = lengths
-        mets = self.compute_metrics_device(
-            model, infer, prior, recon,
-            {m: torch.as_tensor(np.asarray(targets[m]), device=dev)
-             for m in recon}, torch.as_tensor(np.asarray(mask), device=dev),
-            torch.as_tensor(lengths_pad, device=dev), args.rec_mults)
-        out = {}
-        for k, v in mets.items():
-            v = v.cpu().numpy()
-            out[k] = float(v) if v.ndim == 0 else [v[i] for i in order]
-        return out
-
     def summarize_metrics(self, metrics, n_timesteps):
         """Means and stds of per-sequence metrics, sums divided by
         ``n_timesteps``; printed as the JAX app prints them."""
-        summary = defaultdict(lambda: float("nan"))
-        for key, val in metrics.items():
-            if isinstance(val, list):
-                summary[key] = np.mean(val)
-                summary[key + "_std"] = np.std(val)
-            else:
-                summary[key] = val / n_timesteps
+        summary = summarize(metrics, n_timesteps)
         print("Evaluation\tKLD: {:7.1f}\tRecon: {:7.1f}".format(
             summary["kld_loss"], summary["rec_loss"]))
         print("\tVideo\tMSE: {:2.3f} +/- {:2.3f}\tSSIM: {:2.3f} "

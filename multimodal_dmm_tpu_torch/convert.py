@@ -12,10 +12,11 @@ per-leaf state to and from the moments of optax's ``ScaleByAdamState``
 state. Nothing here imports JAX or optax. Layout changes:
 
 - linear ``w`` (in, out) -> (out, in), GTF layers included;
-- conv ``w`` HWIO -> OIHW;
-- deconv ``w``: the JAX package stores the spatially flipped HWIO kernel
-  of the equivalent input-dilated forward convolution; ``ConvTranspose2d``
-  wants (in, out, kH, kW) unflipped;
+- conv ``w`` HWIO -> OIHW, and 1-D WIO -> (out, in, k);
+- deconv ``w``: the JAX package stores the spatially flipped HWIO (WIO)
+  kernel of the equivalent input-dilated forward convolution;
+  ``ConvTranspose2d`` wants (in, out, kH, kW) unflipped,
+  ``ConvTranspose1d`` (in, out, k);
 - embeddings, biases, BatchNorm scale/bias/running mean/var, the global
   prior ``z0_mean``/``z0_log_std``, the GRUs' weights (``w_ih`` (in, 3H),
   ``w_hh`` (H, 3H), which the port keeps in the JAX layout) and initial
@@ -33,9 +34,13 @@ def _convert_leaf(path, x):
     x = np.asarray(x, dtype=np.float32)
     if path and path[-1] == "w":
         if "deconvs" in path:
+            if x.ndim == 3:
+                return np.ascontiguousarray(x[::-1].transpose(1, 2, 0))
             return np.ascontiguousarray(
                 x[::-1, ::-1].transpose(2, 3, 0, 1))
         if "convs" in path:
+            if x.ndim == 3:
+                return np.ascontiguousarray(x.transpose(2, 1, 0))
             return np.ascontiguousarray(x.transpose(3, 2, 0, 1))
         if len(path) >= 2 and path[-2] == "embed":
             return x
@@ -78,8 +83,12 @@ def _leaf_to_jax(path, x):
     x = x.detach().cpu().numpy()
     if path and path[-1] == "w":
         if "deconvs" in path:
+            if x.ndim == 3:
+                return np.ascontiguousarray(x.transpose(2, 0, 1)[::-1])
             return np.ascontiguousarray(x.transpose(2, 3, 0, 1)[::-1, ::-1])
         if "convs" in path:
+            if x.ndim == 3:
+                return np.ascontiguousarray(x.transpose(2, 1, 0))
             return np.ascontiguousarray(x.transpose(2, 3, 1, 0))
         if len(path) >= 2 and path[-2] == "embed":
             return x.copy()

@@ -219,8 +219,12 @@ class MultiseqDataset:
 
     def select(self, seq_ids, invert=False):
         """The sequences whose ID field k is in ``seq_ids[k]`` for every k
-        (None: any value); ``invert`` selects the others."""
-        sel = copy.deepcopy(self)
+        (None: any value); ``invert`` selects the others. Only the
+        selected sequences are copied."""
+        sel = copy.copy(self)
+        for name, value in vars(self).items():
+            if name not in ("data", "orig"):
+                setattr(sel, name, copy.deepcopy(value))
         seq_ids = list(seq_ids)
         idx = list(range(len(self)))
         for k in range(len(seq_ids)):
@@ -233,10 +237,11 @@ class MultiseqDataset:
         sel.seq_ids = [sel.seq_ids[i] for i in idx]
         sel.seq_id_sets = [sorted(set(s)) for s in zip(*sel.seq_ids)]
         sel.lengths = [sel.lengths[i] for i in idx]
-        for m in self.modalities:
-            sel.data[m] = [sel.data[m][i] for i in idx]
-            sel.orig[m] = [sel.orig[m][i] for i in idx
-                           if i < len(sel.orig[m])]
+        sel.data = {m: [copy.deepcopy(self.data[m][i]) for i in idx]
+                    for m in self.modalities}
+        sel.orig = {m: [copy.deepcopy(self.orig[m][i]) for i in idx
+                        if i < len(self.orig[m])]
+                    for m in self.modalities}
         return sel
 
     @classmethod

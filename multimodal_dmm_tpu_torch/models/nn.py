@@ -6,7 +6,9 @@ package's, but in PyTorch's layouts:
 - linear ``w`` is (out, in), applied with ``F.linear``;
 - conv2d ``w`` is OIHW; deconv2d ``w`` is ``ConvTranspose2d``'s
   (in, out, kH, kW);
-- activations are NCHW.
+- conv1d ``w`` is (out, in, k); deconv1d ``w`` is ``ConvTranspose1d``'s
+  (in, out, k);
+- activations are NCHW (NCW for the 1-D layers).
 
 Initialisers draw from the JAX package's distributions (torch's defaults:
 U(-1/sqrt(fan_in), 1/sqrt(fan_in)), or xavier-uniform where the
@@ -172,7 +174,7 @@ def gru_step(p, x, h_stack):
 
 
 # ---------------------------------------------------------------------------
-# Convolutions (NCHW)
+# Convolutions (NCHW, NCW)
 # ---------------------------------------------------------------------------
 
 def conv2d_init(gen, c_in, c_out, ksize=3, xavier=True):
@@ -218,6 +220,46 @@ def deconv2d_apply(p, x, stride=2, padding=1, compute_dtype=None):
         return F.conv_transpose2d(x, p["w"], p["b"], stride=stride,
                                   padding=padding)
     return _biased(F.conv_transpose2d(x.to(compute_dtype),
+                                      p["w"].to(compute_dtype),
+                                      stride=stride, padding=padding),
+                   p["b"])
+
+
+def conv1d_init(gen, c_in, c_out, ksize=3, xavier=True):
+    fan_in = c_in * ksize
+    fan_out = c_out * ksize
+    bound = (math.sqrt(6.0 / (fan_in + fan_out)) if xavier
+             else 1.0 / math.sqrt(fan_in))
+    return {"w": _uniform(gen, (c_out, c_in, ksize), bound),
+            "b": _uniform(gen, (c_out,), 1.0 / math.sqrt(fan_in))}
+
+
+def conv1d_apply(p, x, stride=2, padding=1, compute_dtype=None):
+    """x: (N, C, W) -> (N, C', W'); ``compute_dtype`` as in
+    ``conv2d_apply``."""
+    if compute_dtype is None:
+        return F.conv1d(x, p["w"], p["b"], stride=stride, padding=padding)
+    return _biased(F.conv1d(x.to(compute_dtype), p["w"].to(compute_dtype),
+                            stride=stride, padding=padding), p["b"])
+
+
+def deconv1d_init(gen, c_in, c_out, ksize=3, xavier=True):
+    """``ConvTranspose1d`` weight (in, out, k)."""
+    fan_in = c_in * ksize
+    fan_out = c_out * ksize
+    bound = (math.sqrt(6.0 / (fan_in + fan_out)) if xavier
+             else 1.0 / math.sqrt(fan_out))
+    return {"w": _uniform(gen, (c_in, c_out, ksize), bound),
+            "b": _uniform(gen, (c_out,), 1.0 / math.sqrt(fan_out))}
+
+
+def deconv1d_apply(p, x, stride=2, padding=1, compute_dtype=None):
+    """out = (in - 1) * stride - 2 * padding + ksize; ``compute_dtype``
+    as in ``conv2d_apply``."""
+    if compute_dtype is None:
+        return F.conv_transpose1d(x, p["w"], p["b"], stride=stride,
+                                  padding=padding)
+    return _biased(F.conv_transpose1d(x.to(compute_dtype),
                                       p["w"].to(compute_dtype),
                                       stride=stride, padding=padding),
                    p["b"])

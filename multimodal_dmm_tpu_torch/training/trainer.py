@@ -54,6 +54,7 @@ import os
 import re
 import signal
 import time
+from collections import defaultdict
 
 import numpy as np
 import torch
@@ -199,6 +200,20 @@ _PRECISION = {"float32": "highest", "highest": "highest",
 
 # The inference methods of --method: BFVI and the four DKS baselines.
 METHODS = ("bfvi", "b-mask", "f-mask", "b-skip", "f-skip")
+
+
+def summarize(metrics, n_timesteps):
+    """An evaluation's summary: the mean and std (``key_std``) of each
+    per-sequence metric (a list), each summed metric divided by
+    ``n_timesteps``; NaN for a key it does not have."""
+    summary = defaultdict(lambda: float("nan"))
+    for key, val in metrics.items():
+        if isinstance(val, list):
+            summary[key] = np.mean(val)
+            summary[key + "_std"] = np.std(val)
+        else:
+            summary[key] = val / n_timesteps
+    return summary
 
 
 def method_eval_args(method, eval_args):
@@ -783,7 +798,23 @@ class Trainer:
 
     def compute_metrics(self, model, infer, prior, recon, targets, mask,
                         lengths, order, args, rec_mults=None):
-        raise NotImplementedError
+        """The host path's metrics of one batch: those of
+        ``compute_metrics_device`` with ``args.rec_mults`` (as the JAX
+        host path, which does not read ``rec_mults``), per-sequence values as lists in input order."""
+        dev = infer[0].device
+        b_dim = np.asarray(mask).shape[1]
+        lengths_pad = np.zeros((b_dim,), np.float32)
+        lengths_pad[:len(lengths)] = lengths
+        mets = self.compute_metrics_device(
+            model, infer, prior, recon,
+            {m: torch.as_tensor(np.asarray(targets[m]), device=dev)
+             for m in recon}, torch.as_tensor(np.asarray(mask), device=dev),
+            torch.as_tensor(lengths_pad, device=dev), args.rec_mults)
+        out = {}
+        for k, v in mets.items():
+            v = v.cpu().numpy()
+            out[k] = float(v) if v.ndim == 0 else [v[i] for i in order]
+        return out
 
     def summarize_metrics(self, metrics, n_timesteps):
         raise NotImplementedError

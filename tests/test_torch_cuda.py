@@ -94,6 +94,15 @@ def test_kernels_match_plain_versions_at_spirals_shapes(dev):
                                   h=20, k=25))
 
 
+@pytest.mark.parametrize("n_exp,k", [(2, 1), (2, 25), (4, 1)])
+def test_kernels_match_plain_versions_at_vidtimit_shapes(dev, n_exp, k):
+    """The VidTIMIT model's three passes ((M, K) = (2, 1), (2, 25), (4,
+    1): video and audio, the smoothing pass with two more experts) at T =
+    80, V B = 75 columns (three variants of 25), D = H = 256."""
+    _check_against_plain(*_inputs(dev, t_max=80, n_exp=n_exp, b_dim=75,
+                                  d=256, h=256, k=k))
+
+
 @pytest.mark.parametrize("d,h", [(5, 20), (7, 13)])
 def test_weight_gradient_kernel_at_unaligned_widths(dev, d, h):
     """``gtf_wgrad_cuda`` alone on rows at the real widths."""
@@ -247,6 +256,22 @@ def test_cell_kernel_at_spirals_shapes(dev, d):
     arrays = [rng.randn(100, d), rng.rand(100, d) + 0.2,
               rng.randn(2, 100, d), rng.rand(2, 100, d) + 0.2,
               rng.rand(2, 100) > 0.4, rng.randn(200, 100, d)]
+    x = [torch.tensor(np.asarray(a, np.float32), device=dev)
+         for a in arrays]
+    got = tcell.poe_sample_cell(*x)
+    exp = tcell.poe_sample_cell_ref(*x)
+    for i, (g, e) in enumerate(zip(got, exp)):
+        np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=str(i))
+
+
+def test_cell_kernel_at_vidtimit_shape(dev):
+    """The VidTIMIT evaluation's 200-particle filter step: (M, K, B, D) =
+    (2, 200, 25, 256)."""
+    rng = np.random.RandomState(11)
+    arrays = [rng.randn(25, 256), rng.rand(25, 256) + 0.2,
+              rng.randn(2, 25, 256), rng.rand(2, 25, 256) + 0.2,
+              rng.rand(2, 25) > 0.4, rng.randn(200, 25, 256)]
     x = [torch.tensor(np.asarray(a, np.float32), device=dev)
          for a in arrays]
     got = tcell.poe_sample_cell(*x)

@@ -2,7 +2,8 @@
 package or of pandas, nor at module level a package that the GPU machine
 lacks; its entry points default to the GPU and refuse to fall back to the
 CPU; and ``params_from_jax`` covers every leaf of the apps' model trees
-(the Weizmann BFVI and DKS models, the spirals DMM, DKS and VRNN)."""
+(the Weizmann and VidTIMIT BFVI and DKS models, the spirals DMM, DKS and
+VRNN)."""
 
 import ast
 import types
@@ -14,9 +15,11 @@ import pytest
 import torch
 
 from multimodal_dmm_tpu.apps.spirals import SpiralsTrainer
+from multimodal_dmm_tpu.apps.vidtimit import VidTIMITTrainer
 from multimodal_dmm_tpu.apps.weizmann import WeizmannTrainer
 from multimodal_dmm_tpu.models import get_model as jget_model
 from multimodal_dmm_tpu_torch.apps import spirals as tsa
+from multimodal_dmm_tpu_torch.apps import vidtimit as tvt
 from multimodal_dmm_tpu_torch.apps import weizmann as tw
 from multimodal_dmm_tpu_torch.convert import params_from_jax
 from multimodal_dmm_tpu_torch.data.weizmann import gen_synthetic
@@ -30,6 +33,9 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "flax", "pandas",
 # Not installed on the GPU machine: imported only inside the functions
 # that need them, which the training and evaluation paths do not reach.
 NOT_ON_THE_CARD = ("yaml", "matplotlib", "skimage", "skvideo")
+# On the GPU machine, but slow to import and needed only by the data
+# modules' transforms: imported inside the functions that use them.
+IN_FUNCTIONS_ONLY = ("scipy",)
 
 
 def _port_files():
@@ -77,6 +83,17 @@ def test_port_imports_no_missing_package_at_module_level():
         bad = set(_module_level_roots(path)) & set(NOT_ON_THE_CARD)
         assert not bad, "%s imports %s at module level" % (
             path.relative_to(ROOT), bad)
+
+
+def test_port_imports_scipy_inside_functions_only():
+    """No module imports scipy when it is imported; the VidTIMIT data
+    module uses scipy's STFT inside its transform functions."""
+    for path in _port_files():
+        bad = set(_module_level_roots(path)) & set(IN_FUNCTIONS_ONLY)
+        assert not bad, "%s imports %s at module level" % (
+            path.relative_to(ROOT), bad)
+    path = ROOT / "multimodal_dmm_tpu_torch" / "data" / "vidtimit.py"
+    assert "scipy" in set(_imported_roots(path))
 
 
 _ITEM = {"video": np.zeros((3, 3, 64, 64), np.float32),
@@ -147,20 +164,48 @@ def test_spirals_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
             call()
 
 
+@pytest.mark.parametrize("entry", ["model_init", "trainer", "main"])
+def test_vidtimit_entry_points_default_to_cuda(entry, tmp_path,
+                                               monkeypatch):
+    """The VidTIMIT app's model, trainer and command line, like the other
+    apps', run on CUDA by default and raise without it."""
+    monkeypatch.chdir(tmp_path)
+    data = str(tmp_path / "data")
+    from multimodal_dmm_tpu_torch.data.vidtimit import gen_synthetic as gen
+    gen(data, n_subjects=1, n_sentences=3, t_range=(4, 6))
+    narrow = {"z_dim": 8, "h_dim": 8}
+    call = {"model_init": lambda: tvt.build_model(model_args=narrow).init(0),
+            "trainer": lambda: tvt.make_trainer(seed=0, model_args=narrow),
+            "main": lambda: tvt.main(["--data_dir", data, "--save_dir",
+                                      str(tmp_path / "save"), "--epochs",
+                                      "0", "--model_args",
+                                      "{z_dim: 8, h_dim: 8}"])}[entry]
+    if torch.cuda.is_available():
+        out = call()
+        if entry == "model_init":
+            assert out[0]["z0_mean"].is_cuda
+        elif entry == "trainer":
+            assert out.params["enc"]["audio"]["convs"][0]["w"].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+
+
 def test_params_from_jax_covers_weizmann_trees():
     _check_params_from_jax("weizmann", "dmm")
 
 
 @pytest.mark.parametrize("app,model", [
     ("weizmann", "dks"), ("spirals", "dmm"), ("spirals", "dks"),
-    ("spirals", "vrnn")])
+    ("spirals", "vrnn"), ("vidtimit", "dmm"), ("vidtimit", "dks")])
 def test_params_from_jax_covers_the_baselines_and_spirals(app, model):
     _check_params_from_jax(app, model)
 
 
 def _check_params_from_jax(app, model):
     jcls, tmod = {"weizmann": (WeizmannTrainer, tw),
-                  "spirals": (SpiralsTrainer, tsa)}[app]
+                  "spirals": (SpiralsTrainer, tsa),
+                  "vidtimit": (VidTIMITTrainer, tvt)}[app]
     args = types.SimpleNamespace(model_args={}, model=model,
                                  modalities=tmod.DEFAULTS["modalities"])
     jmodel = jcls.build_model(None, jget_model(model), args)
