@@ -97,7 +97,25 @@ imports nothing of JAX or of the JAX package. Phases:
    ``--method bfvi`` with the 200-particle evaluation after each, the
    checkpoints, the launch counts (3 of each scan kernel a step, per
    evaluation one forward scan a batch and the cell at each step), and
-   ``--load last.pth --evaluate`` twice, identical.
+   ``--load last.pth --evaluate`` twice, identical;
+13. the experiment layer, in a directory of its own, on phase 10's
+   spirals corpus and phase 11's Weizmann fixture: (a) ``python -m
+   multimodal_dmm_tpu_torch.experiments.spirals_suite`` with each trial
+   in its own worker process (five methods, seed 0, 2 epochs, z = 5, h =
+   20, B = 100), every trial TERMINATED, exit code 0, the four CSVs
+   (five methods x five tasks) finite; the seconds of a fresh worker's
+   imports, CUDA context and kernel libraries, of each trial's parts
+   (process start, data, model, epochs, evaluations, checkpoints), and of
+   the analysis per trial and per task, read from the output's lines as
+   they arrive; (b) ``weizmann_semisup``'s grid in this process (levels
+   0.0 and 0.5 x 2 seeds, 2 epochs, z = h = 256, ``--method bfvi``), the
+   kernels' launches against the trials' steps and evaluation batches (3
+   of each scan kernel a step; per evaluation batch one forward scan and
+   the cell at each step), the seconds of each trial, then
+   ``analyze_best3``'s two CSVs, two levels, finite; (c) the grid again
+   with ``--resume``: every trial already done, nothing launched; (d)
+   ``--find_best`` through ``apps.weizmann.main`` on the grid's first
+   trial: a best epoch of 1 or 2, best.pth rewritten, finite metrics.
 
 Any failed check raises, so the script exits non-zero before its last
 line. The line before the last is a JSON object with one entry per
@@ -111,7 +129,8 @@ they are per launch at the evaluation's 200-particle shape. ``launches``
 counts the launches of the row's command-line run (phase 8, 10 or 12),
 and ``launches_by_phase`` those of the runs of phases 4 (the training
 steps), 6 (one evaluation), 7 (the timed bench-configuration steps), 8,
-10 and 12; the last is ``{"ok": true, "device": {...}}``.
+10, 12 and 13 (the Weizmann grid); the last is ``{"ok": true, "device":
+{...}}``.
 """
 
 import argparse
@@ -1603,6 +1622,334 @@ def check_vidtimit(scan, cell, seed, dev, tmp, card, profile_path=None):
     return rec, cell_rec, launches
 
 
+# -- phase 13: the experiment layer ------------------------------------------
+
+# The Weizmann grid of phase 13 (b): semi-supervised levels x seeds.
+GRID_LEVELS, GRID_REPEATS = ("0.0", "0.5"), 2
+# What one fresh worker process spends before its trial's first line: the
+# interpreter with torch and the port imported, the CUDA context, the
+# kernels' libraries loaded (their build is there already).
+PROBE = """
+import json, time
+t0 = time.time()
+import torch
+from multimodal_dmm_tpu_torch.apps import spirals
+from multimodal_dmm_tpu_torch.ops.cuda import _build
+t1 = time.time()
+torch.zeros(1, device="cuda"); torch.cuda.synchronize()
+t2 = time.time()
+_build.load("bfvi_scan"); _build.load("poe_cell")
+t3 = time.time()
+print(json.dumps({"imports_s": t1 - t0, "cuda_context_s": t2 - t1,
+                  "kernel_libraries_s": t3 - t2, "t0": t0}))
+"""
+
+
+def subprocess_env():
+    """This environment with the repository on the path and unbuffered
+    output (each line of a child arrives when it is printed)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = [root] + [p for p in os.environ.get("PYTHONPATH", "").split(
+        os.pathsep) if p]
+    return dict(os.environ, PYTHONPATH=os.pathsep.join(path),
+                PYTHONUNBUFFERED="1")
+
+
+def stream_lines(cmd, cwd):
+    """Run ``cmd`` and return (exit code, [(seconds since the start, line)])
+    with each line of its output (stdout and stderr) stamped as it
+    arrives; the process has ended when this returns."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, cwd=cwd,
+                            env=subprocess_env())
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append((time.perf_counter() - t0, line.rstrip("\n")))
+        return proc.wait(), lines
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def first_at(lines, start, prefix):
+    """The index of the first line at or after ``start`` that begins with
+    ``prefix``, else None."""
+    for i in range(start, len(lines)):
+        if lines[i][1].startswith(prefix):
+            return i
+    return None
+
+
+def trial_timeline(lines, start, end):
+    """Seconds of one isolated trial's parts, from its worker's lines
+    between ``start`` (the runner's "== Trial" line) and ``end``."""
+    marks = {}
+    for key, prefix in (("setup", "Setting up"), ("data", "Loading data"),
+                        ("data_done", "Done."), ("model", "Constructing"),
+                        ("built", "Number of parameters")):
+        i = first_at(lines, start, prefix)
+        check(i is not None and i < end, "trial at line %d: no %r line"
+              % (start, prefix))
+        marks[key] = lines[i][0]
+    epochs = [lines[i][0] for i in range(start, end)
+              if lines[i][1].startswith("Epoch: ")]
+    evals = [lines[i][0] for i in range(start, end)
+             if lines[i][1].startswith("Evaluation")]
+    check(len(epochs) == len(evals) == CLI_EPOCHS,
+          "trial at line %d: %d epochs, %d evaluations" % (start,
+                                                           len(epochs),
+                                                           len(evals)))
+    t_end = lines[end][0] if end < len(lines) else lines[-1][0]
+    prev = [marks["built"]] + evals[:-1]
+    return {"start_s": marks["setup"] - lines[start][0],
+            "data_s": marks["data_done"] - marks["data"],
+            "build_s": marks["built"] - marks["model"],
+            "epoch_s": [e - p for e, p in zip(epochs, prev)],
+            "eval_s": [v - e for v, e in zip(evals, epochs)],
+            "end_s": t_end - evals[-1],
+            "total_s": t_end - lines[start][0]}
+
+
+def analysis_timeline(lines, start):
+    """Seconds of the suite's analysis from line ``start`` on: per trial
+    (from its "Trial:" line to the next) and per task (from its
+    "==Inference Task" line to the next task's or trial's)."""
+    heads = [i for i in range(start, len(lines))
+             if lines[i][1].startswith("Trial: ")]
+    per_trial, first_task, later_tasks = [], [], []
+    for n, i in enumerate(heads):
+        stop = heads[n + 1] if n + 1 < len(heads) else len(lines) - 1
+        per_trial.append(lines[stop][0] - lines[i][0])
+        tasks = [j for j in range(i, stop)
+                 if lines[j][1].startswith("==Inference Task")]
+        bounds = tasks + [stop]
+        secs = [lines[b][0] - lines[a][0] for a, b in zip(bounds, bounds[1:])]
+        first_task.append(secs[0])
+        later_tasks += secs[1:]
+    return per_trial, first_task, later_tasks
+
+
+def check_spirals_suite(data, root, card):
+    """Phase 13 (a): the spirals suite from its command line, one worker
+    process per trial (five methods, seed 0), then its analysis; every
+    trial TERMINATED, the four CSVs five methods x five tasks, finite.
+    Logs the times of the trials' parts and of the analysis."""
+    from multimodal_dmm_tpu_torch.experiments import table
+    rc, probe = stream_lines([sys.executable, "-c", PROBE], root)
+    check(rc == 0, "worker probe failed: %s" % probe[-20:])
+    probe = json.loads(probe[-1][1])
+    log("  a fresh worker process: imports %.2f s (torch and the port), "
+        "CUDA context %.2f s, kernel libraries %.3f s [%s]"
+        % (probe["imports_s"], probe["cuda_context_s"],
+           probe["kernel_libraries_s"], card))
+    cfg = "{epochs: %d, eval_freq: 1, save_freq: 1, data_dir: %s}" % (
+        CLI_EPOCHS, json.dumps(data))
+    cmd = [sys.executable, "-m",
+           "multimodal_dmm_tpu_torch.experiments.spirals_suite",
+           "--local_dir", root, "--config", cfg]
+    log("  %s" % " ".join(cmd[1:]))
+    rc, lines = stream_lines(cmd, root)
+    with open(os.path.join(root, "spirals_suite.log"), "w") as f:
+        f.writelines("%8.3f %s\n" % tl for tl in lines)
+    check(rc == 0, "spirals suite exited %d: %s" % (
+        rc, "\n".join(tl[1] for tl in lines[-40:])))
+    exp_dir = os.path.join(root, "spirals_suite")
+    with open(os.path.join(exp_dir, "experiment_state-spirals_suite.json")) \
+            as f:
+        state = json.load(f)["checkpoints"]
+    methods = ["bfvi", "b-mask", "f-mask", "b-skip", "f-skip"]
+    check([c["config"]["method"] for c in state] == methods
+          and all(c["status"] == "TERMINATED" for c in state),
+          "spirals suite trials: %s" % [(c["config"]["method"], c["status"])
+                                        for c in state])
+    tasks = ["recon", "half", "fwd", "bwd", "condgen"]
+    for name, cols in (("run_results.csv", ["mean_loss", "mse"]),
+                       ("task_results.csv", tasks),
+                       ("task_results_std.csv", tasks),
+                       ("task_results_runs.csv", tasks)):
+        tab = table.read_csv(os.path.join(exp_dir, name))
+        check(sorted(tab["method"].tolist()) == sorted(methods)
+              and all(np.isfinite(tab[c].tolist()).all() for c in cols),
+              "%s: %s" % (name, tab))
+    starts = [i for i, (_, l) in enumerate(lines) if l.startswith("== Trial")]
+    analysis = first_at(lines, starts[-1], "===")
+    trials = [trial_timeline(lines, a, b)
+              for a, b in zip(starts, starts[1:] + [analysis])]
+    per_trial, first_task, later_tasks = analysis_timeline(lines, analysis)
+    for m, t in zip(methods, trials):
+        log("  trial %-6s %.2f s: start %.2f (process, imports), data %.2f, "
+            "model on the card %.2f, epochs %s, evaluations %s, checkpoints "
+            "and exit %.2f" % (m, t["total_s"], t["start_s"], t["data_s"],
+                               t["build_s"],
+                               ["%.2f" % v for v in t["epoch_s"]],
+                               ["%.2f" % v for v in t["eval_s"]], t["end_s"]))
+    log("  analysis %.2f s: per trial %s s; first task of a trial (the "
+        "trainer built, the checkpoint loaded) median %.2f s, later tasks "
+        "median %.2f s (%d tasks) [%s]"
+        % (lines[-1][0] - lines[analysis][0],
+           ["%.2f" % v for v in per_trial], statistics.median(first_task),
+           statistics.median(later_tasks), len(later_tasks), card))
+    log("  spirals suite: %.1f s of command, trials %.1f s, the CSVs: five "
+        "methods x five tasks, finite" % (lines[-1][0],
+                                          lines[analysis][0]
+                                          - lines[starts[0]][0]))
+
+
+def check_weizmann_grid(data, root, card):
+    """Phase 13 (b)-(d): a Weizmann semi-supervised grid at full width in
+    this process (z = h = 256, BFVI, two levels x two seeds, two epochs)
+    with the kernels' launches checked against its steps and
+    evaluations, its best-3 analysis; the grid resumed (every trial
+    already done, nothing launched); then ``--find_best`` on one trial.
+    Returns the grid's launches."""
+    import contextlib
+    import io
+    from multimodal_dmm_tpu_torch.apps import weizmann
+    from multimodal_dmm_tpu_torch.experiments import table
+    from multimodal_dmm_tpu_torch.experiments import weizmann_semisup as ws
+    from multimodal_dmm_tpu_torch.training.trainer import Trainer
+    W = weizmann.WeizmannTrainer
+    # The grid sets no --method: without one the trials' evaluation
+    # filters with one particle, through the scan kernel, and never
+    # reaches the cell; "bfvi" gives them the 200-particle filter.
+    argv = ["--local_dir", root, "--no_isolate", "--n_repeats",
+            str(GRID_REPEATS), "--levels", *GRID_LEVELS, "--config",
+            "{epochs: %d, eval_freq: 1, save_freq: 1, method: bfvi, "
+            "data_dir: %s}" % (CLI_EPOCHS, json.dumps(data))]
+    trial_s, trainers, steps = [], [], [0]
+
+    def timed_tune(cls, config, reporter):
+        t0 = time.perf_counter()
+        try:
+            return Trainer.tune.__func__(cls, config, reporter)
+        finally:
+            trial_s.append(time.perf_counter() - t0)
+
+    def keep(cls, args):
+        trainers.append(Trainer.from_args.__func__(cls, args))
+        return trainers[-1]
+
+    def counted_step(self, *a, **kw):
+        steps[0] += 1
+        return Trainer.train_step(self, *a, **kw)
+
+    wrappers = kernel_wrappers()
+    W.tune, W.from_args = classmethod(timed_tune), classmethod(keep)
+    W.train_step = counted_step
+    try:
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        ws.run(ws.parser.parse_args(argv))
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in wrappers.items()}
+        n_trials = len(GRID_LEVELS) * GRID_REPEATS
+        check(len(trainers) == len(trial_s) == n_trials,
+              "%d trials built, %d run" % (len(trainers), len(trial_s)))
+        # Per trial: an evaluation each epoch of the test set's batches,
+        # one smoothing scan a batch and the cell at each of its steps.
+        eval_batches = eval_cells = 0
+        for tr in trainers:
+            (_, dev_data), = tr._eval_dev_cache.values()
+            eval_batches += CLI_EPOCHS * len(dev_data.batches)
+            eval_cells += CLI_EPOCHS * sum(b.mask.shape[0]
+                                           for b in dev_data.batches)
+        trainers.clear()
+        n = steps[0]
+        check(n > 0 and launches["bfvi_scan_bwd"] == 3 * n
+              and launches["gtf_wgrad"] == 3 * n
+              and launches["bfvi_scan_fwd"] == 3 * n + eval_batches
+              and launches["poe_sample_cell"] == eval_cells,
+              "grid launches %s for %d steps, %d evaluation batches and %d "
+              "cell steps: expected 3 of each scan kernel a step, one "
+              "forward scan an evaluation batch, the cell at each of its "
+              "steps" % (launches, n, eval_batches, eval_cells))
+        exp_dir = os.path.join(root, "weizmann_semisup")
+        (state,) = [f for f in os.listdir(exp_dir)
+                    if f.startswith("experiment_state")]
+        with open(os.path.join(exp_dir, state)) as f:
+            ckpts = json.load(f)["checkpoints"]
+        check(len(ckpts) == n_trials
+              and all(c["status"] == "TERMINATED" for c in ckpts),
+              "grid trials: %s" % [c["status"] for c in ckpts])
+        log("  %d trials in process, %.1f s: seconds per trial %s (first "
+            "against later), %d steps, %d evaluation batches; launches %s "
+            "[%s]" % (n_trials, wall, ["%.2f" % v for v in trial_s], n,
+                      eval_batches, launches, card))
+        t0 = time.perf_counter()
+        ws.analyze(ws.parser.parse_args(argv))
+        analysis_s = time.perf_counter() - t0
+        for name in ("best_results.csv", "best_results_std.csv"):
+            tab = table.read_csv(os.path.join(exp_dir, name))
+            check(tab.columns == ["loss", "ssim", "action"] and len(tab) == 2
+                  and all(np.isfinite(tab[c].tolist()).all()
+                          for c in tab.columns), "%s: %s" % (name, tab))
+        log("  analyze_best3: %.3f s (%.4f s a trial); best_results.csv and "
+            "best_results_std.csv: two levels, finite"
+            % (analysis_s, analysis_s / n_trials))
+
+        # (c) the grid again with --resume: every trial already done.
+        for fn in wrappers.values():
+            fn.launches = 0
+        steps[0] = 0
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            ws.run(ws.parser.parse_args(argv + ["--resume"]))
+        resumed = out.getvalue().count("[resume: already done]")
+        relaunched = {n: fn.launches for n, fn in wrappers.items()}
+        check(resumed == n_trials and not any(relaunched.values())
+              and steps[0] == 0 and len(trial_s) == n_trials,
+              "--resume: %d trials already done, launches %s"
+              % (resumed, relaunched))
+        log("  (c) --resume: %d of %d trials already done, no launch, %.3f s"
+            % (resumed, n_trials, time.perf_counter() - t0))
+    finally:
+        for name in ("tune", "from_args", "train_step"):
+            delattr(W, name)
+
+    # (d) --find_best on the grid's first trial.
+    cfg = ckpts[0]["config"]
+    save = os.path.join(ckpts[0]["logdir"], W.defaults["save_dir"])
+    best = os.path.join(save, "best.pth")
+    before = os.stat(best).st_mtime_ns
+    flags = ["--data_dir", data, "--save_dir", save, "--method", "bfvi",
+             "--seed", str(cfg["seed"]), "--epochs", str(CLI_EPOCHS),
+             "--save_freq", "1", "--find_best", "--modalities",
+             *cfg["modalities"], "--eval_mods", *cfg["eval_mods"],
+             "--drop_mods", *cfg["drop_mods"]]
+    t0 = time.perf_counter()
+    best_epoch, metrics = weizmann.main(flags)
+    check(best_epoch in range(1, CLI_EPOCHS + 1)
+          and os.stat(best).st_mtime_ns != before
+          and all(np.isfinite(metrics[k]) for k in (
+              "rec_loss", "kld_loss", "mse", "ssim", "action")),
+          "--find_best: epoch %s, metrics %s" % (best_epoch, metrics))
+    log("  (d) --find_best on %s: best epoch %d of %d, best.pth rewritten, "
+        "rec_loss %.2f, ssim %.4f, action %.3f (%.1f s)"
+        % (os.path.basename(ckpts[0]["logdir"]), best_epoch, CLI_EPOCHS,
+           metrics["rec_loss"], metrics["ssim"], metrics["action"],
+           time.perf_counter() - t0))
+    return launches
+
+
+def check_experiments(tmp, card):
+    """Phase 13: the experiment layer in ``tmp``/experiments, on phase
+    10's spirals corpus and phase 11's Weizmann fixture. Returns the
+    Weizmann grid's launches."""
+    root = os.path.join(tmp, "experiments")
+    os.makedirs(root)
+    torch.cuda.empty_cache()
+    log("  (a) the spirals suite, isolated, %d epochs a trial" % CLI_EPOCHS)
+    check_spirals_suite(os.path.join(tmp, "spirals"), root, card)
+    log("  (b) the Weizmann semi-supervised grid in process, levels %s x "
+        "%d seeds, z = h = 256" % (", ".join(GRID_LEVELS), GRID_REPEATS))
+    return check_weizmann_grid(os.path.join(tmp, "weizmann"), root, card)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1786,6 +2133,11 @@ def main():
                       "command line [%s]" % card)
             vt_rec, vt_cell, vt_launches = check_vidtimit(
                 scan, cell, args.seed, dev, tmp, card, profile_path=profile)
+
+            # -- phase 13: the experiment layer -------------------------------
+            log_phase("phase 13: the experiment layer: the spirals suite "
+                      "isolated, a Weizmann grid in process [%s]" % card)
+            exp_launches = check_experiments(tmp, card)
         finally:
             os.chdir(cwd)
 
@@ -1795,7 +2147,8 @@ def main():
     sp_rec["poe_sample_cell"] = sp_cell
     vt_rec["poe_sample_cell"] = vt_cell
     by_phase = {"4": launches, "6": eval_launches, "7": bench_launches,
-                "8": cli_launches, "10": sp_launches, "12": vt_launches}
+                "8": cli_launches, "10": sp_launches, "12": vt_launches,
+                "13": exp_launches}
     kernels = []
     for rows, suffix, main_path in ((rec, "", cli_launches),
                                     (sp_rec, " (spirals)", sp_launches),

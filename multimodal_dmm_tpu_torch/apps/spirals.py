@@ -61,6 +61,8 @@ class SpiralsTrainer(Trainer):
     parser.add_argument('--test_subdir', type=str, default='test',
                         metavar='DIR', help='testing data subdirectory')
     parser.set_defaults(**DEFAULTS)
+    # The app's defaults, read by the experiment suites (data_dir).
+    defaults = DEFAULTS
 
     @classmethod
     def build_model(cls, args):

@@ -87,6 +87,8 @@ class VidTIMITTrainer(Trainer):
     # would reach the base parser.
     parser = copy.deepcopy(Trainer.parser)
     parser.set_defaults(**DEFAULTS)
+    # The app's defaults, read by the experiment suites (data_dir).
+    defaults = DEFAULTS
 
     @classmethod
     def build_model(cls, args):

@@ -90,6 +90,8 @@ class WeizmannTrainer(Trainer):
     parser.add_argument('--viz_mod', type=str, default='video',
                         metavar='M', help='image modality to visualize')
     parser.set_defaults(**DEFAULTS)
+    # The app's defaults, read by the experiment suites (data_dir).
+    defaults = DEFAULTS
 
     @classmethod
     def build_model(cls, args):

@@ -19,12 +19,14 @@ from ``--load``, and the derived args. ``run(args)`` then trains
 deletion, ``train`` epochs with the KLD anneal and a one-step-delayed loss
 readback, evaluation every ``--eval_freq`` epochs, ``best.pth``,
 ``epoch_N.pth`` and ``last.pth``, ``--resume_trial``) or evaluates
-(``--evaluate``: ``run_eval``). ``--method`` picks the model as the JAX
+(``--evaluate``: ``run_eval``) or sweeps the epoch checkpoints for the
+best (``--find_best``: ``run_find``); ``tune(config, reporter)`` is the
+experiment runner's trainable. ``--method`` picks the model as the JAX
 package does (``bfvi``: ``dmm``; the four DKS baselines: ``dks`` with
 their ``rnn_dir``/``rnn_skip``), and ``--model`` names it in the registry
 (``models.get_model``). Flags whose feature comes in a later slice of the
 port raise ``NotImplementedError``: ``--mesh`` above 1, ``--visualize``,
-``--find_best``, ``--rng_impl``, and results export where the app has
+``--rng_impl``, and results export where the app has
 none (``save_results``; ``--save_args '{skip: true}'`` skips it). A
 device-loader failure raises; the host loader runs only under
 ``--host_loader``.
@@ -185,9 +187,6 @@ def _refuse_later_slices(args):
                            "multi-GPU data parallelism")
     if args.visualize:
         raise not_ported("--visualize", "the apps' visualization")
-    if args.find_best:
-        raise not_ported("--find_best (run_find)", "the experiment "
-                           "suites")
     if args.rng_impl != "threefry2x32":
         raise not_ported("--rng_impl %s" % args.rng_impl, "JAX's PRNG "
                            "implementations (the port draws from "
@@ -648,17 +647,56 @@ class Trainer:
         history["best_loss"] = best_loss
         return history
 
+    def run_find(self, args):
+        """Sweep the saved ``epoch_N.pth`` (every ``--save_freq`` epochs
+        up to ``--epochs``) for the best model: each restored without
+        Adam's state and evaluated on the test set, ``best.pth`` rewritten
+        at each new best ``--eval_metric``; then the best evaluated once
+        more. Returns (best epoch, its metrics)."""
+        test_loader = BatchLoader(self.test_data,
+                                  batch_size=args.batch_sz_eval,
+                                  len_bucket=args.len_bucket)
+        best_loss, best_epoch = float('inf'), -1
+        args.eval_set = None
+        for epoch in range(args.save_freq, args.epochs + 1, args.save_freq):
+            path = os.path.join(args.save_dir, "epoch_{}.pth".format(epoch))
+            if not os.path.exists(path):
+                continue
+            self.restore(ckpt.load_checkpoint(path))
+            print('--- Epoch {} ---'.format(epoch))
+            _, metrics = self.evaluate(test_loader, args,
+                                       collect_results=False)
+            loss = metrics[args.eval_metric]
+            if loss < best_loss:
+                best_loss, best_epoch = loss, epoch
+                self.save_checkpoint(args.modalities,
+                                     os.path.join(args.save_dir, "best.pth"))
+        print('=== Best Epoch : {} ==='.format(best_epoch))
+        self.restore(ckpt.load_checkpoint(os.path.join(args.save_dir,
+                                                       "best.pth")))
+        _, metrics = self.evaluate(test_loader, args)
+        self.save_params(args)
+        return best_epoch, metrics
+
     def run(self, args):
-        """``run_eval`` with ``--evaluate``, else ``run_train``; returns
-        what it returns."""
+        """``run_eval`` with ``--evaluate``, ``run_find`` with
+        ``--find_best``, else ``run_train``; returns what it returns."""
         if args.evaluate:
             return self.run_eval(args)
+        if args.find_best:
+            return self.run_find(args)
         return self.run_train(args)
 
     @classmethod
     def tune(cls, config, reporter):
-        raise not_ported("tune (the experiment runner's trainable)",
-                           "the experiment suites")
+        """The experiment runner's trainable: the parser's defaults
+        updated from ``config`` (a trial's config), a trainer built from
+        them, and its training run reporting to ``reporter`` after each
+        evaluation and at the end (numbers only: the metrics are numpy or
+        Python floats)."""
+        args = cls.parser.parse_args([])
+        vars(args).update(config)
+        cls.from_args(args).run_train(args, reporter)
 
     # -- persistence ----------------------------------------------------------
 

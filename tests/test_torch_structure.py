@@ -1,6 +1,6 @@
 """Structure of the PyTorch port: it imports nothing of JAX, of the JAX
 package or of pandas, nor at module level a package that the GPU machine
-lacks; its entry points default to the GPU and refuse to fall back to the
+lacks, and its experiment layer not PyYAML at all; its entry points default to the GPU and refuse to fall back to the
 CPU; and ``params_from_jax`` covers every leaf of the apps' model trees
 (the Weizmann and VidTIMIT BFVI and DKS models, the spirals DMM, DKS and
 VRNN)."""
@@ -43,6 +43,12 @@ def _port_files():
     return files + [ROOT / "chip_smoke.py"]
 
 
+EXPERIMENTS = ("__init__", "tune", "analysis", "table", "_partial_semisup",
+               "_suite", "spirals_suite", "spirals_partial",
+               "spirals_semisup", "weizmann_suite", "weizmann_partial",
+               "weizmann_semisup", "vidtimit_suite")
+
+
 def _imported_roots(path):
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
@@ -78,6 +84,19 @@ def _module_level_roots(path):
             todo += list(ast.iter_child_nodes(node))
 
 
+def test_experiments_import_no_jax_pandas_or_yaml():
+    """The runner, the analysis and the seven scripts are in the ``ast``
+    scans above, and import no PyYAML anywhere (``--config`` is read by
+    ``training/flow_yaml.py``)."""
+    exp_dir = ROOT / "multimodal_dmm_tpu_torch" / "experiments"
+    files = [exp_dir / (name + ".py") for name in EXPERIMENTS]
+    assert sorted(files) == sorted(exp_dir.glob("*.py"))
+    assert set(files) <= set(_port_files())
+    for path in files:
+        bad = set(_imported_roots(path)) & (set(FORBIDDEN) | {"yaml"})
+        assert not bad, "%s imports %s" % (path.relative_to(ROOT), bad)
+
+
 def test_port_imports_no_missing_package_at_module_level():
     for path in _port_files():
         bad = set(_module_level_roots(path)) & set(NOT_ON_THE_CARD)
@@ -102,10 +121,12 @@ _ITEM = {"video": np.zeros((3, 3, 64, 64), np.float32),
 
 
 @pytest.mark.parametrize("entry", ["model_init", "trainer", "eval_data",
-                                   "train_data", "from_args", "main"])
+                                   "train_data", "from_args", "main",
+                                   "tune"])
 def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
     """With no device given, entry points run on CUDA; without CUDA they
-    raise instead of running on the CPU."""
+    raise instead of running on the CPU (the experiment runner's
+    trainable, ``Trainer.tune``, too)."""
     monkeypatch.chdir(tmp_path)  # main writes param_hist.tsv there
     data = str(tmp_path / "data")
     gen_synthetic(data, persons_subset=["daria", "shahar"],
@@ -122,10 +143,15 @@ def test_entry_points_default_to_cuda(entry, tmp_path, monkeypatch):
                 [_ITEM], tw.DEFAULTS["modalities"], 2, 0.2),
             "from_args": lambda: tw.WeizmannTrainer.from_args(
                 tw.WeizmannTrainer.parser.parse_args(argv)),
-            "main": lambda: tw.main(argv)}[entry]
+            "main": lambda: tw.main(argv),
+            "tune": lambda: tw.WeizmannTrainer.tune(
+                {"data_dir": data, "save_dir": str(tmp_path / "save"),
+                 "epochs": 0, "model_args": {"z_dim": 8, "h_dim": 8}},
+                lambda **kw: reported.append(kw))}[entry]
+    reported = []
     if torch.cuda.is_available():
         out = call()
-        if entry == "main":
+        if entry in ("main", "tune"):
             assert (tmp_path / "save" / "last.pth").exists()
             return
         leaf = {"model_init": lambda: out[0]["z0_mean"],
