@@ -115,7 +115,20 @@ imports nothing of JAX or of the JAX package. Phases:
    ``analyze_best3``'s two CSVs, two levels, finite; (c) the grid again
    with ``--resume``: every trial already done, nothing launched; (d)
    ``--find_best`` through ``apps.weizmann.main`` on the grid's first
-   trial: a best epoch of 1 or 2, best.pth rewritten, finite metrics.
+   trial: a best epoch of 1 or 2, best.pth rewritten, finite metrics;
+14. data parallelism (``multimodal_dmm_tpu_torch/parallel``), the Weizmann
+   model at full width, each rank a process of ``parallel.launch`` on
+   cuda:0: (a) one NCCL rank, the sampled default step at B = 25 through
+   ``make_dp_train_step``; (b) two gloo ranks sharing the card, B = 24 (cut
+   from 25 so that 2 divides it), a MAP and a sampled step; (c) 2x2 gloo
+   ranks, the same; each mode's step from the seed's weights against the
+   single process's on the whole batch with the same noise seed (loss
+   within STEP_LOSS_RTOL, each gradient leaf within STEP_GRAD_TOL's rtol in
+   relative Frobenius norm), every rank's weights identical after its
+   steps, three launches of each scan kernel a step on every rank, and
+   each rank's step time (ranks that time-slice one card: not a scaling
+   figure); (d) ``apps.weizmann --mesh 2`` on this one-card machine raises
+   "needs 2 devices".
 
 Any failed check raises, so the script exits non-zero before its last
 line. The line before the last is a JSON object with one entry per
@@ -129,8 +142,8 @@ they are per launch at the evaluation's 200-particle shape. ``launches``
 counts the launches of the row's command-line run (phase 8, 10 or 12),
 and ``launches_by_phase`` those of the runs of phases 4 (the training
 steps), 6 (one evaluation), 7 (the timed bench-configuration steps), 8,
-10, 12 and 13 (the Weizmann grid); the last is ``{"ok": true, "device":
-{...}}``.
+10, 12, 13 (the Weizmann grid) and 14 (summed over the ranks); the last is
+``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -642,20 +655,21 @@ def kernel_wrappers():
     return out
 
 
-def synthetic_batch(seed, dev):
-    """T = B = 25 Weizmann-shaped batch: video in [0, 1], 10 % of frames
-    deleted (NaN) in the inputs, full targets; person/action labels."""
+def synthetic_batch(seed, dev, b_dim=B_DATA):
+    """T = 25, B = ``b_dim`` (25) Weizmann-shaped batch: video in [0, 1],
+    10 % of frames deleted (NaN) in the inputs, full targets;
+    person/action labels."""
     rng = np.random.RandomState(seed)
-    video = rng.rand(T_MAIN, B_DATA, 3, 64, 64).astype(np.float32)
+    video = rng.rand(T_MAIN, b_dim, 3, 64, 64).astype(np.float32)
     targets = {
         "video": video,
-        "person": rng.randint(0, 10, (T_MAIN, B_DATA, 1)).astype(np.float32),
-        "action": rng.randint(0, 10, (T_MAIN, B_DATA, 1)).astype(np.float32),
+        "person": rng.randint(0, 10, (T_MAIN, b_dim, 1)).astype(np.float32),
+        "action": rng.randint(0, 10, (T_MAIN, b_dim, 1)).astype(np.float32),
     }
     inputs = {m: v.copy() for m, v in targets.items()}
-    inputs["video"][rng.rand(T_MAIN, B_DATA) < 0.1] = np.nan
+    inputs["video"][rng.rand(T_MAIN, b_dim) < 0.1] = np.nan
     to = lambda d: {m: torch.tensor(v, device=dev) for m, v in d.items()}  # noqa: E731
-    return to(inputs), to(targets), torch.ones((T_MAIN, B_DATA, 1),
+    return to(inputs), to(targets), torch.ones((T_MAIN, b_dim, 1),
                                                device=dev)
 
 
@@ -1950,6 +1964,173 @@ def check_experiments(tmp, card):
     return check_weizmann_grid(os.path.join(tmp, "weizmann"), root, card)
 
 
+# -- phase 14: data parallelism ---------------------------------------------
+
+# MAP: the training step without noise (one particle, no prior matching).
+MAP_ARGS = {"sample": False, "match_mult": 0.0, "train_particles": 1}
+DP_TIMED = 3        # timed (sampled) steps of each rank, after the compared
+DP_TIMEOUT = 600    # seconds a collective may wait before it fails
+
+
+def dp_steps(new_trainer, inputs, targets, mask, n_data, modes, n_timed):
+    """The step of each of ``modes`` ("map" or "sampled", the app's default
+    step) through ``train_step`` (a rank's step under a mesh) of a fresh
+    trainer from ``new_trainer()``, so that each starts from the seed's
+    weights (after an Adam step the weights would carry the signs of
+    gradients at rounding level), then ``n_timed`` sampled steps of the
+    last one, timed on the host's clock. Returns the losses, the gradients
+    of each mode's step (on the CPU) and the timed steps' ms."""
+    from multimodal_dmm_tpu_torch.tree import tree_leaves_with_path
+    out = {"losses": [], "grads": [], "ms": []}
+    for i, mode in enumerate(list(modes) + ["sampled"] * n_timed):
+        if i < len(modes):
+            trainer = new_trainer()
+            base = dict(trainer.train_args)
+        trainer.train_args = dict(base, **(MAP_ARGS if mode == "map"
+                                           else {}))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, applied = trainer.train_step(inputs, targets, mask, 1.0, n_data)
+        loss = loss.item()
+        ms = (time.perf_counter() - t0) * 1e3
+        check(applied and np.isfinite(loss),
+              "%s step: non-finite loss or gradient" % mode)
+        if i < len(modes):
+            out["losses"].append(loss)
+            out["grads"].append({path: p.grad.detach().cpu() for path, p in
+                                 tree_leaves_with_path(trainer.params)})
+        else:
+            out["ms"].append(ms)
+    return out
+
+
+def dp_rank(mesh_spec, seed, b_dim, modes, n_timed):
+    """One rank of phase 14 (in a process of ``parallel.launch``): the
+    Weizmann trainer of ``seed`` at full width on this process's card as a
+    rank of ``mesh_spec`` (``set_mesh``, also for one rank), its columns of
+    ``synthetic_batch(seed, b_dim)``, then ``dp_steps``. Returns its
+    results (rank 0's gradients, the others' None), a digest of its last
+    trainer's weights, and the launches of each kernel wrapper."""
+    import hashlib
+    from multimodal_dmm_tpu_torch.apps import weizmann
+    from multimodal_dmm_tpu_torch.parallel import (make_mesh, make_mesh_2d,
+                                                   parse_mesh, shard_batch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", torch.cuda.current_device())
+    n_data, n_model = parse_mesh(mesh_spec)
+    mesh = (make_mesh(n_data, dev) if n_model == 1 else
+            make_mesh_2d(n_data, n_model, dev, timeout=DP_TIMEOUT))
+    trainers = []
+
+    def new_trainer():
+        trainers[:] = [weizmann.make_trainer(seed=seed, device=dev)]
+        trainers[0].set_mesh(mesh)
+        return trainers[0]
+
+    inputs, targets, mask = synthetic_batch(seed, dev, b_dim)
+    n_rows = float(mask.sum().item())
+    inputs, _ = shard_batch(mesh, inputs, mask)
+    targets, mask = shard_batch(mesh, targets, mask)
+    wrappers = kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    out = dp_steps(new_trainer, inputs, targets, mask, n_rows, modes,
+                   n_timed)
+    out["launches"] = {name: fn.launches for name, fn in wrappers.items()}
+    out["columns"] = mask.shape[1]
+    digest = hashlib.sha256()
+    for p in trainers[0].leaves:
+        digest.update(p.detach().cpu().numpy().tobytes())
+    out["digest"] = digest.hexdigest()
+    if mesh.rank:
+        out["grads"] = None
+    return out
+
+
+def check_dp_run(what, mesh_spec, backend, seed, b_dim, modes, ref, card):
+    """Phase 14's ranks of ``mesh_spec`` on cuda:0 with ``backend``: each
+    mode's loss against the single process's ``ref`` within
+    STEP_LOSS_RTOL, each gradient leaf within STEP_GRAD_TOL's rtol in
+    relative Frobenius norm, the replicas' weights identical after the
+    steps, three launches of each scan kernel a step on every rank.
+    Returns the launches summed over the ranks."""
+    from multimodal_dmm_tpu_torch.parallel import launch, parse_mesh
+    n_data, n_model = parse_mesh(mesh_spec)
+    n = n_data * n_model
+    t0 = time.perf_counter()
+    outs = launch(dp_rank, ["cuda:0"] * n, backend,
+                  args=(mesh_spec, seed, b_dim, modes, DP_TIMED),
+                  timeout=DP_TIMEOUT)
+    log("  %s: %d rank(s), %s, %d columns a rank, %.1f s with the "
+        "processes' start" % (what, n, backend, outs[0]["columns"],
+                              time.perf_counter() - t0))
+    n_steps = len(modes) + DP_TIMED
+    for r, out in enumerate(outs):
+        for name in SCAN_KERNELS:
+            check(out["launches"][name] == 3 * n_steps,
+                  "%s rank %d: %s launched %d times in %d steps, expected 3 "
+                  "a step" % (what, r, name, out["launches"][name], n_steps))
+        check(out["launches"]["poe_sample_cell"] == 0,
+              "%s rank %d: the cell kernel launched in training" % (what, r))
+        check(out["digest"] == outs[0]["digest"],
+              "%s: rank %d's weights differ from rank 0's" % (what, r))
+    for i, mode in enumerate(modes):
+        l_dp, l_ref = outs[0]["losses"][i], ref["losses"][i]
+        diffs = grad_diffs(outs[0]["grads"][i], ref["grads"][i])
+        log("  %s, %s step: loss %.6g vs %.6g single-process (rel %.2e)"
+            % (what, mode, l_dp, l_ref, abs(l_dp - l_ref) / abs(l_ref)))
+        log_worst("%s %s vs single process" % (what, mode), diffs, n=2)
+        check(abs(l_dp - l_ref) <= STEP_LOSS_RTOL * abs(l_ref),
+              "%s %s: loss %r vs %r" % (what, mode, l_dp, l_ref))
+        bad = leaves_beyond(diffs, STEP_GRAD_TOL["rtol"])
+        check(not bad, "%s %s: %d gradient leaves beyond %g in relative "
+              "Frobenius norm: %s" % (what, mode, len(bad),
+                                      STEP_GRAD_TOL["rtol"], bad))
+    for r, out in enumerate(outs):
+        log("  %s rank %d: sampled step median %.1f ms over %d (ranks that "
+            "time-slice one card, not a scaling figure) [%s]"
+            % (what, r, statistics.median(out["ms"]), len(out["ms"]), card))
+    return {name: sum(o["launches"][name] for o in outs) for name in KERNELS}
+
+
+def check_data_parallel(seed, card):
+    """Phase 14: (a) a one-rank NCCL group, (b) two and (c) 2x2 gloo ranks,
+    all on cuda:0, against the single-process steps; (d) ``apps.weizmann
+    --mesh 2`` on this one-card machine. Returns the launches of (a)-(c)
+    summed over the ranks."""
+    from multimodal_dmm_tpu_torch.apps import weizmann
+    dev = torch.device("cuda")
+    refs = {}
+    for b_dim, modes in ((B_DATA, ("sampled",)), (B_DATA - 1,
+                                                  ("map", "sampled"))):
+        inputs, targets, mask = synthetic_batch(seed, dev, b_dim)
+        refs[b_dim] = dp_steps(
+            lambda: weizmann.make_trainer(seed=seed, device=dev), inputs,
+            targets, mask, float(mask.sum().item()), modes, DP_TIMED)
+        log("  single process, B = %d: sampled step median %.1f ms over %d "
+            "[%s]" % (b_dim, statistics.median(refs[b_dim]["ms"]), DP_TIMED,
+                      card))
+    launches = {name: 0 for name in KERNELS}
+    for what, spec, backend, b_dim, modes in (
+            ("(a)", "1", "nccl", B_DATA, ("sampled",)),
+            ("(b)", "2", "gloo", B_DATA - 1, ("map", "sampled")),
+            ("(c)", "2x2", "gloo", B_DATA - 1, ("map", "sampled"))):
+        got = check_dp_run(what, spec, backend, seed, b_dim, modes,
+                           refs[b_dim], card)
+        launches = {k: launches[k] + got[k] for k in launches}
+    try:
+        weizmann.main(["--mesh", "2", "--data_dir", "unused", "--save_dir",
+                       "unused"])
+    except ValueError as e:
+        check("needs 2 devices but only 1 are visible" in str(e),
+              "(d): unexpected error %r" % (e,))
+        log("  (d) apps.weizmann --mesh 2: %s" % e)
+    else:
+        raise AssertionError("(d) apps.weizmann --mesh 2 did not raise")
+    return launches
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2141,6 +2322,11 @@ def main():
         finally:
             os.chdir(cwd)
 
+    # -- phase 14: data parallelism -------------------------------------------
+    log_phase("phase 14: data parallelism, Weizmann at full width: one NCCL "
+              "rank, 2 and 2x2 gloo ranks sharing the card [%s]" % card)
+    dp_launches = check_data_parallel(args.seed, card)
+
     # -- summary --------------------------------------------------------------
     log(card)
     rec["poe_sample_cell"] = cell_rec
@@ -2148,7 +2334,7 @@ def main():
     vt_rec["poe_sample_cell"] = vt_cell
     by_phase = {"4": launches, "6": eval_launches, "7": bench_launches,
                 "8": cli_launches, "10": sp_launches, "12": vt_launches,
-                "13": exp_launches}
+                "13": exp_launches, "14": dp_launches}
     kernels = []
     for rows, suffix, main_path in ((rec, "", cli_launches),
                                     (sp_rec, " (spirals)", sp_launches),

@@ -154,10 +154,10 @@ def make_trainer(seed=1, device="cuda", model="dmm", model_args=None,
 
 
 def main(argv=None):
-    """The command line: parse ``argv``, build the trainer, run it;
+    """The command line (``SpiralsTrainer.main``): parse ``argv``, build the
+    trainer, run it (under ``--mesh`` above 1, in one process a rank);
     returns what ``run`` returns."""
-    args = SpiralsTrainer.parser.parse_args(argv)
-    return SpiralsTrainer.from_args(args).run(args)
+    return SpiralsTrainer.main(argv)
 
 
 if __name__ == "__main__":

@@ -203,10 +203,10 @@ def eval_namespace(method="bfvi", modalities=None, **overrides):
 
 
 def main(argv=None):
-    """The command line: parse ``argv``, build the trainer, run it;
+    """The command line (``VidTIMITTrainer.main``): parse ``argv``, build the
+    trainer, run it (under ``--mesh`` above 1, in one process a rank);
     returns what ``run`` returns."""
-    args = VidTIMITTrainer.parser.parse_args(argv)
-    return VidTIMITTrainer.from_args(args).run(args)
+    return VidTIMITTrainer.main(argv)
 
 
 if __name__ == "__main__":

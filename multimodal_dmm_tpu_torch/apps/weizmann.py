@@ -219,10 +219,10 @@ def eval_namespace(method="bfvi", modalities=None, **overrides):
 
 
 def main(argv=None):
-    """The command line: parse ``argv``, build the trainer, run it;
+    """The command line (``WeizmannTrainer.main``): parse ``argv``, build the
+    trainer, run it (under ``--mesh`` above 1, in one process a rank);
     returns what ``run`` returns."""
-    args = WeizmannTrainer.parser.parse_args(argv)
-    return WeizmannTrainer.from_args(args).run(args)
+    return WeizmannTrainer.main(argv)
 
 
 if __name__ == "__main__":

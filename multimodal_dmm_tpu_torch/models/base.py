@@ -15,6 +15,16 @@ from ..ops.poe import mean_of_experts, product_of_experts
 from . import nn as tnn
 
 
+def randn_cols(gen, shape, device, dtype=torch.float32, axis=None):
+    """``torch.randn(shape)`` drawn from ``gen``; ``axis`` names the draw's
+    axis of the batch's columns (None: it has none). In a data-parallel
+    step ``gen`` is a ``parallel.ColumnNoise``, which draws at the global
+    batch's shape and keeps this rank's columns."""
+    if gen is None or isinstance(gen, torch.Generator):
+        return torch.randn(shape, generator=gen, device=device, dtype=dtype)
+    return gen.randn(shape, device, dtype, axis=axis)
+
+
 class Codec:
     """Uniform encoder/decoder interface."""
 
@@ -138,10 +148,10 @@ class ModelBase:
     @staticmethod
     def sample_gauss(gen, mean, std, shape=None):
         """Reparameterised Gaussian sample: eps * std + mean, eps drawn
-        from ``gen`` with ``shape`` (default ``mean``'s)."""
-        eps = torch.randn(tuple(mean.shape) if shape is None else shape,
-                          generator=gen, dtype=mean.dtype,
-                          device=mean.device)
+        from ``gen`` with ``shape`` (default ``mean``'s), whose axis 0 is
+        the batch's (``randn_cols``)."""
+        eps = randn_cols(gen, tuple(mean.shape) if shape is None else shape,
+                         mean.device, dtype=mean.dtype, axis=0)
         return eps * std + mean
 
     def _dim_of(self, m):

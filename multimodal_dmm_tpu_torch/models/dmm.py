@@ -42,10 +42,11 @@ from ..ops.cuda.bfvi_scan import bfvi_scan
 from ..ops.cuda.poe_cell import poe_sample_cell
 from ..ops.poe import (product_of_experts, product_of_experts_pair,
                        mean_of_experts)
+from ..parallel.mesh import ColumnNoise, SyncStats
 from ..tree import tree_map
 from . import nn as tnn
-from .base import (ModelBase, mlp_gaussian_codec, mlp_categorical_codec,
-                   embed_gaussian_codec)
+from .base import (ModelBase, embed_gaussian_codec, mlp_categorical_codec,
+                   mlp_gaussian_codec, randn_cols)
 
 
 class MultiDMM(ModelBase):
@@ -79,6 +80,10 @@ class MultiDMM(ModelBase):
         # backward, to hold the CUDA kernels against them
         # (ops/cuda/bfvi_scan.bfvi_scan, ops/cuda/poe_cell.poe_sample_cell).
         self.plain_scan = False
+        # The 2-D mesh whose model axis splits the fused objective's
+        # stacked variant rows (set_variant_mesh); None: this process
+        # runs all of them.
+        self.vb_mesh = None
         self.enc, self.dec = {}, {}
         for m in self.modalities:
             if self.dists[m] == "Categorical":
@@ -199,12 +204,11 @@ class MultiDMM(ModelBase):
                     sample_init, device):
         """The filtering pass's noise (T, K, B, D)."""
         if do_sample:
-            return torch.randn((t_max, n_particles, b_dim, self.z_dim),
-                               generator=gen, device=device)
+            return randn_cols(gen, (t_max, n_particles, b_dim, self.z_dim),
+                              device, axis=2)
         eps = torch.zeros((t_max, 1, b_dim, self.z_dim), device=device)
         if sample_init:
-            eps[0] = torch.randn((1, b_dim, self.z_dim), generator=gen,
-                                 device=device)
+            eps[0] = randn_cols(gen, (1, b_dim, self.z_dim), device, axis=1)
         return eps
 
     def z_filter(self, params, z_mean, z_std, z_masks, gen=None,
@@ -297,7 +301,7 @@ class MultiDMM(ModelBase):
         dev = glb_mean.device
         shape = (n_steps, n_particles, mean_t.shape[0], self.z_dim)
         if sample or n_particles > 1:
-            eps = torch.randn(shape, generator=gen, device=dev)
+            eps = randn_cols(gen, shape, dev)
         else:
             eps = torch.zeros((n_steps, 1) + shape[2:], device=dev)
         means, stds = [], []
@@ -369,8 +373,21 @@ class MultiDMM(ModelBase):
         return recon
 
     def set_variant_mesh(self, mesh):
-        raise not_ported("set_variant_mesh (sharding the stacked variant "
-                          "rows)", "multi-GPU data parallelism")
+        """Split the fused objective's stacked variant rows over the model
+        axis of ``mesh`` (``parallel.make_mesh_2d``), None to run them all.
+        Under it, rank (d, m) of a data-parallel step runs the scans and
+        decoders of its share of the V variants (``Mesh.variant_rows``)
+        on its columns; its encoder's BatchNorm statistics are those of
+        its data group (the M model ranks of one data index hold the same
+        columns), its decoders' those of all ranks; model rank 0 alone
+        adds the prior-matching term."""
+        self.vb_mesh = mesh
+
+    def _variant_rows(self, v_dim):
+        """This process's rows of ``v_dim`` stacked variants."""
+        if self.vb_mesh is None:
+            return list(range(v_dim))
+        return self.vb_mesh.variant_rows(v_dim)
 
     # -- objective ------------------------------------------------------------
 
@@ -404,14 +421,21 @@ class MultiDMM(ModelBase):
         ragged_mode_scans = kwargs.pop("ragged_mode_scans", False)
         native_mods = tuple(kwargs.pop("native_mods", ()))
 
+        mesh = self.vb_mesh
         loss = 0.0
         if match_mult > 0:
             msum = torch.sum(mask).to(torch.float32)
             for direction in ("fwd", "bwd"):
-                loss = loss + (match_mult * kld_mult * msum * self.kld_prior(
-                    params, gen, match_particles, direction))
+                # Drawn on every model rank, so their generators stay
+                # alike; counted once per column block.
+                kld = self.kld_prior(params, gen, match_particles, direction)
+                if mesh is None or mesh.model_index == 0:
+                    loss = loss + match_mult * kld_mult * msum * kld
 
         if not fused:
+            if mesh is not None:
+                raise ValueError("a 2-D mesh splits the fused objective's "
+                                 "stacked variants; fused: false has none")
             if native_mods:
                 raise ValueError("native_mods requires the fused step (the "
                                  "unfused composition takes edge layout)")
@@ -432,8 +456,11 @@ class MultiDMM(ModelBase):
         full = self._nan_fill_missing(inputs, t_max, b_dim,
                                       native_mods=native_mods,
                                       device=some.device)
+        enc_train = train
+        if mesh is not None and isinstance(train, SyncStats):
+            enc_train = SyncStats(mesh.data_group)
         (obs_mean, obs_std, obs_mask), enc_state = self.encode(
-            params, state["enc"], full, train, native=native_mods)
+            params, state["enc"], full, enc_train, native=native_mods)
         # Variant expert-presence patterns (V, M): the joint row (when
         # there is more than one modality), then one row per modality
         # present in the inputs.
@@ -444,6 +471,8 @@ class MultiDMM(ModelBase):
             rows += [np.eye(self.n_mods, dtype=np.float32)[i]
                      for i, m in enumerate(self.modalities) if m in inputs]
         vmat = np.stack(rows)
+        if isinstance(gen, ColumnNoise):  # a data-parallel step's
+            gen = gen.stacked(len(vmat))
 
         dec_state = state["dec"]
         fdir = "fwd" if f_mode in ("ffilter", "bsmooth") else "bwd"
@@ -477,9 +506,11 @@ class MultiDMM(ModelBase):
         return loss, {"enc": enc_state, "dec": dec_state}
 
     def _variant_experts(self, obs_mean, obs_std, obs_mask, vmat):
-        """Stack the V loss variants into one (V*B) batch: per-variant
-        expert masks (M, T, V*B) and the experts tiled over V."""
+        """Stack this process's rows of the V loss variants
+        (``_variant_rows``) into one (V*B) batch: per-variant expert masks
+        (M, T, V*B) and the experts tiled over V."""
         n_mods, t_max, b_dim, z_dim = obs_mean.shape
+        vmat = vmat[self._variant_rows(vmat.shape[0])]
         v_dim = vmat.shape[0]
         vm = torch.as_tensor(vmat.T, device=obs_mean.device)  # (M, V)
         om = (obs_mask.to(torch.float32)[:, :, None, :]
@@ -528,9 +559,9 @@ class MultiDMM(ModelBase):
         mean); then the s-mode's smoothing pass and the two modes'
         objectives."""
         t_max = obs_mean.shape[1]
-        vb = vmat.shape[0] * obs_mean.shape[2]
         zm, zs, om = self._variant_experts(obs_mean, obs_std, obs_mask,
                                            vmat)
+        vb = zm.shape[2]
         direction = "fwd" if f_mode in ("ffilter", "bsmooth") else "bwd"
         dev = zm.device
         eps_f = self._filter_eps(gen, t_max, flt_particles, vb,
@@ -565,9 +596,14 @@ class MultiDMM(ModelBase):
                            vmat, targets, mask, kld_mult, rec_mults, train,
                            native_mods=()):
         """Decode + KLD + weighted reconstruction over the stacked variant
-        batch. Each modality decodes only its active variant rows (BatchNorm
-        statistics therefore cover T*A*B rows); Bernoulli modalities go
-        through the decoder's logits and the fused logit BCE."""
+        batch (this process's rows of it, ``_variant_rows``). Each modality
+        decodes only its active variant rows (BatchNorm statistics therefore
+        cover T*A*B rows), none where this process has no active row of a
+        modality that another has (so that every rank of a mesh meets the
+        same BatchNorm reductions); Bernoulli modalities go through the
+        decoder's logits and the fused logit BCE."""
+        all_rows = vmat
+        vmat = vmat[self._variant_rows(vmat.shape[0])]
         v_dim = vmat.shape[0]
         t_max, b_dim = mask.shape[:2]
         mask_f = mask.to(torch.float32)
@@ -580,7 +616,7 @@ class MultiDMM(ModelBase):
         new_dec_state = dict(dec_state)
         for i, m in enumerate(self.modalities):
             active = np.nonzero(vmat[:, i])[0].tolist()
-            if not active:
+            if not all_rows[:, i].any():
                 continue
             a_dim = len(active)
             za = z_v[:, active].reshape(t_max * a_dim * b_dim, self.z_dim)

@@ -275,19 +275,47 @@ def batchnorm_init(c, eps=1e-5, momentum=0.1):
              "eps": eps, "momentum": momentum})
 
 
+def _global_batchnorm(p, x, axes, eps, reduce):
+    """Training-mode BatchNorm over the rows of every rank: the sums, the
+    row count and then the squared deviations summed with ``reduce``,
+    inside the graph. Returns (out, mean, biased var, n), the last three
+    detached."""
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    n_local = x.numel() // x.shape[1]
+    sums = reduce(torch.cat([x.sum(axes), x.new_full((1,), n_local)]))
+    n = sums[-1].detach()
+    mean = sums[:-1] / n
+    xc = x - mean.reshape(shape)
+    var = reduce((xc * xc).sum(axes)) / n
+    out = (xc * torch.rsqrt(var + eps).reshape(shape)
+           * p["scale"].reshape(shape) + p["bias"].reshape(shape))
+    return out, mean.detach(), var.detach(), n
+
+
 def batchnorm_apply(p, state, x, train):
     """x: (N, C, ...). In training, normalise by the batch statistics and
     return the running state moved by ``momentum`` towards them (unbiased
     variance); in evaluation, normalise by the running state. Returns
-    (out, new_state); the input state is not modified."""
+    (out, new_state); the input state is not modified. ``train`` may also
+    be an object with a differentiable ``all_reduce(tensor)``, the sum over
+    the ranks of a data-parallel step (``parallel.SyncStats``): the
+    statistics, and the ``n`` of the unbiased variance, are then those of
+    the rows of every rank."""
     if train:
         axes = [0] + list(range(2, x.dim()))
-        out = F.batch_norm(x, None, None, p["scale"], p["bias"],
-                           training=True, eps=state["eps"])
+        reduce = getattr(train, "all_reduce", None)
+        if reduce is None:
+            out = F.batch_norm(x, None, None, p["scale"], p["bias"],
+                               training=True, eps=state["eps"])
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=axes, correction=0)
+                n = x.numel() // x.shape[1]
+                unbiased = var * n / max(n - 1, 1)
+        else:
+            out, mean, var, n = _global_batchnorm(p, x, axes, state["eps"],
+                                                  reduce)
+            unbiased = var * n / torch.clamp(n - 1, min=1)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=axes, correction=0)
-            n = x.numel() // x.shape[1]
-            unbiased = var * n / max(n - 1, 1)
             mom = state["momentum"]
             new_state = dict(state)
             new_state["mean"] = (1 - mom) * state["mean"] + mom * mean

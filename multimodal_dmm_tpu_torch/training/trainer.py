@@ -25,11 +25,23 @@ experiment runner's trainable. ``--method`` picks the model as the JAX
 package does (``bfvi``: ``dmm``; the four DKS baselines: ``dks`` with
 their ``rnn_dir``/``rnn_skip``), and ``--model`` names it in the registry
 (``models.get_model``). Flags whose feature comes in a later slice of the
-port raise ``NotImplementedError``: ``--mesh`` above 1, ``--visualize``,
-``--rng_impl``, and results export where the app has
-none (``save_results``; ``--save_args '{skip: true}'`` skips it). A
-device-loader failure raises; the host loader runs only under
-``--host_loader``.
+port raise ``NotImplementedError``: ``--visualize``, ``--rng_impl``, and
+results export where the app has none (``save_results``; ``--save_args
+'{skip: true}'`` skips it). A device-loader failure raises; the host loader
+runs only under ``--host_loader``.
+
+``--mesh N`` trains with data parallelism over N ranks, ``--mesh NxM`` over
+N data x M model ranks (``MultiDMM`` only: the model ranks split the fused
+objective's stacked variants): one process a rank (``main`` starts them
+through ``parallel.launch``; rank r on ``cuda:r`` with NCCL, or on the CPU
+with gloo under ``--device cpu``), each with the whole training set,
+shuffled alike, taking its columns of every global batch
+(``parallel.shard_batch``) through ``parallel.make_dp_train_step``, which
+computes the single-device step. Rank 0 alone evaluates (over the whole
+eval set, on its own device), writes checkpoints and ``param_hist.tsv``,
+and prints; the others wait for it. ``--evaluate`` and ``--find_best``
+under a mesh run in one process on one device; ``tune`` under a mesh
+raises ``NotImplementedError``.
 
 ``evaluate(loader, args)`` composes each eval task (random deletion,
 kept segment, dropped and kept modalities), runs the model's forward
@@ -55,17 +67,23 @@ import csv
 import os
 import re
 import signal
+import sys
 import time
 from collections import defaultdict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import not_ported, resolve_device
 from ..convert import (adam_to_jax, load_adam, optax_adam_moments,
                        params_from_jax, params_to_jax)
 from ..data import multiseq as mseq
+from ..models import get_model
 from ..ops.schedules import anneal
+from ..parallel.mesh import (launch, make_2d_train_step, make_dp_train_step,
+                             make_mesh, make_mesh_2d, parse_mesh, replicated,
+                             shard_batch)
 from ..tree import tree_leaves, tree_leaves_with_path, tree_map
 from . import checkpoint as ckpt
 from .device_loader import DeviceTrainData
@@ -156,8 +174,10 @@ def _build_parser():
     add('--device', type=str, default='cuda',
         help='torch device (cuda/cpu); cuda raises without a GPU')
     add('--mesh', type=str, default='0', metavar='SPEC',
-        help='device mesh: 0/1 = one device (multi-GPU comes in a later '
-             'slice)')
+        help='device mesh: 0/1 = one device; N = data parallelism over N '
+             'ranks; NxM = N data x M model ranks (the fused objective\'s '
+             'variants split over M); one process and one GPU a rank '
+             '(NCCL), or CPU ranks (gloo) with --device cpu')
     add('--anomaly_check', action='store_true', default=False,
         help='enable torch.autograd anomaly detection')
     add('--evaluate', '--test', action='store_true', default=False)
@@ -182,9 +202,6 @@ def _build_parser():
 
 def _refuse_later_slices(args):
     """Raise for flags whose feature comes in a later slice."""
-    if str(args.mesh or 0).lower() not in ("0", "1"):
-        raise not_ported("--mesh %s (multi-GPU)" % args.mesh,
-                           "multi-GPU data parallelism")
     if args.visualize:
         raise not_ported("--visualize", "the apps' visualization")
     if args.rng_impl != "threefry2x32":
@@ -199,6 +216,31 @@ _PRECISION = {"float32": "highest", "highest": "highest",
 
 # The inference methods of --method: BFVI and the four DKS baselines.
 METHODS = ("bfvi", "b-mask", "f-mask", "b-skip", "f-skip")
+
+
+def method_model(method, model):
+    """The registry name of the model that ``--method`` picks (``bfvi``:
+    ``dmm``; the DKS baselines: ``dks``), ``model`` for any other."""
+    if method not in METHODS:
+        return model
+    return "dmm" if method == "bfvi" else "dks"
+
+
+def _mesh_devices(device, n, spec):
+    """The devices and backend of ``--mesh``'s ``n`` ranks: ``cuda:r`` with
+    NCCL (raising when fewer cards are visible), or the CPU with gloo."""
+    if torch.device(device).type != "cuda":
+        return ["cpu"] * n, "gloo"
+    avail = torch.cuda.device_count()
+    if avail < n:
+        raise ValueError("--mesh {} needs {} devices but only {} are "
+                         "visible".format(spec, n, avail))
+    return ["cuda:%d" % r for r in range(n)], "nccl"
+
+
+def _main_rank(cls, argv):
+    """A rank of ``Trainer.main``, in its process group."""
+    return cls.main(argv)
 
 
 def summarize(metrics, n_timesteps):
@@ -260,6 +302,15 @@ class Trainer:
         self.train_args = dict(train_args or {})
         self.gen = torch.Generator(device=self.device).manual_seed(int(seed))
         self._eval_dev_cache = {}  # key -> (dataset, DeviceEvalData)
+        # The data-parallel mesh and its step (set_mesh).
+        self.mesh = None
+        self.mesh_step = None
+
+    @property
+    def is_root(self):
+        """Whether this process evaluates, prints and writes files: always
+        without a mesh, rank 0 under one."""
+        return self.mesh is None or self.mesh.rank == 0
 
     @classmethod
     def from_args(cls, args):
@@ -274,6 +325,7 @@ class Trainer:
             if isinstance(v, (dict, list)):
                 setattr(args, k, copy.deepcopy(v))
         _refuse_later_slices(args)
+        n_data, n_model = cls.check_mesh(args)
         device = resolve_device(args.device)
         np.random.seed(args.seed)
         if args.anomaly_check:
@@ -309,7 +361,75 @@ class Trainer:
         if checkpoint is not None:
             trainer.restore(checkpoint, opt=True)
         trainer.post_build_args(args)
+        if n_data * n_model > 1 and not (args.evaluate or args.find_best):
+            trainer.set_mesh(make_mesh(n_data, device) if n_model == 1 else
+                             make_mesh_2d(n_data, n_model, device))
+            print('Mesh: {} ranks ({} data x {} model)'.format(
+                n_data * n_model, n_data, n_model))
         return trainer
+
+    @classmethod
+    def check_mesh(cls, args):
+        """(n_data, n_model) of ``--mesh``, refused as the JAX trainer
+        refuses it: ``ValueError`` for a ``--batch_size`` that n_data does
+        not divide and for a 2-D mesh of a model without stacked
+        variants."""
+        n_data, n_model = parse_mesh(args.mesh)
+        if n_data * n_model > 1:
+            if args.batch_size % n_data:
+                raise ValueError(
+                    "--batch_size {} must be divisible by the data axis of "
+                    "--mesh {}".format(args.batch_size, args.mesh))
+            model = get_model(method_model(args.method, args.model))
+            if n_model > 1 and not hasattr(model, "set_variant_mesh"):
+                raise ValueError(
+                    "--mesh {}: model {} has no stacked-variant axis to "
+                    "shard; use --mesh N".format(args.mesh, model.__name__))
+        return n_data, n_model
+
+    @classmethod
+    def main(cls, argv=None):
+        """The command line: parse ``argv``, build the trainer, run it;
+        returns what ``run`` returns. Training under ``--mesh`` above 1
+        first starts the ranks, one process each (``parallel.launch``):
+        rank r on ``cuda:r`` with NCCL (``ValueError`` when fewer cards
+        are visible), or on the CPU with gloo under ``--device cpu``; each
+        builds its trainer and trains, and rank 0's result is returned.
+        ``--evaluate`` and ``--find_best`` run here, on one device."""
+        argv = sys.argv[1:] if argv is None else list(argv)
+        args = cls.parser.parse_args(argv)
+        _refuse_later_slices(args)
+        n_data, n_model = parse_mesh(args.mesh)
+        ranks = n_data * n_model > 1 and not dist.is_initialized()
+        if ranks:
+            devices, backend = _mesh_devices(args.device, n_data * n_model,
+                                             args.mesh)
+        cls.check_mesh(args)
+        if ranks and not (args.evaluate or args.find_best):
+            return launch(_main_rank, devices, backend, args=(cls, argv))[0]
+        if ranks:
+            print('--mesh {}: evaluation runs in this process, on one '
+                  'device'.format(args.mesh))
+        return cls.from_args(args).run(args)
+
+    def set_mesh(self, mesh):
+        """Train as one rank of ``mesh`` (``parallel.make_mesh`` or
+        ``make_mesh_2d``): rank 0's weights, BatchNorm state, Adam state
+        and generator state are copied to every rank; ``train_step`` then
+        takes this rank's columns (``parallel.shard_batch``) with the
+        global batch's ``n_data``, and ``train`` cuts each batch so."""
+        self.mesh = mesh
+        replicated(mesh, [self.params, self.state,
+                          list(self._adam_states().values())])
+        self._sync_gen()
+        make = make_2d_train_step if mesh.n_model > 1 else make_dp_train_step
+        self.mesh_step = make(self, mesh)
+
+    def _sync_gen(self):
+        """Rank 0's generator state on every rank of the mesh."""
+        state = self.gen.get_state()
+        replicated(self.mesh, state)
+        self.gen.set_state(state)
 
     def apply_gradients(self):
         """One optimizer update from the leaves' ``.grad``; returns False
@@ -327,13 +447,28 @@ class Trainer:
     def train_step(self, inputs, targets, mask, kld_mult, n_data):
         """loss / n_data -> gradients -> update. Returns (loss, applied):
         the summed (unnormalised) loss as a detached tensor, and whether
-        the update was applied."""
+        the update was applied. Under a mesh (``set_mesh``) the batch is
+        this rank's columns, ``n_data`` the global batch's, and the loss
+        that of all ranks (``parallel.make_dp_train_step``)."""
+        if self.mesh_step is not None:
+            return self.mesh_step(inputs, targets, mask, kld_mult, n_data)
+        return self.update(inputs, targets, mask, kld_mult, n_data,
+                           self.gen)
+
+    def update(self, inputs, targets, mask, kld_mult, n_data, gen,
+               train=True, reduce_grads=None):
+        """One update: loss / n_data -> gradients -> ``reduce_grads()``
+        (a data-parallel step's sum over the ranks) -> the optimizer;
+        ``gen`` and ``train`` go to ``model.step``. Returns (loss,
+        applied), as ``train_step``."""
         for p in self.leaves:
             p.grad = None
         loss, new_state = self.model.step(
             self.params, self.state, inputs, mask, kld_mult, self.rec_mults,
-            self.gen, targets=targets, train=True, **self.train_args)
+            gen, targets=targets, train=train, **self.train_args)
         (loss / n_data).backward()
+        if reduce_grads is not None:
+            reduce_grads()
         applied = self.apply_gradients()
         self.state = tree_map(lambda x: x.detach(), new_state)
         return loss.detach(), applied
@@ -376,11 +511,14 @@ class Trainer:
         for b_num, (inputs, targets, mask, lengths) in enumerate(batches):
             kld_mult = anneal(0.0, args.kld_mult, b_num + epoch * n_batches,
                               args.kld_anneal * n_batches)
+            if self.mesh is not None:
+                inputs, _ = shard_batch(self.mesh, inputs, mask)
+                targets, mask = shard_batch(self.mesh, targets, mask)
             timer.start()
             loss, _ = self.train_step(inputs, targets, mask, kld_mult,
                                       float(sum(lengths)))
             timer.stop()
-            if args.gradients:
+            if args.gradients and self.is_root:
                 plot_grad_flow(tree_map(lambda p: p.grad, self.params),
                                save_path=os.path.join(args.save_dir,
                                                       'grad_flow.pdf'))
@@ -538,7 +676,9 @@ class Trainer:
         so far) and ``epoch_N.pth`` every ``--save_freq`` epochs and
         ``last.pth`` at the end. Returns {"epoch_loss": [...], "epoch_s":
         [...] (training, on the host's clock), "eval": [metrics, ...],
-        "eval_s": [...], "best_loss": x}."""
+        "eval_s": [...], "best_loss": x}. Under a mesh, rank 0 alone
+        evaluates and writes (the other ranks' "eval" is empty), then
+        hands its generator's state to the others."""
         train_data, test_data = self.train_data, self.test_data
         if 'uniform' in args.corrupt:
             train_data = train_data.corrupt(args.corrupt['uniform'])
@@ -599,11 +739,12 @@ class Trainer:
             for epoch in range(start_epoch, args.epochs + 1):
                 print('---')
                 t0 = time.perf_counter()
-                with profile_ctx(args.profile_dir if epoch == 2 else None):
+                with profile_ctx(args.profile_dir if epoch == 2
+                                 and self.is_root else None):
                     history["epoch_loss"].append(
                         self.train(train_loader, epoch, args))
                 history["epoch_s"].append(time.perf_counter() - t0)
-                if epoch % args.eval_freq == 0:
+                if epoch % args.eval_freq == 0 and self.is_root:
                     t0 = time.perf_counter()
                     _, metrics = self.evaluate(test_loader, args,
                                                collect_results=False)
@@ -619,7 +760,10 @@ class Trainer:
                         reporter(mean_loss=loss, best_loss=best_loss,
                                  training_iteration=epoch,
                                  done=bool(np.isnan(loss)), **metrics)
-                if epoch % args.save_freq == 0:
+                if epoch % args.eval_freq == 0 and self.mesh is not None:
+                    # Rank 0's evaluation drew from its generator.
+                    self._sync_gen()
+                if epoch % args.save_freq == 0 and self.is_root:
                     if best_snapshot is not None:
                         self._write(os.path.join(args.save_dir, "best.pth"),
                                     args.modalities, best_snapshot,
@@ -638,9 +782,12 @@ class Trainer:
                             extra={"best_loss": float(best_loss)})
             if prev_term is not None:
                 signal.signal(signal.SIGTERM, prev_term)
-        self.save_checkpoint(args.modalities,
-                             os.path.join(args.save_dir, "last.pth"))
-        self.save_params(args)
+        if self.is_root:
+            self.save_checkpoint(args.modalities,
+                                 os.path.join(args.save_dir, "last.pth"))
+            self.save_params(args)
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.group)
         if reporter is not None:
             reporter(mean_loss=loss, best_loss=best_loss,
                      training_iteration=args.epochs, done=True, **metrics)
@@ -696,6 +843,9 @@ class Trainer:
         Python floats)."""
         args = cls.parser.parse_args([])
         vars(args).update(config)
+        if parse_mesh(args.mesh) != (1, 1):
+            raise not_ported("Trainer.tune under --mesh %s" % args.mesh,
+                             "data-parallel trials")
         cls.from_args(args).run_train(args, reporter)
 
     # -- persistence ----------------------------------------------------------
@@ -807,10 +957,8 @@ class Trainer:
         if args.method in METHODS:
             print("Setting up '{}' inference method...".format(args.method))
             print("The --model and --model_args flags will be overwritten.")
-            if args.method == 'bfvi':
-                args.model = 'dmm'
-            else:
-                args.model = 'dks'
+            args.model = method_model(args.method, args.model)
+            if args.model == 'dks':
                 args.model_args = {
                     "rnn_skip": 'skip' in args.method,
                     "rnn_dir": 'bwd' if args.method[0] == 'b' else 'fwd',

@@ -15,6 +15,7 @@ from multimodal_dmm_tpu.models import codecs as jc
 from multimodal_dmm_tpu.models.dmm import MultiDMM as JMultiDMM
 from multimodal_dmm_tpu_torch.models import codecs as tc
 from multimodal_dmm_tpu_torch.models.dmm import MultiDMM as TMultiDMM
+from multimodal_dmm_tpu_torch.parallel import Mesh
 from multimodal_dmm_tpu_torch.training.trainer import Trainer
 from multimodal_dmm_tpu_torch.tree import tree_leaves_with_path
 
@@ -239,18 +240,36 @@ def test_nonfinite_gradient_skips_update(image_models):
 @pytest.mark.parametrize("branch", ["ragged_mode_scans", "merge_mode_scans",
                                     "unfused", "set_variant_mesh"])
 def test_unported_branches_raise(mlp_models, branch):
-    """Branches of later slices raise instead of computing something
-    else: sharding the variant rows (multi-GPU). The step's merged and
-    unfused branches are ported, and ``ragged_mode_scans`` is accepted
-    (the two-scan loop computes the ragged pass; tests/test_torch_ragged.py
-    holds all three against the JAX package): they give a finite loss
-    here."""
+    """The step's branches, all ported now: the merged and unfused ones,
+    and ``ragged_mode_scans``, which is accepted (the two-scan loop
+    computes the ragged pass; tests/test_torch_ragged.py holds all three
+    against the JAX package), give a finite loss here. Under
+    ``set_variant_mesh`` (a 2-D mesh) each model rank runs its share of
+    the stacked variant rows, and model rank 0 alone adds the prior
+    matching: with MAP filtering the two shares' losses add up to the
+    whole step's (tests/test_torch_parallel.py runs the ranks)."""
     _, _, tmodel, _, _, tparams, tstate = mlp_models
     inputs = {m: t(v) for m, v in _mlp_inputs(4).items()}
     mask = torch.ones((T, B, 1))
     if branch == "set_variant_mesh":
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tmodel.set_variant_mesh(None)
+        kw = dict(train_particles=1, sample=False)
+        whole, _ = tmodel.step(tparams, tstate, inputs, mask, 1.0, {},
+                               torch.Generator().manual_seed(0), **kw)
+        shares = []
+        for rank in range(2):
+            mesh = Mesh.__new__(Mesh)
+            mesh.n_data, mesh.n_model = 1, 2
+            mesh.data_index, mesh.model_index = 0, rank
+            tmodel.set_variant_mesh(mesh)
+            try:
+                shares.append(tmodel.step(
+                    tparams, tstate, inputs, mask, 1.0, {},
+                    torch.Generator().manual_seed(0), **kw)[0])
+            finally:
+                tmodel.set_variant_mesh(None)
+        assert torch.isfinite(whole) and all(s != 0 for s in shares)
+        torch.testing.assert_close(shares[0] + shares[1], whole, rtol=1e-5,
+                                   atol=0.0)
         return
     kw = {"unfused": {"fused": False}}.get(branch, {branch: True})
     loss, _ = tmodel.step(tparams, tstate, inputs, mask, 1.0, {},

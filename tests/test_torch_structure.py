@@ -40,7 +40,7 @@ IN_FUNCTIONS_ONLY = ("scipy",)
 
 def _port_files():
     files = sorted((ROOT / "multimodal_dmm_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "multigpu_smoke.py"]
 
 
 EXPERIMENTS = ("__init__", "tune", "analysis", "table", "_partial_semisup",

@@ -114,10 +114,12 @@ def _leaves(tree):
     return [np.asarray(tree)]
 
 
-# ``--find_best`` runs now (tests/test_torch_suites.py); with --visualize,
-# which comes in a later slice, it is refused.
+# ``--find_best`` runs now (tests/test_torch_suites.py), and ``--mesh``
+# (tests/test_torch_parallel.py); with --visualize, which comes in a later
+# slice, each is refused, under a mesh before any rank starts.
 @pytest.mark.parametrize("flags", [
-    ["--mesh", "2"], ["--visualize"], ["--find_best", "--visualize"],
+    ["--mesh", "2", "--visualize"], ["--visualize"],
+    ["--find_best", "--visualize"],
     ["--rng_impl", "rbg"],
     ["--model_args", "{bf16_gtf: true}"],
     ["--evaluate", "--save_args", "{}"]], ids=lambda f: f[0].strip("-"))
