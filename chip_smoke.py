@@ -128,12 +128,32 @@ imports nothing of JAX or of the JAX package. Phases:
    steps, three launches of each scan kernel a step on every rank, and
    each rank's step time (ranks that time-slice one card: not a scaling
    figure); (d) ``apps.weizmann --mesh 2`` on this one-card machine raises
-   "needs 2 devices".
+   "needs 2 devices";
+15. ``bf16_gtf`` (the JAX package's ``MultiDMM(bf16_gtf=True)``: every GTF
+   product in bfloat16), Weizmann at full width: (a) each scan kernel's
+   bfloat16 variant against its bfloat16 plain version at the step's
+   three shapes and at the spirals shapes (outputs at BF16_TOL, the
+   backward's and the weight gradients' outputs each within
+   BF16_GRAD_RTOL in relative Frobenius norm, the backward on its own
+   ReLU masks, its flips within ``relu_flip_bound(D, bf16=True)``), with
+   their times and their bound at one bf16 pass (PEAK_BF16_FLOPS); (b)
+   one ``bf16_gtf`` step on the kernels against the plain versions (loss
+   within BF16_GTF_LOSS_RTOL, each leaf within BF16_GRAD_RTOL), then the
+   step timed in turns beside the float32 step and the bench
+   configuration with ``bf16_gtf``, each with its device time; (c) the
+   evaluation (200-particle cell filter) on the kernels against the plain
+   versions, metrics within BF16_GTF_EVAL_RTOL; (d) torch.profiler's
+   kernel names of one step: every scan launch a bf16 variant; (e)
+   ``apps.weizmann.main --model_args '{bf16_gtf: true}'``: one epoch, then
+   ``--load last.pth --evaluate --save_args '{skip: true}'``.
 
 Any failed check raises, so the script exits non-zero before its last
 line. The line before the last is a JSON object with one entry per
 kernel and main path: the Weizmann rows, and the same kernels at the
-spirals and VidTIMIT shapes (``... (spirals)``, ``... (vidtimit)``). For
+spirals and VidTIMIT shapes (``... (spirals)``, ``... (vidtimit)``), and
+the three bf16 variants (``..._bf16``, phase 15: times and bounds at the
+Weizmann step's shapes, launches of its command line, ``launches_by_phase``
+those of its step, evaluation and command line). For
 the scan kernels ``ms``, ``plain_ms`` and ``bound_ms`` are sums over the
 training step's three launches (phase 3, 9 or 12); ``bound_ms`` is the
 bound of the route the kernels take and ``bound_f32_ms`` that of float32
@@ -148,6 +168,7 @@ steps), 6 (one evaluation), 7 (the timed bench-configuration steps), 8,
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -163,6 +184,7 @@ SCAN_SHAPES = ((3, 1), (3, 25), (5, 1))  # (M, K) of the step's 3 passes
 SMOOTH_SHAPE = (56, 25, 5, 1)  # (T, B, M, K) of the evaluation's smoothing
 PEAK_F32_FLOPS = 67e12   # H100 SXM, f32 outside the tensor cores
 PEAK_TF32_FLOPS = 495e12  # H100 SXM, TF32 tensor cores, dense
+PEAK_BF16_FLOPS = 989e12  # H100 SXM, bf16 tensor cores, dense
 TF32_PASSES = 3          # the scan kernels' 3xTF32 products
 PEAK_BYTES = 3.35e12     # H100 SXM HBM3
 # name -> (its source, the TPU kernel or the part of it that it replaces)
@@ -177,6 +199,11 @@ KERNELS = {
                         "multimodal_dmm_tpu/ops/pallas/poe_cell.py:32"),
 }
 SCAN_KERNELS = ("bfvi_scan_fwd", "bfvi_scan_bwd", "gtf_wgrad")
+# The scan kernels' bfloat16 variants (bf16_gtf), each counted on its f32
+# twin's wrapper in ``.launches_bf16`` (ops/cuda/bfvi_scan.py): name -> the
+# f32 kernel it is a variant of.
+BF16_KERNELS = {name + "_bf16": name for name in SCAN_KERNELS}
+BF16_SRC = "multimodal_dmm_tpu_torch/csrc/bfvi_scan_bf16.cu"
 # (M, K, smoothing) at B = 25, D = 256
 CELL_SHAPES = ((3, 200, False), (5, 1, True))
 N_EVAL_SEQS = 10
@@ -195,6 +222,32 @@ BF16_TOL = dict(rtol=5e-2, atol=5e-2)  # bf16 codecs vs f32, as on the CPU
 # test_weizmann_step_bf16_matches_jax); a wrong bf16 convolution moves
 # its leaves by O(1).
 BF16_GRAD_RTOL = 0.25
+# Phase 15, bf16_gtf on the kernels against the plain versions, which
+# round at the same points and differ only where an f32 sum lies within
+# its summation order's rounding of a bfloat16 midpoint: the step's loss
+# and the evaluation's metrics.
+BF16_GTF_LOSS_RTOL = 1e-3
+BF16_GTF_EVAL_RTOL = 1e-3
+# Phase 15 (a): each output of a bf16 variant against its bf16 plain
+# version, in relative Frobenius norm. BF16_TOL and BF16_GRAD_RTOL hold
+# too, but they cannot tell a kernel that rounds at the bf16 points from
+# one that does not. These limits lie about 3-5x above the largest
+# readings on the card (3.5e-4, 1.05e-3, 2.1e-6). And in each output the
+# float32 kernel must lie BF16_GTF_SEPARATION times farther from the
+# bf16 plain version than the bf16 variant does: a kernel that skipped
+# the rounding reads about 1x. At D = H = 256 the readings are 5-10x,
+# not more, because two f32 orders of a 256-term sum round to different
+# sides of a bf16 midpoint in about 1e-3 of the products and those
+# one-ulp flips travel through the 25 steps; at the spirals widths they
+# read 75x and more (PERF.md, section 6, PR 9).
+BF16_GTF_RFRO = {"bfvi_scan_fwd": 1e-3, "bfvi_scan_bwd": 3e-3,
+                 "gtf_wgrad": 1e-5}
+BF16_GTF_SEPARATION = 3.0
+# Phase 15 (b): the step's gradient leaves, backward kernel against the
+# plain backward on its ReLU masks; the float32 step's transition weights
+# lie BF16_GTF_SEPARATION times farther. (The loss cannot tell the routes
+# apart: the float32 step's differs by one float32 ulp.)
+BF16_GTF_STEP_RFRO = 3e-3
 N_BENCH = 10                # timed steps per block in phase 7
 CLI_EPOCHS = 2
 SP_T, SP_B = 100, 100       # the spirals app's T and batch_size
@@ -331,21 +384,66 @@ def max_norm_err(got, exp):
     return ok, (got - exp).abs().max().item()
 
 
-def check_fwd(scan, x, gtf, eps, what):
-    """The forward kernel against its plain version on one input; returns
-    (plain outputs, largest absolute error)."""
-    got = scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3)
-    exp = scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3)
+FWD_OUTPUTS = ("prior_mean", "prior_std", "infer_mean", "infer_std",
+               "samples", "z_traj")
+
+
+def check_fwd(scan, x, gtf, eps, what, bf16=False):
+    """The forward kernel (its bfloat16 variant against the bfloat16 plain
+    version, at BF16_TOL and ``hold_bf16``, with ``bf16``) against its
+    plain version on one input; returns (plain outputs, largest absolute
+    error)."""
+    got = scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3, bf16=bf16)
+    exp = scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3, bf16=bf16)
     torch.cuda.synchronize()
+    tol = BF16_TOL if bf16 else FWD_TOL
     err = 0.0
-    for name, g, e in zip(("prior_mean", "prior_std", "infer_mean",
-                           "infer_std", "samples", "z_traj"), got, exp):
+    for name, g, e in zip(FWD_OUTPUTS, got, exp):
         check(bool(torch.isfinite(g).all()), "non-finite %s" % name)
         a = (g - e).abs().max().item()
         err = max(err, a)
-        check(torch.allclose(g, e, **FWD_TOL), "forward kernel %s disagrees "
+        check(torch.allclose(g, e, **tol), "forward kernel %s disagrees "
               "at %s: max abs err %.3g" % (name, what, a))
+    if bf16:
+        ctrl = scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3)
+        hold_bf16("bfvi_scan_fwd", what, zip(FWD_OUTPUTS, got, exp),
+                  zip(FWD_OUTPUTS, ctrl, exp))
     return exp, err
+
+
+def hold_bf16(kernel, what, pairs, controls):
+    """Phase 15 (a): each (name, bf16 variant's output, bf16 plain
+    version's) of ``pairs`` within BF16_GTF_RFRO[kernel] in relative
+    Frobenius norm; and each (name, float32 kernel's output, the same
+    plain output) of ``controls`` at least BF16_GTF_SEPARATION times
+    farther from it than the bf16 variant is, so that the check tells a
+    kernel that rounds at the bfloat16 points from one that does not."""
+    lim = BF16_GTF_RFRO[kernel]
+    errs = {name: rel_fro(g, e) for name, g, e in pairs}
+    for name, fro in errs.items():
+        check(fro <= lim, "%s_bf16 %s at %s: relative Frobenius error %.3g "
+              "against the bf16 plain version, beyond %g"
+              % (kernel, name, what, fro, lim))
+    ratio = {}
+    for name, c, e in controls:
+        fro = rel_fro(c, e)
+        ratio[name] = fro / max(errs[name], 1e-7)
+        check(ratio[name] >= BF16_GTF_SEPARATION, "%s %s at %s: the float32 "
+              "kernel lies %.3g from the bf16 plain version, only %.1fx the "
+              "bf16 variant's %.3g" % (kernel, name, what, fro, ratio[name],
+                                       errs[name]))
+    worst = max(errs, key=errs.get)
+    least = min(ratio, key=ratio.get)
+    log("  %s_bf16 %s: largest relative Frobenius error %.3g at %s (limit "
+        "%g); the float32 kernel against the bf16 plain version at least "
+        "%.1fx the bf16 variant's error (%s: %.3g)"
+        % (kernel, what, errs[worst], worst, lim, ratio[least], least,
+           ratio[least] * max(errs[least], 1e-7)))
+
+
+def rel_fro(got, exp):
+    """|got - exp| / |exp| in Frobenius norm."""
+    return ((got - exp).norm() / (exp.norm() + 1e-30)).item()
 
 
 def with_kernel_rows(scan, fn):
@@ -359,11 +457,11 @@ def with_kernel_rows(scan, fn):
     return out, rows
 
 
-def check_flips(scan, margins, d, what):
+def check_flips(scan, margins, d, what, bf16=False):
     """Every unit where the backward kernel's ReLU mask differs from the
     plain backward's has its exact pre-activation within
-    ``relu_flip_bound(D)`` of 0. Returns (flips, largest margin)."""
-    bound = scan.relu_flip_bound(d)
+    ``relu_flip_bound(D, bf16)`` of 0. Returns (flips, largest margin)."""
+    bound = scan.relu_flip_bound(d, bf16)
     n = sum(m.numel() for m in margins.values())
     worst = max((m.max().item() for m in margins.values() if m.numel()),
                 default=0.0)
@@ -382,13 +480,30 @@ def bwd_pairs(scan, out_a, out_b):
 
 
 def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
-                  shapes=SCAN_SHAPES, smooth_shape=SMOOTH_SHAPE, seed=100):
-    """Phases 3 and 9: every scan kernel against its plain version at a
-    training step's shapes (T, V B columns, the step's three (M, K), the
-    last the smoothing pass; D and H those of ``gtf``), and the forward
-    at the evaluation's smoothing shape (T, B, M, K); returns per-kernel
-    records, sums over the step's three launches."""
+                  shapes=SCAN_SHAPES, smooth_shape=SMOOTH_SHAPE, seed=100,
+                  bf16=False):
+    """Phases 3, 9 and 15 (a): every scan kernel against its plain version
+    at a training step's shapes (T, V B columns, the step's three (M, K),
+    the last the smoothing pass; D and H those of ``gtf``), and the
+    forward at the evaluation's smoothing shape (T, B, M, K) unless that
+    is None; returns per-kernel records, sums over the step's three
+    launches. With ``bf16`` the kernels' bfloat16 variants against the
+    bfloat16 plain versions: outputs at BF16_TOL, the backward's and the
+    weight gradients' outputs each within BF16_GRAD_RTOL in relative
+    Frobenius norm (their elementwise errors at BWD_TOL logged), every
+    output within BF16_GTF_RFRO with the float32 kernel far beyond it
+    (``hold_bf16``), bounds for one bf16 pass."""
     h, d = gtf["gate_1"]["w"].shape
+    fl_passes, peak, route = ((1, PEAK_BF16_FLOPS, "bf16") if bf16 else
+                              (TF32_PASSES, PEAK_TF32_FLOPS, "3xTF32"))
+
+    def hold(what, g, e):
+        """(largest absolute error, holds); the bf16 variants' outputs are
+        held by ``hold_bf16`` as well."""
+        ok, a = max_norm_err(g, e)
+        if bf16:
+            ok = rel_fro(g, e) <= BF16_GRAD_RTOL
+        return a, ok
     rec = {name: dict(err=0.0, ms=0.0, plain_ms=0.0, bound_f32_ms=0.0,
                       bound_ms={"operations": 0.0, "bytes": 0.0})
            for name in SCAN_KERNELS}
@@ -396,27 +511,33 @@ def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
         x, eps, cots = scan_inputs(n_exp, k, dev, seed + i, t_max, b_dim, d,
                                    smoothing=i == len(shapes) - 1)
         what = "(M, K) = (%d, %d)" % (n_exp, k)
-        exp, err = check_fwd(scan, x, gtf, eps, what)
+        exp, err = check_fwd(scan, x, gtf, eps, what, bf16)
         res = tuple(x) + (gtf, eps, exp[5], exp[0], exp[1])
         g_out, rows = with_kernel_rows(
-            scan, lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3))
+            scan, lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3, bf16))
         e_out, margins = scan.bfvi_scan_bwd_ref_on_masks(res, cots, 1e-3,
-                                                         rows[0])
-        g_again = scan.bfvi_scan_bwd_cuda(res, cots, 1e-3)
+                                                         rows[0], bf16)
+        g_again = scan.bfvi_scan_bwd_cuda(res, cots, 1e-3, bf16)
         torch.cuda.synchronize()
-        flips, worst = check_flips(scan, margins, d, what)
-        log("  bfvi_scan_bwd %s: %d ReLU flips against the plain backward "
+        flips, worst = check_flips(scan, margins, d, what, bf16)
+        log("  bfvi_scan_bwd%s %s: %d ReLU flips against the plain backward "
             "in the GTF first layers (held on the kernel's masks), largest "
             "exact margin %.3g of the bound %.3g"
-            % (what, flips, worst, scan.relu_flip_bound(d)))
+            % ("_bf16" if bf16 else "", what, flips, worst,
+               scan.relu_flip_bound(d, bf16)))
         berr = 0.0
         for name, g, e in bwd_pairs(scan, g_out, e_out):
             check(bool(torch.isfinite(g).all()), "non-finite %s" % name)
-            ok, a = max_norm_err(g, e)
+            a, ok = hold(name, g, e)
             berr = max(berr, a)
             check(ok, "backward kernel %s disagrees at (M, K) = (%d, %d): "
-                  "max abs err %.3g (scale %.3g)"
-                  % (name, n_exp, k, a, e.abs().max().item()))
+                  "max abs err %.3g (scale %.3g), relative Frobenius %.3g"
+                  % (name, n_exp, k, a, e.abs().max().item(),
+                     rel_fro(g, e)))
+        if bf16:
+            ctrl = scan.bfvi_scan_bwd_cuda(res, cots, 1e-3)
+            hold_bf16("bfvi_scan_bwd", what, bwd_pairs(scan, g_out, e_out),
+                      bwd_pairs(scan, ctrl, e_out))
         for name, g, g2 in bwd_pairs(scan, g_out, g_again):
             check(torch.equal(g, g2), "backward kernel %s: two runs differ "
                   "at (M, K) = (%d, %d)" % (name, n_exp, k))
@@ -426,27 +547,39 @@ def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
         n_rows = (t_max - 1) * k * b_dim
         xs = torch.randn((n_rows, 2 * h + d), generator=gen, device=dev)
         ys = torch.randn((n_rows, 2 * h + 4 * d), generator=gen, device=dev)
-        w_got = scan.gtf_wgrad_cuda(exp[5], xs, ys)
-        w_exp = scan.gtf_wgrad_ref(exp[5], xs, ys)
+        w_got = scan.gtf_wgrad_cuda(exp[5], xs, ys, bf16)
+        w_exp = scan.gtf_wgrad_ref(exp[5], xs, ys, bf16)
         torch.cuda.synchronize()
         werr = 0.0
         for n in scan.GTF_LAYERS:
             for kk in ("w", "b"):
-                ok, a = max_norm_err(w_got[n][kk], w_exp[n][kk])
+                a, ok = hold(n, w_got[n][kk], w_exp[n][kk])
                 werr = max(werr, a)
                 check(ok, "weight-gradient kernel %s.%s disagrees at K = %d: "
-                      "max abs err %.3g" % (n, kk, k, a))
+                      "max abs err %.3g, relative Frobenius %.3g"
+                      % (n, kk, k, a, rel_fro(w_got[n][kk], w_exp[n][kk])))
+        if bf16:
+            # The bias gradients sum float32 cotangents on both routes:
+            # only the weights tell them apart.
+            ctrl = scan.gtf_wgrad_cuda(exp[5], xs, ys)
+            hold_bf16("gtf_wgrad", what,
+                      [(n + "." + kk, w_got[n][kk], w_exp[n][kk])
+                       for n in scan.GTF_LAYERS for kk in ("w", "b")],
+                      [(n + ".w", ctrl[n]["w"], w_exp[n]["w"])
+                       for n in scan.GTF_LAYERS])
         reps = 3 if k > 1 or t_max > T_MAIN else 10
         # The plain scans' Python loops take 0.2-0.5 s a call at T = 100:
         # one timed call there.
         plain_reps = 1 if t_max > T_MAIN else reps
         times = [time_ms(fn, r) for fn, r in (
-            (lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3), reps),
-            (lambda: scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3), plain_reps),
-            (lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3), reps),
-            (lambda: scan.bfvi_scan_bwd_ref(res, cots, 1e-3), plain_reps),
-            (lambda: scan.gtf_wgrad_cuda(exp[5], xs, ys), reps),
-            (lambda: scan.gtf_wgrad_ref(exp[5], xs, ys), reps))]
+            (lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3, bf16), reps),
+            (lambda: scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3, bf16),
+             plain_reps),
+            (lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3, bf16), reps),
+            (lambda: scan.bfvi_scan_bwd_ref(res, cots, 1e-3, bf16),
+             plain_reps),
+            (lambda: scan.gtf_wgrad_cuda(exp[5], xs, ys, bf16), reps),
+            (lambda: scan.gtf_wgrad_ref(exp[5], xs, ys, bf16), reps))]
         (ff, fb), (bf, bb), (wf, wb) = scan_work(t_max, n_exp, b_dim, k, d,
                                                  h)
         for name, e, ms, pms, fl, by in (
@@ -457,31 +590,34 @@ def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
             r["err"] = max(r["err"], e)
             r["ms"] += ms
             r["plain_ms"] += pms
-            bms, by_what = bound_ms(TF32_PASSES * fl, by, PEAK_TF32_FLOPS)
+            bms, by_what = bound_ms(fl_passes * fl, by, peak)
             r["bound_ms"][by_what] += bms
             f32_ms, f32_by = bound_ms(fl, by)
             r["bound_f32_ms"] += f32_ms
-            log("  %s (M, K) = (%d, %d): kernel %.3f ms, plain %.3f ms, "
-                "bound %.3f ms (%s, 3xTF32), f32 bound %.3f ms (%s), max abs "
-                "err %.3g" % (name, n_exp, k, ms, pms, bms, by_what, f32_ms,
-                              f32_by, e))
+            log("  %s%s (M, K) = (%d, %d): kernel %.3f ms, plain %.3f ms, "
+                "bound %.3f ms (%s, %s), f32 bound %.3f ms (%s), max abs "
+                "err %.3g" % (name, "_bf16" if bf16 else "", n_exp, k, ms,
+                              pms, bms, by_what, route, f32_ms, f32_by, e))
 
+    if smooth_shape is None:
+        return rec
     # The evaluation's MAP smoothing pass: its own row, not in the sums.
     t_max, b_dim, n_exp, k = smooth_shape
     x, eps, _ = scan_inputs(n_exp, k, dev, seed + 10, t_max, b_dim, d,
                             smoothing=True)
     what = "(T, B, M, K) = (%d, %d, %d, %d)" % smooth_shape
-    _, err = check_fwd(scan, x, gtf, eps, what)
+    _, err = check_fwd(scan, x, gtf, eps, what, bf16)
     rec["bfvi_scan_fwd"]["err"] = max(rec["bfvi_scan_fwd"]["err"], err)
     ms, pms = [time_ms(fn, 10 if t_max <= T_MAIN * 3 else r) for fn, r in (
-        (lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3), 3),
-        (lambda: scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3), 1))]
+        (lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3, bf16), 3),
+        (lambda: scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3, bf16), 1))]
     fl, by = scan_work(t_max, n_exp, b_dim, k, d, h)[0]
-    bms, by_what = bound_ms(TF32_PASSES * fl, by, PEAK_TF32_FLOPS)
+    bms, by_what = bound_ms(fl_passes * fl, by, peak)
     f32_ms, f32_by = bound_ms(fl, by)
-    log("  bfvi_scan_fwd, evaluation smoothing %s: kernel %.3f ms, plain "
-        "%.3f ms, bound %.4f ms (%s, 3xTF32), f32 bound %.4f ms (%s), max "
-        "abs err %.3g" % (what, ms, pms, bms, by_what, f32_ms, f32_by, err))
+    log("  bfvi_scan_fwd%s, evaluation smoothing %s: kernel %.3f ms, plain "
+        "%.3f ms, bound %.4f ms (%s, %s), f32 bound %.4f ms (%s), max "
+        "abs err %.3g" % ("_bf16" if bf16 else "", what, ms, pms, bms,
+                          by_what, route, f32_ms, f32_by, err))
     return rec
 
 
@@ -571,11 +707,12 @@ def synthetic_eval_set(seed):
     return items
 
 
-def run_eval(trainer, loader, args, plain, seed):
+def run_eval(trainer, loader, args, plain, seed, wrappers=None):
     """One ``evaluate`` call on the kernels or on the plain versions, the
-    generator reseeded, with the launch counts set to 0 just before and
-    read just after. Returns (summary, launches)."""
-    wrappers = kernel_wrappers()
+    generator reseeded, with the launch counts of ``wrappers`` (by default
+    ``kernel_wrappers()``) set to 0 just before and read just after.
+    Returns (summary, launches)."""
+    wrappers = kernel_wrappers() if wrappers is None else wrappers
     for fn in wrappers.values():
         fn.launches = 0
     trainer.model.plain_scan = plain
@@ -585,12 +722,16 @@ def run_eval(trainer, loader, args, plain, seed):
     return dict(summary), {n: fn.launches for n, fn in wrappers.items()}
 
 
-def check_evaluation(trainer, seed, n_evals):
-    """Phase 6: the Weizmann BFVI evaluation on the kernels against the
-    plain versions, then timed. Returns (the launches of one evaluation,
-    median ms per call, the loader, the eval args)."""
+def check_evaluation(trainer, seed, n_evals, bf16=False):
+    """Phase 6 (and 15 (c) with ``bf16``, a ``bf16_gtf`` trainer: its
+    forward scan the bf16 variant, its metrics within BF16_GTF_EVAL_RTOL):
+    the Weizmann BFVI evaluation on the kernels against the plain
+    versions, then timed. Returns (the launches of one evaluation, median
+    ms per call, the loader, the eval args)."""
     from multimodal_dmm_tpu_torch.apps import weizmann
     from multimodal_dmm_tpu_torch.training.loader import BatchLoader
+    wrappers = all_wrappers() if bf16 else kernel_wrappers()
+    rtol = BF16_GTF_EVAL_RTOL if bf16 else EVAL_RTOL
     items = synthetic_eval_set(seed)
     lengths = [d["length"] for d in items]
     t_max = max(lengths)
@@ -601,12 +742,15 @@ def check_evaluation(trainer, seed, n_evals):
                                    loader.batch_size, args.eval_args,
                                    args.drop_frac))
     torch.backends.cudnn.deterministic = True
-    got, launches = run_eval(trainer, loader, args, False, seed)
-    exp, plain_launches = run_eval(trainer, loader, args, True, seed)
+    got, launches = run_eval(trainer, loader, args, False, seed, wrappers)
+    exp, plain_launches = run_eval(trainer, loader, args, True, seed,
+                                   wrappers)
     torch.backends.cudnn.deterministic = False
     log("  launches, kernels: %s; plain: %s" % (launches, plain_launches))
-    check(launches == {"bfvi_scan_fwd": 1, "bfvi_scan_bwd": 0,
-                       "gtf_wgrad": 0, "poe_sample_cell": t_max},
+    want = {n: 0 for n in wrappers}
+    want["bfvi_scan_fwd_bf16" if bf16 else "bfvi_scan_fwd"] = 1
+    want["poe_sample_cell"] = t_max
+    check(launches == want,
           "evaluation launches %s, expected the cell T = %d times and the "
           "forward scan once" % (launches, t_max))
     check(not any(plain_launches.values()),
@@ -619,7 +763,7 @@ def check_evaluation(trainer, seed, n_evals):
         check(np.isfinite(g), "non-finite evaluation metric %s" % key)
         label = key.split("_")[0] in ("action", "person")
         ok = (abs(g - e) <= label_atol if label
-              else abs(g - e) <= EVAL_RTOL * abs(e) + 1e-6)
+              else abs(g - e) <= rtol * abs(e) + 1e-6)
         log("  %-12s kernels %.7g, plain %.7g, diff %.3g" % (key, g, e,
                                                              g - e))
         check(ok, "evaluation metric %s: kernels %r vs plain %r" % (key, g,
@@ -652,6 +796,31 @@ def kernel_wrappers():
     from multimodal_dmm_tpu_torch.ops.cuda import bfvi_scan, poe_cell
     out = {name: getattr(bfvi_scan, name + "_cuda") for name in SCAN_KERNELS}
     out["poe_sample_cell"] = poe_cell.poe_sample_cell_cuda
+    return out
+
+
+class Bf16Route:
+    """A scan wrapper's count of its bfloat16 variant's launches
+    (``.launches_bf16``), read and set as ``.launches`` like the others."""
+
+    def __init__(self, wrapper):
+        self.wrapper = wrapper
+
+    @property
+    def launches(self):
+        return self.wrapper.launches_bf16
+
+    @launches.setter
+    def launches(self, n):
+        self.wrapper.launches_bf16 = n
+
+
+def all_wrappers():
+    """``kernel_wrappers()`` and the counts of the scan kernels' bfloat16
+    variants."""
+    out = kernel_wrappers()
+    out.update({name: Bf16Route(out[f32]) for name, f32 in
+                BF16_KERNELS.items()})
     return out
 
 
@@ -765,9 +934,9 @@ def check_step_against_plain(scan, trainer, inputs, targets, mask, seed,
           "kernel %d times, expected %d" % (len(rows), n_launches))
     margins, launch = [], iter(rows)
 
-    def on_masks(res, cots, min_std):
+    def on_masks(res, cots, min_std, bf16=False):
         outs, m = scan.bfvi_scan_bwd_ref_on_masks(res, cots, min_std,
-                                                  next(launch))
+                                                  next(launch), bf16)
         margins.append(m)
         return outs
     # The step's backward calls the module's bfvi_scan_bwd_cuda: for this
@@ -1154,17 +1323,19 @@ def scan_launch_shapes(scan, fn):
     it, in launch order."""
     shapes, launch = [], scan.bfvi_scan_fwd_cuda
 
-    def recorded(obs_mean, *rest):
+    def recorded(obs_mean, *rest, **kw):
         shapes.append(tuple(obs_mean.shape[:3]) + (rest[5].shape[1],))
-        return launch(obs_mean, *rest)
+        return launch(obs_mean, *rest, **kw)
     # The wrapper counts its launches under the module's name, which is
     # the recording one's while it is in place.
     recorded.launches = launch.launches
+    recorded.launches_bf16 = launch.launches_bf16
     scan.bfvi_scan_fwd_cuda = recorded
     try:
         out = fn()
     finally:
         launch.launches = recorded.launches
+        launch.launches_bf16 = recorded.launches_bf16
         scan.bfvi_scan_fwd_cuda = launch
     return out, shapes
 
@@ -2131,6 +2302,272 @@ def check_data_parallel(seed, card):
     return launches
 
 
+# -- phase 15: the GTF products in bfloat16 (bf16_gtf) ------------------------
+
+def scan_kernel_names(fn):
+    """{kernel name: device launches} of the scan kernels (either route)
+    that torch.profiler saw in one call of ``fn``; None if it saw no
+    device activity at all."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not events:
+        return None
+    names = [n + "_kernel" for n in list(SCAN_KERNELS) + list(BF16_KERNELS)]
+    counts = {n: 0 for n in names}
+    for e in events:
+        for n in names:
+            # "bfvi_scan_fwd_kernel" is no substring of the bf16 variant's
+            # name, nor the reverse.
+            if n in e.name:
+                counts[n] += 1
+    return counts
+
+
+def check_bf16_step(scan, trainer, inputs, targets, mask, seed):
+    """Phase 15 (b) and (d): one ``bf16_gtf`` step's loss and gradients on
+    the kernels against the same step on the plain versions, with the
+    same noise and deterministic cuDNN: the loss within
+    BF16_GTF_LOSS_RTOL, each gradient leaf within BF16_GRAD_RTOL in
+    relative Frobenius norm, and within BF16_GTF_STEP_RFRO against the
+    plain backward run on the backward kernel's ReLU masks (every flip
+    within ``relu_flip_bound(D, bf16=True)``), where the same step in
+    float32 on the same weights (the control) lies BF16_GTF_SEPARATION
+    times farther in every transition weight that has a gradient; every
+    scan launch of the step a bf16 variant, by the wrappers' counts and by
+    the profiler's kernel names. Returns the step's launches."""
+    wrappers = all_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.backends.cudnn.deterministic = True
+    (l_k, g_k), rows = with_kernel_rows(scan, lambda: step_grads(
+        trainer, inputs, targets, mask, False, seed))
+    launches = {n: fn.launches for n, fn in wrappers.items()}
+    want = {n: 3 if n in BF16_KERNELS else 0 for n in wrappers}
+    check(launches == want, "bf16_gtf step launches %s, expected 3 of each "
+          "bf16 variant and nothing else" % launches)
+    margins, launch = [], iter(rows)
+
+    def on_masks(res, cots, min_std, bf16=False):
+        check(bf16, "the bf16_gtf step ran the float32 backward")
+        outs, m = scan.bfvi_scan_bwd_ref_on_masks(res, cots, min_std,
+                                                  next(launch), bf16)
+        margins.append(m)
+        return outs
+    bwd_kernel, scan.bfvi_scan_bwd_cuda = scan.bfvi_scan_bwd_cuda, on_masks
+    try:
+        l_km, g_km = step_grads(trainer, inputs, targets, mask, False, seed)
+    finally:
+        scan.bfvi_scan_bwd_cuda = bwd_kernel
+    l_p, g_p = step_grads(trainer, inputs, targets, mask, True, seed)
+    trainer.model.bf16_gtf = False
+    try:
+        l_f, g_f = step_grads(trainer, inputs, targets, mask, False, seed)
+    finally:
+        trainer.model.bf16_gtf = True
+    torch.backends.cudnn.deterministic = False
+    log("  loss: kernels %.6f, forward kernel + plain backward on the "
+        "kernel's ReLU masks %.6f, plain %.6f (relative difference %.3g)"
+        % (l_k, l_km, l_p, (l_k - l_p) / abs(l_p)))
+    check(np.isfinite(l_k), "bf16_gtf step: non-finite loss")
+    check(l_k == l_km, "the bf16 forward kernel gave different losses for "
+          "one input")
+    check(abs(l_k - l_p) <= BF16_GTF_LOSS_RTOL * abs(l_p),
+          "bf16_gtf step loss: kernels %r vs plain %r" % (l_k, l_p))
+    d = trainer.model.z_dim
+    flips = [check_flips(scan, m, d, "bf16_gtf step, backward launch %d" % i,
+                         bf16=True) for i, m in enumerate(margins)]
+    for what, g_b, lim in (
+            ("backward kernel vs plain backward on its masks", g_km,
+             BF16_GTF_STEP_RFRO), ("kernels vs plain", g_p, BF16_GRAD_RTOL)):
+        diffs = grad_diffs(g_k, g_b, BF16_TOL)
+        log_worst(what, diffs, n=2)
+        bad = leaves_beyond(diffs, lim)
+        log("  %s: largest relative Frobenius error %.3g over %d leaves "
+            "(bound %g); %d elements beyond BF16_TOL (normalised)"
+            % (what, max(x["fro"] for x in diffs.values()), len(diffs),
+               lim, sum(x["bad"] for x in diffs.values())))
+        check(not bad, "bf16_gtf step, %s: %d leaves beyond %g in relative "
+              "Frobenius norm: %s" % (what, len(bad), lim, bad))
+    # The transition weights whose gradient is more than rounding noise.
+    on_masks = grad_diffs(g_k, g_km, BF16_TOL)
+    ratio = {p: x["fro"] / max(on_masks[p]["fro"], 1e-7)
+             for p, x in grad_diffs(g_f, g_km).items()
+             if p[0] == "trans" and p[-1] == "w" and not x["noise"]}
+    least = min(ratio, key=ratio.get)
+    log("  control, the float32 step on the same weights against the plain "
+        "bf16 backward on the kernel's masks: loss %.6f (relative "
+        "difference %.3g); every transition weight at least %.1fx farther "
+        "than the kernels' (%s: %.3g)"
+        % (l_f, (l_f - l_km) / abs(l_km), ratio[least],
+           "/".join(map(str, least)),
+           ratio[least] * max(on_masks[least]["fro"], 1e-7)))
+    check(ratio[least] >= BF16_GTF_SEPARATION, "the float32 step's %s is "
+          "only %.1fx farther from the bf16 plain backward than the bf16 "
+          "kernels'" % ("/".join(map(str, least)), ratio[least]))
+    log("  backward kernel: %d ReLU flips in the GTF first layers against the "
+        "plain backward (largest exact margin %.3g of the bound %.3g)"
+        % (sum(n for n, _ in flips), max((w for _, w in flips), default=0.0),
+           scan.relu_flip_bound(d, True)))
+
+    def one_step():
+        for p in trainer.leaves:
+            p.grad = None
+        loss, _ = trainer.model.step(
+            trainer.params, trainer.state, inputs, mask, 1.0,
+            trainer.rec_mults, torch.Generator(device=mask.device)
+            .manual_seed(seed), targets=targets, train=True)
+        loss.backward()
+    names = scan_kernel_names(one_step)
+    for p in trainer.leaves:
+        p.grad = None
+    log("  (d) torch.profiler, one bf16_gtf step's scan kernels: %s" % names)
+    check(names is not None, "torch.profiler saw no device activity")
+    check(all(v == (3 if "bf16" in n else 0) for n, v in names.items()),
+          "bf16_gtf step: the profiler's scan launches %s, expected 3 of "
+          "each bf16 variant and no float32 scan kernel" % names)
+    return launches
+
+
+def run_bf16_cli(seed, card):
+    """Phase 15 (e): ``apps.weizmann.main`` with ``--model_args '{bf16_gtf:
+    true}'`` in a temporary directory, on a ``gen_synthetic`` fixture: one
+    epoch with an evaluation, then ``--load last.pth --evaluate
+    --save_args '{skip: true}'``. Returns the training run's launches."""
+    from multimodal_dmm_tpu_torch.apps import weizmann
+    from multimodal_dmm_tpu_torch.data.weizmann import gen_synthetic
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        os.chdir(tmp)  # param_hist.tsv is written there
+        try:
+            data, save = os.path.join(tmp, "data"), os.path.join(tmp, "save")
+            gen_synthetic(data)
+            flags = ["--data_dir", data, "--save_dir", save, "--method",
+                     "bfvi", "--model_args", "{bf16_gtf: true}", "--seed",
+                     str(seed)]
+            wrappers = all_wrappers()
+            for fn in wrappers.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            hist = weizmann.main(flags + ["--epochs", "1", "--eval_freq",
+                                          "1", "--save_freq", "1"])
+            wall = time.perf_counter() - t0
+            launches = {n: fn.launches for n, fn in wrappers.items()}
+            check(all(np.isfinite(hist["epoch_loss"]))
+                  and np.isfinite(hist["eval"][0]["rec_loss"]),
+                  "bf16_gtf command line: loss %s, evaluation %s"
+                  % (hist["epoch_loss"], hist["eval"]))
+            n_bwd = launches["bfvi_scan_bwd_bf16"]
+            check(n_bwd > 0 and n_bwd % 3 == 0
+                  and launches["gtf_wgrad_bf16"] == n_bwd
+                  and launches["bfvi_scan_fwd_bf16"] == n_bwd + 1
+                  and launches["poe_sample_cell"] > 0
+                  and not any(launches[n] for n in SCAN_KERNELS),
+                  "bf16_gtf command-line run launches %s: expected 3 of "
+                  "each bf16 variant per step, one bf16 forward scan and "
+                  "the cell per evaluation, no float32 scan" % launches)
+            for fn in wrappers.values():
+                fn.launches = 0
+            evals = weizmann.main(flags + [
+                "--load", os.path.join(save, "last.pth"), "--evaluate",
+                "--save_args", "{skip: true}"])
+            e_launches = {n: fn.launches for n, fn in wrappers.items()}
+            check(e_launches["bfvi_scan_fwd_bf16"] > 0
+                  and not any(e_launches[n] for n in SCAN_KERNELS),
+                  "--evaluate launches %s" % e_launches)
+            for i, name in enumerate(("train", "test")):
+                a = dict(evals[i])
+                check(np.isfinite(a["rec_loss"]) and 0 <= a["ssim"] <= 1,
+                      "--load --evaluate %s metrics %s" % (name, a))
+            log("  main(%s --epochs 1): %d steps, epoch %.2f s, evaluation "
+                "%.2f s, loss %.1f, eval rec_loss %.1f (%.1f s of command); "
+                "launches %s; --load last.pth --evaluate: test rec_loss %.1f, "
+                "ssim %.4f, launches %s [%s]"
+                % (" ".join(flags[4:]), n_bwd // 3, hist["epoch_s"][0],
+                   hist["eval_s"][0], hist["epoch_loss"][0],
+                   hist["eval"][0]["rec_loss"], wall, launches,
+                   evals[1]["rec_loss"], evals[1]["ssim"], e_launches, card))
+        finally:
+            os.chdir(cwd)
+    return launches
+
+
+def check_bf16_gtf(scan, seed, dev, sp_gtf, card):
+    """Phase 15: ``bf16_gtf`` (a) each bf16 scan kernel against its bf16
+    plain version at the Weizmann step's shapes and at the spirals shapes;
+    (b) the Weizmann BFVI step on the kernels against the plain versions,
+    timed beside the float32 step and the bench configuration with
+    ``bf16_gtf``; (c) the evaluation; (d) the profiler's kernel names of
+    (b); (e) the command line. Returns (the Weizmann records of (a), the
+    launches of (b), (c) and (e))."""
+    from multimodal_dmm_tpu_torch.apps import weizmann
+    t0 = time.perf_counter()
+    trainer = weizmann.make_trainer(seed=seed, device=dev,
+                                    model_args={"bf16_gtf": True})
+    gtf = {n: {k: v.detach() for k, v in p.items()}
+           for n, p in trainer.params["trans"]["bwd"].items()}
+    log("  (a) the bf16 variants against their bf16 plain versions, "
+        "Weizmann (T = %d, %d columns, D = H = %d)"
+        % (T_MAIN, V_MAIN * B_DATA, Z_DIM))
+    rec = check_kernels(scan, gtf, dev, smooth_shape=None, bf16=True)
+    log("  (a) the same at the spirals shapes (T = %d, %d columns, z = 5 run "
+        "as 8, h = 20)" % (SP_T, 3 * SP_B))
+    check_kernels(scan, sp_gtf, dev, SP_T, 3 * SP_B,
+                  ((2, 1), (2, 25), (4, 1)), None, seed=700, bf16=True)
+    log("  (a) %.1f s" % (time.perf_counter() - t0))
+
+    log("  (b) the bf16_gtf step, kernels vs plain versions (T = B = %d)"
+        % T_MAIN)
+    inputs, targets, mask = synthetic_batch(seed, dev)
+    step_launches = check_bf16_step(scan, trainer, inputs, targets, mask,
+                                    seed)
+    f32 = weizmann.make_trainer(seed=seed, device=dev)
+    perms = f32.model.native_input_perms()
+    bench_kw = dict(ragged_mode_scans=True, native_mods=tuple(perms))
+    bench = weizmann.make_trainer(
+        seed=seed, device=dev, model_args={"bf16": True, "bf16_gtf": True},
+        train_args=bench_kw)
+    configs = {
+        "two_scan_f32": (f32, inputs, targets),
+        "two_scan_bf16_gtf": (trainer, inputs, targets),
+        "bench_bf16_gtf": (bench, native_batch(inputs, perms),
+                           native_batch(targets, perms)),
+    }
+    n_data = float(mask.sum().item())
+    times = {name: [] for name in configs}
+    for name, (tr, x, y) in configs.items():
+        time_steps(tr, x, y, mask, n_data, 2)  # warm-up
+    for name in list(configs) + list(configs)[::-1]:
+        tr, x, y = configs[name]
+        times[name] += time_steps(tr, x, y, mask, n_data, N_BENCH // 2)
+    for name, v in times.items():
+        tr, x, y = configs[name]
+        busy, n_kern = device_profile(
+            lambda: tr.train_step(x, y, mask, 1.0, n_data), 3)
+        dev_note = ("device time not measured" if busy is None else
+                    "device busy %.2f ms, %d kernels a step" % (busy, n_kern))
+        ms = statistics.median(v)
+        log("  %-18s median %.2f ms per step over %d steps (blocks in "
+            "turns), %.1f seqs/s; %s (torch.profiler, 3 steps) [%s]"
+            % (name, ms, len(v), B_DATA / (ms / 1e3), dev_note, card))
+    log("  (b) and (d) %.1f s" % (time.perf_counter() - t0))
+
+    log("  (c) the Weizmann evaluation with bf16_gtf, kernels vs plain "
+        "versions [%s]" % card)
+    eval_launches, _, _, _ = check_evaluation(trainer, seed, 3, bf16=True)
+
+    log("  (e) the command line, --model_args '{bf16_gtf: true}'")
+    cli_launches = run_bf16_cli(seed, card)
+    log("  phase 15: %.1f s" % (time.perf_counter() - t0))
+    return rec, {"15b": step_launches, "15c": eval_launches,
+                 "15e": cli_launches}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2296,6 +2733,8 @@ def main():
                       % (SP_T, SP_B, card))
             sp_trainer, sp_batch, sp_rec, sp_cell = check_spirals_kernels(
                 scan, cell, args.seed, dev)
+            sp_gtf = {n: {k: v.detach() for k, v in p.items()} for n, p in
+                      sp_trainer.params["trans"]["bwd"].items()}
 
             # -- phase 10: spirals BFVI at full width -------------------------
             log_phase("phase 10: spirals BFVI at full width, step and "
@@ -2327,6 +2766,12 @@ def main():
               "rank, 2 and 2x2 gloo ranks sharing the card [%s]" % card)
     dp_launches = check_data_parallel(args.seed, card)
 
+    # -- phase 15: the GTF products in bfloat16 -------------------------------
+    log_phase("phase 15: bf16_gtf, the scan kernels' bfloat16 variants, "
+              "Weizmann at full width [%s]" % card)
+    bf16_rec, bf16_launches = check_bf16_gtf(scan, args.seed, dev, sp_gtf,
+                                             card)
+
     # -- summary --------------------------------------------------------------
     log(card)
     rec["poe_sample_cell"] = cell_rec
@@ -2357,6 +2802,22 @@ def main():
                 "bound_ms": bms, "bound_by": by_what, "library_ms": None})
             if name in SCAN_KERNELS:
                 kernels[-1]["bound_f32_ms"] = r["bound_f32_ms"]
+    # The bf16 variants: times and bounds of phase 15 (a) at the Weizmann
+    # step's shapes (one bf16 pass a product), launches of its command line
+    # (e), of its step (b) and evaluation (c).
+    for name, f32_name in BF16_KERNELS.items():
+        r = bf16_rec[f32_name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": BF16_SRC,
+            "replaces": KERNELS[f32_name][1],
+            "launches": bf16_launches["15e"][name],
+            "launches_by_phase": {k: v[name]
+                                  for k, v in bf16_launches.items()},
+            "max_abs_err": r["err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": sum(r["bound_ms"].values()),
+            "bound_by": max(r["bound_ms"], key=r["bound_ms"].get),
+            "library_ms": None, "bound_f32_ms": r["bound_f32_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

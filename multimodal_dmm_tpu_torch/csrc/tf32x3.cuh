@@ -1,5 +1,6 @@
 // Tile product engine for Hopper (sm_90a): float32 products on the tensor
-// cores in 3xTF32, operands staged in shared memory by cp.async.
+// cores in 3xTF32, or bfloat16 products (the BF16 tile shapes), operands
+// staged in shared memory by cp.async.
 //
 // C[m, n] = sum_k A[m, k] B[k, n] over one BM x BN output tile. Each f32
 // operand x is split as hi = tf32(x), lo = tf32(x - hi), and the tile sums
@@ -30,6 +31,19 @@
 // stages in flight while the tensor cores work on the current one. The
 // shared-memory tiles are padded so that every fragment load of a warp
 // hits 32 distinct banks.
+//
+// The bfloat16 route (tile shapes with BF16): one mma.sync m16n8k16 bf16
+// pass a 16-deep step, f32 accumulators. Operands stay f32 in global and
+// shared memory, so the loads and their 16-byte rules are the float32
+// route's; each fragment element is rounded to bfloat16 (to nearest even,
+// cvt.rn.bf16x2.f32) as the fragment is built. A bf16 x bf16 product is
+// exact in f32, so a tile sums the exact products of the rounded operands
+// in the tensor cores' f32 adds. Every BF16 shape has one reduction group
+// (WK = 1) and so sums the 16-deep steps of K in order from zero, into
+// one accumulator: the same K-order for every tile shape, so a product
+// that two shapes compute (the scan's forward and its backward's
+// recompute) is the same bit for bit, also after its output is rounded
+// to bfloat16.
 
 #pragma once
 
@@ -45,19 +59,21 @@ enum { B_KN = 0, B_NK = 1 };
 
 // Tile shapes: BM x BN per CTA, stages BK deep in a ring of STAGES;
 // WM x WN x WK warps (8 in all), each warp a (BM / WM) x (BN / WN) block
-// of m16n8 accumulator tiles over every WK-th 8-deep step of a stage (the
+// of m16n8 accumulator tiles over every WK-th KS-deep step of a stage (the
 // WK partial sums are added in a fixed order at the end); PROMOTE as
-// above.
+// above; BF16 the bfloat16 route (KS = 16; 8 in 3xTF32).
 template <int BM_, int BN_, int BK_, int WM_, int WN_, int WK_, int STAGES_,
-          bool PROMOTE_ = false>
+          bool PROMOTE_ = false, bool BF16_ = false>
 struct Cfg {
   static constexpr int BM = BM_, BN = BN_, BK = BK_, WM = WM_, WN = WN_;
   static constexpr int WK = WK_, STAGES = STAGES_;
-  static constexpr bool PROMOTE = PROMOTE_;
+  static constexpr bool PROMOTE = PROMOTE_, BF16 = BF16_;
+  static constexpr int KS = BF16 ? 16 : 8;  // depth of one mma.sync
   static constexpr int MT = BM / WM / 16;  // m16 tiles per warp
   static constexpr int NT8 = BN / WN / 8;  // n8 tiles per warp
   static_assert(WM * WN * WK * 32 == NT, "8 warps");
-  static_assert(MT >= 1 && NT8 >= 1 && BK % (8 * WK) == 0, "warp tile");
+  static_assert(MT >= 1 && NT8 >= 1 && BK % (KS * WK) == 0, "warp tile");
+  static_assert(!BF16 || WK == 1, "one K-order for every bf16 shape");
 };
 // Large tiles from kLargeRows rows on: 128 rows share each weight tile.
 // Where that leaves too few tiles to fill the card (fewer than
@@ -70,6 +86,12 @@ using LargePromoted = Cfg<128, 64, 32, 4, 2, 1, 3, true>;  // weight gradients
 using Medium = Cfg<64, 64, 32, 2, 2, 2, 3>;
 using Small = Cfg<16, 32, 128, 1, 2, 4, 2>;
 constexpr int kLargeRows = 1024, kFillTiles = 128;
+// The bfloat16 route's shapes: the same rows and columns, except that 8
+// warps in one reduction group cover 16 rows only as 64 columns.
+using Bf16Large = Cfg<128, 64, 32, 4, 2, 1, 3, false, true>;
+using Bf16LargePromoted = Cfg<128, 64, 32, 4, 2, 1, 3, true, true>;
+using Bf16Medium = Cfg<64, 64, 32, 2, 4, 1, 3, false, true>;
+using Bf16Small = Cfg<16, 64, 128, 1, 8, 1, 2, false, true>;
 
 // Floats of one stage's A and B tiles in shared memory.
 template <class C, int LA>
@@ -86,17 +108,22 @@ __host__ __device__ constexpr int stage_floats() {
   return max_(a_floats<C, A_MK>(), a_floats<C, A_KM>()) +
          max_(b_floats<C, B_KN>(), b_floats<C, B_NK>());
 }
-// The ring, and one stage more for the low halves of the stage in use.
+// The ring, and (3xTF32) one stage more for the low halves of the stage
+// in use.
 template <class C>
 __host__ __device__ constexpr int smem_floats() {
-  return (C::STAGES + 1) * stage_floats<C>();
+  return (C::STAGES + (C::BF16 ? 0 : 1)) * stage_floats<C>();
 }
-// Shared memory of a CTA, for either tile shape: 108 KB, so that two CTAs
+// Shared memory of a CTA, for any tile shape: 108 KB, so that two CTAs
 // fit on an SM.
 constexpr size_t kSmemBytes =
     (size_t)max_(smem_floats<Large>(),
                  max_(smem_floats<Medium>(), smem_floats<Small>())) *
     sizeof(float);
+static_assert(smem_floats<Bf16Large>() * sizeof(float) <= kSmemBytes &&
+                  smem_floats<Bf16Medium>() * sizeof(float) <= kSmemBytes &&
+                  smem_floats<Bf16Small>() * sizeof(float) <= kSmemBytes,
+              "bf16 tiles fit the CTA's shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);
@@ -126,6 +153,43 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a,
                                     const uint32_t* b) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Two f32 values rounded to bfloat16 (to nearest even) in one register:
+// lo in bits 0-15, the element of the smaller index in a fragment.
+__device__ __forceinline__ uint32_t bf16x2_(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// v0, v1 rounded to bfloat16 (to nearest even), back in f32.
+__device__ __forceinline__ void round_bf16x2(float& v0, float& v1) {
+  const uint32_t r = bf16x2_(v0, v1);
+  v0 = __uint_as_float(r << 16);
+  v1 = __uint_as_float(r & 0xffff0000u);
+}
+
+__device__ __forceinline__ float round_bf16(float v) {
+  float w = 0.f;
+  round_bf16x2(v, w);
+  return v;
+}
+
+// D = A B + D on one m16n8k16 tile, A and B in bfloat16, D in f32. The
+// fragments (PTX ISA, mma.m16n8k16 with .bf16), with g = lane / 4 and
+// q = lane % 4, each register two elements, the lower index in bits 0-15:
+//   a[0]: A[g][2q, 2q+1]      a[1]: A[g+8][2q, 2q+1]
+//   a[2]: A[g][2q+8, 2q+9]    a[3]: A[g+8][2q+8, 2q+9]
+//   b[0]: B[2q, 2q+1][g]      b[1]: B[2q+8, 2q+9][g]
+// and D as in m16n8k8 (Acc below).
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
@@ -185,6 +249,26 @@ __device__ __forceinline__ float b_at(const float* Bs, int k, int n) {
   return LB == B_KN ? Bs[k * (C::BN + 8) + n] : Bs[n * (C::BK + 4) + k];
 }
 
+// Elements (m, k) and (m, k + 1) of A (k even), rounded into one bf16x2
+// register; one 8-byte load where they are adjacent in shared memory.
+template <class C, int LA>
+__device__ __forceinline__ uint32_t a_pair(const float* As, int m, int k) {
+  if (LA == A_MK) {
+    const float2 v = *reinterpret_cast<const float2*>(As + m * (C::BK + 4) + k);
+    return bf16x2_(v.x, v.y);
+  }
+  return bf16x2_(a_at<C, LA>(As, m, k), a_at<C, LA>(As, m, k + 1));
+}
+// Elements (k, n) and (k + 1, n) of B (k even), likewise.
+template <class C, int LB>
+__device__ __forceinline__ uint32_t b_pair(const float* Bs, int k, int n) {
+  if (LB == B_NK) {
+    const float2 v = *reinterpret_cast<const float2*>(Bs + n * (C::BK + 4) + k);
+    return bf16x2_(v.x, v.y);
+  }
+  return bf16x2_(b_at<C, LB>(Bs, k, n), b_at<C, LB>(Bs, k + 1, n));
+}
+
 // The accumulators of one warp: acc[i][j][0..3] is m16n8 tile (i, j) in
 // mma.sync's C layout (rows g and g + 8, columns 2q and 2q + 1, with
 // g = lane / 4, q = lane % 4).
@@ -199,9 +283,10 @@ struct Acc {
 // n0 + tid of B over the K rows, in order. Ends with the ring drained and
 // the CTA synchronised, so smem may be reused at once.
 //
-// Each stage, once landed, is split in place: the ring keeps hi = tf32(x)
-// and one more stage of smem takes lo = tf32(x - hi), so every element is
-// split once and not once per warp that reads it.
+// 3xTF32: each stage, once landed, is split in place: the ring keeps
+// hi = tf32(x) and one more stage of smem takes lo = tf32(x - hi), so
+// every element is split once and not once per warp that reads it. BF16:
+// the stage stays f32 and each warp rounds what it reads.
 template <class C, int LA, int LB>
 __device__ __forceinline__ void tile_product(Operand a, Operand b, int M,
                                              int N, int K, int m0, int n0,
@@ -251,15 +336,17 @@ __device__ __forceinline__ void tile_product(Operand a, Operand b, int M,
       }
       __syncthreads();
     }
-    for (int i = threadIdx.x * 4; i < SU; i += NT * 4) {
-      const float4 v = *reinterpret_cast<const float4*>(hi + i);
-      const float4 h = make_float4(tf32_(v.x), tf32_(v.y), tf32_(v.z), tf32_(v.w));
-      *reinterpret_cast<float4*>(hi + i) = h;
-      *reinterpret_cast<float4*>(lo + i) =
-          make_float4(tf32_(v.x - h.x), tf32_(v.y - h.y), tf32_(v.z - h.z),
-                      tf32_(v.w - h.w));
+    if constexpr (!C::BF16) {
+      for (int i = threadIdx.x * 4; i < SU; i += NT * 4) {
+        const float4 v = *reinterpret_cast<const float4*>(hi + i);
+        const float4 h = make_float4(tf32_(v.x), tf32_(v.y), tf32_(v.z), tf32_(v.w));
+        *reinterpret_cast<float4*>(hi + i) = h;
+        *reinterpret_cast<float4*>(lo + i) =
+            make_float4(tf32_(v.x - h.x), tf32_(v.y - h.y), tf32_(v.z - h.z),
+                        tf32_(v.w - h.w));
+      }
+      __syncthreads();
     }
-    __syncthreads();
 
     Acc<C> stage_sum;  // this stage's sum, if promoted
     Acc<C>& part = C::PROMOTE ? stage_sum : acc;
@@ -272,8 +359,30 @@ __device__ __forceinline__ void tile_product(Operand a, Operand b, int M,
           for (int e = 0; e < 4; ++e) part.v[i][j][e] = 0.f;
     }
 #pragma unroll
-    for (int st = 0; st < BK / (8 * C::WK); ++st) {
-      const int kk = (st * C::WK + wk) * 8;
+    for (int st = 0; st < BK / (C::KS * C::WK); ++st) {
+      const int kk = (st * C::WK + wk) * C::KS;
+      if constexpr (C::BF16) {
+        uint32_t af[C::MT][4], bf[C::NT8][2];
+#pragma unroll
+        for (int i = 0; i < C::MT; ++i) {
+          const int r = wm + i * 16 + g;
+          af[i][0] = a_pair<C, LA>(hi, r, kk + 2 * q);
+          af[i][1] = a_pair<C, LA>(hi, r + 8, kk + 2 * q);
+          af[i][2] = a_pair<C, LA>(hi, r, kk + 2 * q + 8);
+          af[i][3] = a_pair<C, LA>(hi, r + 8, kk + 2 * q + 8);
+        }
+#pragma unroll
+        for (int j = 0; j < C::NT8; ++j) {
+          const int n = wn + j * 8 + g;
+          bf[j][0] = b_pair<C, LB>(hi + SA, kk + 2 * q, n);
+          bf[j][1] = b_pair<C, LB>(hi + SA, kk + 2 * q + 8, n);
+        }
+#pragma unroll
+        for (int i = 0; i < C::MT; ++i)
+#pragma unroll
+          for (int j = 0; j < C::NT8; ++j) mma_bf16(part.v[i][j], af[i], bf[j]);
+        continue;
+      }
       uint32_t ah[C::MT][4], al[C::MT][4], bh[C::NT8][2], bl[C::NT8][2];
 #pragma unroll
       for (int i = 0; i < C::MT; ++i) {

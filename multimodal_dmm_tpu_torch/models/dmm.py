@@ -31,12 +31,19 @@ pass draws the f-mode group's noise, then the s-mode group's, then the
 smoothing pass's: the order of the two-scan step, so the same generator
 gives both the same noise. ``z_filter`` and ``z_filter_grouped`` also take
 injected ``eps``.
+
+``bf16_gtf=True`` runs every GTF product in bfloat16 where the JAX
+package's ``lax.scan`` path does (its ``_packed_trans``): the filtering
+scans through the kernels' bfloat16 variants (``bfvi_scan(bf16=True)``),
+the rollouts and the evaluation filter's ``_z_next`` through
+``nn.gtf_apply_packed`` on weights packed in bfloat16. The parameters
+stay float32.
 """
 
 import numpy as np
 import torch
 
-from .. import not_ported, resolve_device
+from .. import resolve_device
 from ..ops import losses
 from ..ops.cuda.bfvi_scan import bfvi_scan
 from ..ops.cuda.poe_cell import poe_sample_cell
@@ -61,9 +68,7 @@ class MultiDMM(ModelBase):
         # package's passes; here the CUDA kernels always run on the GPU,
         # so they are accepted and have no effect.
         del use_pallas, scan_unroll, use_scan_kernel
-        if bf16_gtf:
-            raise not_ported("bf16_gtf (the GTF products in bfloat16)",
-                              "a performance slice")
+        self.bf16_gtf = bool(bf16_gtf)
         self.modalities = list(modalities)
         self.n_mods = len(self.modalities)
         self.dims = dict(zip(self.modalities, dims))
@@ -192,9 +197,16 @@ class MultiDMM(ModelBase):
 
     # -- latent dynamics ------------------------------------------------------
 
+    def _packed_trans(self, params, direction):
+        """The transition of ``direction`` packed for a time loop, its
+        weights cast to bfloat16 with ``bf16_gtf`` (``nn.gtf_pack``)."""
+        dt = torch.bfloat16 if self.bf16_gtf else None
+        return tnn.gtf_pack(params["trans"][direction], compute_dtype=dt)
+
     def _z_next(self, trans, z, glb_mean, glb_std):
         """p(z_next | z) from particles z (K, B, D): PoE(global prior,
-        GTF(z_k)) per particle, then the moment-matched mixture."""
+        GTF(z_k)) per particle, then the moment-matched mixture; ``trans``
+        from ``_packed_trans``."""
         q_mean, q_std = tnn.gtf_apply_packed(trans, z, self.min_std)
         pp_mean, pp_std = product_of_experts_pair(glb_mean, glb_std, q_mean,
                                                   q_std)
@@ -234,24 +246,25 @@ class MultiDMM(ModelBase):
             eps = self._filter_eps(gen, t_max, n_particles, b_dim,
                                    do_sample, sample_init, z_mean.device)
         if use_cell and do_sample:
-            outs = self._cell_filter(params["trans"][direction], xs_mean,
-                                     xs_std, xs_mask, glb_mean, glb_std, eps)
+            outs = self._cell_filter(self._packed_trans(params, direction),
+                                     xs_mean, xs_std, xs_mask, glb_mean,
+                                     glb_std, eps)
         else:
             outs = bfvi_scan(xs_mean, xs_std, xs_mask, glb_mean, glb_std,
                              params["trans"][direction], eps, self.min_std,
-                             plain=self.plain_scan)
+                             plain=self.plain_scan, bf16=self.bf16_gtf)
         if direction == "bwd":
             outs = tuple(torch.flip(x, [0]) for x in outs)
         p_mean, p_std, i_mean, i_std, samples = outs
         return (i_mean, i_std), (p_mean, p_std), samples
 
-    def _cell_filter(self, gtf, xs_mean, xs_std, xs_mask, glb_mean, glb_std,
-                     eps):
+    def _cell_filter(self, trans, xs_mean, xs_std, xs_mask, glb_mean,
+                     glb_std, eps):
         """The filtering loop in scan time order, one step at a time: the
         conditional prior ``_z_next`` of the K particles (the global prior
-        at t = 0), then ``poe_sample_cell``. Returns (prior_mean,
-        prior_std, infer_mean, infer_std, samples), each (T, B, D)."""
-        trans = tnn.gtf_pack(gtf)
+        at t = 0) under the packed transition ``trans``, then
+        ``poe_sample_cell``. Returns (prior_mean, prior_std, infer_mean,
+        infer_std, samples), each (T, B, D)."""
         # One copy each instead of one per step.
         xs_mean, xs_std, xs_mask = (x.contiguous() for x in (xs_mean, xs_std,
                                                              xs_mask))
@@ -297,7 +310,7 @@ class MultiDMM(ModelBase):
         glb_mean, glb_std = self.prior_params(params, (b_dim, self.z_dim))
         mean_t, std_t = (glb_mean, glb_std) if z_init is None else z_init
         n_steps = t_max - int(inclusive)
-        trans = tnn.gtf_pack(params["trans"][direction])
+        trans = self._packed_trans(params, direction)
         dev = glb_mean.device
         shape = (n_steps, n_particles, mean_t.shape[0], self.z_dim)
         if sample or n_particles > 1:

@@ -100,32 +100,68 @@ def gtf_apply(p, z, min_std=0.0):
     return (1 - gate) * z_lin + gate * z_nonlin, z_std
 
 
-def gtf_pack(p):
+def gtf_pack(p, compute_dtype=None):
     """Concatenate the three z-side projections (gate_1, nonlin_1, z_lin)
     into one product and stack the two second-stage ones, so a time loop
     runs three products per step; ``gtf_apply_packed(gtf_pack(p), z)``
-    equals ``gtf_apply(p, z)``."""
+    equals ``gtf_apply(p, z)``. With ``compute_dtype`` (bfloat16) the
+    three packed weights are cast to it once, here, as the JAX package's
+    ``gtf_pack`` does, and ``"cd"`` names it; the biases stay float32.
+    Where no gradient reaches the weights, the cast values are kept in
+    float32 (exact there), so the products use them without a cast per
+    call."""
+    w1 = torch.cat([p["gate_1"]["w"], p["nonlin_1"]["w"], p["z_lin"]["w"]],
+                   dim=0)
+    w2 = torch.stack([p["gate_2"]["w"], p["nonlin_2"]["w"]])
+    w3 = p["z_to_std"]["w"]
+    if compute_dtype is not None:
+        grad = torch.is_grad_enabled() and any(
+            w.requires_grad for w in (w1, w2, w3))
+        cast = ((lambda w: w.to(compute_dtype)) if grad
+                else (lambda w: round_to(w, compute_dtype)))
+        w1, w2, w3 = (cast(w) for w in (w1, w2, w3))
     return {
-        "w1": torch.cat([p["gate_1"]["w"], p["nonlin_1"]["w"],
-                         p["z_lin"]["w"]], dim=0),
+        "w1": w1,
         "b1": torch.cat([p["gate_1"]["b"], p["nonlin_1"]["b"],
                          p["z_lin"]["b"]]),
-        "w2": torch.stack([p["gate_2"]["w"], p["nonlin_2"]["w"]]),
+        "w2": w2,
         "b2": torch.stack([p["gate_2"]["b"], p["nonlin_2"]["b"]]),
-        "w3": p["z_to_std"]["w"], "b3": p["z_to_std"]["b"],
+        "w3": w3, "b3": p["z_to_std"]["b"],
         "h_dim": int(p["gate_1"]["w"].shape[0]),
+        "cd": compute_dtype,
     }
 
 
+def round_to(x, dtype):
+    """``x`` rounded to ``dtype`` (to nearest even) and back to float32."""
+    return x.to(dtype).to(torch.float32)
+
+
+def linear_cd(x, w, b, cd=None):
+    """``F.linear(x, w, b)``; with a compute dtype ``cd`` (bfloat16), whose
+    values ``w`` holds (in that dtype or in float32), the JAX package's
+    ``matmul(x.astype(cd), w).astype(float32) + b``: the input rounded to
+    ``cd``, the product summed in float32 (a bfloat16 operand is exact
+    there) and rounded to ``cd``, then the float32 bias. No bfloat16 GEMM
+    runs: its accumulation would depend on the library. Autograd through
+    it rounds each cotangent to ``cd`` before its transposed product and
+    that product's output, as JAX's VJP does, and, for a ``w`` in ``cd``,
+    sums w's gradient in ``cd``."""
+    if cd is None:
+        return F.linear(x, w, b)
+    return round_to(F.linear(round_to(x, cd), w.to(torch.float32)),
+                    cd) + b
+
+
 def gtf_apply_packed(pk, z, min_std=0.0):
-    h_dim = pk["h_dim"]
-    a1 = F.linear(z, pk["w1"], pk["b1"])
+    h_dim, cd = pk["h_dim"], pk["cd"]
+    a1 = linear_cd(z, pk["w1"], pk["b1"], cd)
     g1 = F.relu(a1[..., :h_dim])
     n1 = F.relu(a1[..., h_dim:2 * h_dim])
     z_lin = a1[..., 2 * h_dim:]
-    gate = torch.sigmoid(F.linear(g1, pk["w2"][0], pk["b2"][0]))
-    z_nonlin = F.linear(n1, pk["w2"][1], pk["b2"][1])
-    z_std = F.softplus(F.linear(z_nonlin, pk["w3"], pk["b3"])) + min_std
+    gate = torch.sigmoid(linear_cd(g1, pk["w2"][0], pk["b2"][0], cd))
+    z_nonlin = linear_cd(n1, pk["w2"][1], pk["b2"][1], cd)
+    z_std = F.softplus(linear_cd(z_nonlin, pk["w3"], pk["b3"], cd)) + min_std
     return (1 - gate) * z_lin + gate * z_nonlin, z_std
 
 

@@ -27,7 +27,11 @@ plus the particle trajectory z_traj (T, K, B, D) that the backward reads.
   every particle row of every step, the activations and cotangents that
   the weight gradients are products of, and ``gtf_wgrad_cuda`` (plain
   version ``gtf_wgrad_ref``) forms those products. Each wrapper counts
-  its launches in ``.launches``. The kernels read the GTF weights in
+  its launches in ``.launches``. With ``bf16=True`` each wrapper launches
+  the kernel's bfloat16 variant instead (``*_bf16_kernel`` of
+  ``csrc/bfvi_scan_bf16.cu``: one mma.sync m16n8k16 bf16 pass a product,
+  ``csrc/tf32x3.cuh``) and counts it in ``.launches_bf16``. The kernels
+  read the GTF weights in
   PyTorch's layout; the wrapper joins gate_1, nonlin_1 and z_lin into
   one (2H + D, D) matrix and, where D or H is no multiple of 4 (the
   spirals model's D = 5), zero-pads every operand to the next multiple
@@ -38,15 +42,26 @@ plus the particle trajectory z_traj (T, K, B, D) that the backward reads.
   may ask for the plain pair (``plain=True``) or for the plain backward
   after the forward kernel (``plain="bwd"``). ``obs_mask`` and ``eps``
   get no gradient.
+
+``bf16=True`` everywhere is the JAX package's ``MultiDMM(bf16_gtf=True)``
+(its ``lax.scan`` path): every GTF product takes its operands rounded to
+bfloat16, sums them in float32 and rounds its output to bfloat16 before
+the float32 bias (``models.nn.linear_cd``); in the backward each
+cotangent is rounded to bfloat16 before its transposed product, whose
+output is rounded too. The weight gradients are products of the
+bfloat16-rounded activations and cotangents summed in float32 over all
+rows at once, where JAX rounds each step's product to bfloat16 and sums
+the steps in bfloat16 (ROADMAP.md, Queue C); the bias gradients sum the
+float32 cotangents, as JAX's do.
 """
 
 import ctypes
-import types
 
 import torch
 import torch.nn.functional as F
 
-from ...models.nn import GTF_LAYERS, gtf_apply
+from ...models.nn import (GTF_LAYERS, gtf_apply, gtf_apply_packed,
+                          gtf_pack, linear_cd, round_to)
 from . import _build
 
 EPS = 1e-8
@@ -81,20 +96,27 @@ def _poe_obs(prior_mean, prior_std, obs_mean, obs_std, obs_mask):
     return mean, std
 
 
+def _rb(x):
+    return round_to(x, torch.bfloat16)
+
+
 def bfvi_scan_fwd_ref(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
-                      eps, min_std):
+                      eps, min_std, bf16=False):
     """Plain forward: a Python loop over t. Returns (prior_mean,
-    prior_std, infer_mean, infer_std, samples, z_traj)."""
+    prior_std, infer_mean, infer_std, samples, z_traj). ``bf16``: the GTF
+    products with the JAX package's bfloat16 rounding points."""
     t_max = obs_mean.shape[0]
     obs_mask = obs_mask.to(obs_mean.dtype)
     p1 = 1.0 / (glb_std * glb_std + EPS)
     z = None
     outs = [[] for _ in range(6)]
+    packed = gtf_pack(gtf, torch.bfloat16) if bf16 else None
     for t in range(t_max):
         if t == 0:
             prior_mean, prior_std = glb_mean, glb_std
         else:
-            q_mean, q_std = gtf_apply(gtf, z, min_std)
+            q_mean, q_std = (gtf_apply_packed(packed, z, min_std) if bf16
+                             else gtf_apply(gtf, z, min_std))
             p2 = 1.0 / (q_std * q_std + EPS)
             den2 = p1 + p2
             pp_mean = (glb_mean * p1 + q_mean * p2) / den2
@@ -112,14 +134,34 @@ def bfvi_scan_fwd_ref(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
     return tuple(torch.stack(v) for v in outs)
 
 
-def bfvi_scan_bwd_ref(res, cots, min_std):
+def _layer(x, w, b, bf16):
+    """A GTF layer's pre-activation x w^T + b; with ``bf16`` the product
+    of the bfloat16-rounded operands, summed in float32, rounded to
+    bfloat16 before the float32 bias (``nn.linear_cd``)."""
+    if not bf16:
+        return linear_cd(x, w, b)
+    return linear_cd(x, w.to(torch.bfloat16), b, torch.bfloat16)
+
+
+def _cot_product(c, w, bf16):
+    """c @ w, a cotangent through a layer's weight (out, in); with
+    ``bf16`` the cotangent and the weight rounded to bfloat16 and the
+    product's output too."""
+    if not bf16:
+        return c @ w
+    return _rb(_rb(c) @ _rb(w))
+
+
+def bfvi_scan_bwd_ref(res, cots, min_std, bf16=False):
     """Plain backward: the TPU kernel's hand-derived reverse-time VJP in
     tensor ops. ``res`` = (obs_mean, obs_std, obs_mask, glb_mean,
     glb_std, gtf, eps, z_traj, prior_mean, prior_std); ``cots`` = the
     five output cotangents. Returns (d_obs_mean, d_obs_std, d_glb_mean,
     d_glb_std, d_gtf) with d_gtf in PyTorch layout. As in the kernels,
     the weight gradients are formed after the loop (``gtf_wgrad_ref``)
-    from the activations and cotangents of every step."""
+    from the activations and cotangents of every step. ``bf16``: the GTF
+    products and their transposes with the JAX package's bfloat16
+    rounding points (module docstring)."""
     (obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps, z_traj,
      prior_mean, prior_std) = res
     g_pm, g_ps, g_im, g_is, g_smp = cots
@@ -176,14 +218,14 @@ def bfvi_scan_bwd_ref(res, cots, min_std):
 
         # Recompute the transition on z_{t-1}.
         z_prev = z_traj[t - 1]
-        a1 = F.linear(z_prev, w["gate_1"], b["gate_1"])
+        a1 = _layer(z_prev, w["gate_1"], b["gate_1"], bf16)
         h1 = F.relu(a1)
-        gate = torch.sigmoid(F.linear(h1, w["gate_2"], b["gate_2"]))
-        z_lin = F.linear(z_prev, w["z_lin"], b["z_lin"])
-        b1 = F.linear(z_prev, w["nonlin_1"], b["nonlin_1"])
+        gate = torch.sigmoid(_layer(h1, w["gate_2"], b["gate_2"], bf16))
+        z_lin = _layer(z_prev, w["z_lin"], b["z_lin"], bf16)
+        b1 = _layer(z_prev, w["nonlin_1"], b["nonlin_1"], bf16)
         hn = F.relu(b1)
-        z_non = F.linear(hn, w["nonlin_2"], b["nonlin_2"])
-        s_raw = F.linear(z_non, w["z_to_std"], b["z_to_std"])
+        z_non = _layer(hn, w["nonlin_2"], b["nonlin_2"], bf16)
+        s_raw = _layer(z_non, w["z_to_std"], b["z_to_std"], bf16)
         q_std = F.softplus(s_raw) + min_std
         q_mean = (1 - gate) * z_lin + gate * z_non
         p2 = 1.0 / (q_std * q_std + EPS)
@@ -212,13 +254,18 @@ def bfvi_scan_bwd_ref(res, cots, min_std):
 
         # GTF VJP.
         d_sraw = d_qs * torch.sigmoid(s_raw)
-        d_znon = d_sraw @ w["z_to_std"] + d_qm * gate
+        d_znon = _cot_product(d_sraw, w["z_to_std"], bf16) + d_qm * gate
         d_zlin = d_qm * (1 - gate)
         d_a2 = d_qm * (z_non - z_lin) * gate * (1 - gate)
-        d_a1 = (d_a2 @ w["gate_2"]) * (a1 > 0)
-        d_b1 = (d_znon @ w["nonlin_2"]) * (b1 > 0)
-        gz = (d_a1 @ w["gate_1"] + d_zlin @ w["z_lin"]
-              + d_b1 @ w["nonlin_1"])
+        d_a1 = _cot_product(d_a2, w["gate_2"], bf16) * (a1 > 0)
+        d_b1 = _cot_product(d_znon, w["nonlin_2"], bf16) * (b1 > 0)
+        if bf16:  # one product over the packed [gate_1; nonlin_1; z_lin]
+            gz = _cot_product(
+                torch.cat([d_a1, d_b1, d_zlin], dim=-1),
+                torch.cat([w["gate_1"], w["nonlin_1"], w["z_lin"]]), True)
+        else:
+            gz = (d_a1 @ w["gate_1"] + d_zlin @ w["z_lin"]
+                  + d_b1 @ w["nonlin_1"])
         xs[t] = torch.cat([h1, hn, z_non], dim=-1)
         ys[t] = torch.cat([d_a1, d_b1, d_zlin, d_a2, d_znon, d_sraw], dim=-1)
 
@@ -231,20 +278,24 @@ def bfvi_scan_bwd_ref(res, cots, min_std):
         xs = obs_mean.new_zeros((0, 2 * h + d))
         ys = obs_mean.new_zeros((0, 2 * h + 4 * d))
     return (d_obs_mean, d_obs_std, d_glb_mean, d_glb_std,
-            gtf_wgrad_ref(z_traj, xs, ys))
+            gtf_wgrad_ref(z_traj, xs, ys, bf16))
 
 
-def relu_flip_bound(d):
+def relu_flip_bound(d, bf16=False):
     """How close to 0, relative to sum_i |z_i w_i| + |b|, the exact
     pre-activation of a GTF first-layer unit with D = ``d`` inputs must
     lie where the backward kernel (3xTF32 on the tensor cores, whose adds
     truncate) and the plain backward (float32) put it on opposite sides
     of its ReLU: twice the worst-case rounding of the (D + 1)-term sum at
-    truncation's unit 2^-23, plus the split's 3 * 2^-22 a product."""
-    return 2.0 * (d + 7) * 2.0 ** -23
+    truncation's unit 2^-23, plus the split's 3 * 2^-22 a product. With
+    ``bf16`` (z and w the bfloat16-rounded operands, whose products are
+    exact) each side also rounds the product's sum to bfloat16 before the
+    bias, up to 2^-8 of it: twice that more."""
+    f32 = 2.0 * (d + 7) * 2.0 ** -23
+    return f32 + 2.0 * 2.0 ** -8 if bf16 else f32
 
 
-def bfvi_scan_bwd_ref_on_masks(res, cots, min_std, xs):
+def bfvi_scan_bwd_ref_on_masks(res, cots, min_std, xs, bf16=False):
     """``bfvi_scan_bwd_ref`` with the ReLU masks of the GTF first layers
     (gate_1, nonlin_1) taken from ``xs``, the rows that the backward kernel
     wrote (a unit is on where its h1 or hn there is > 0), instead of from
@@ -257,8 +308,9 @@ def bfvi_scan_bwd_ref_on_masks(res, cots, min_std, xs):
     Returns (the outputs of ``bfvi_scan_bwd_ref``, margins): margins maps
     gate_1 and nonlin_1 to the exact (float64) |pre-activation| / (sum_i
     |z_i w_i| + |b|) at each unit where the masks differ, to be held
-    within ``relu_flip_bound(D)``."""
-    global F
+    within ``relu_flip_bound(D, bf16)``; with ``bf16``, of the
+    bfloat16-rounded z and w."""
+    global _layer
     z_traj, gtf = res[7], res[5]
     t_max, k, b_dim, d = z_traj.shape
     h = gtf["gate_1"]["w"].shape[0]
@@ -266,10 +318,10 @@ def bfvi_scan_bwd_ref_on_masks(res, cots, min_std, xs):
     first = {id(gtf[n]["w"]): (n, i * h) for i, n in
              enumerate(("gate_1", "nonlin_1"))}
     margins = {"gate_1": [], "nonlin_1": []}
-    plain_f = F
+    plain_layer = _layer
 
-    def linear(x, w, b):
-        out = plain_f.linear(x, w, b)
+    def layer(x, w, b, bf16):
+        out = plain_layer(x, w, b, bf16)
         if id(w) not in first:
             return out
         name, col = first[id(w)]
@@ -277,19 +329,19 @@ def bfvi_scan_bwd_ref_on_masks(res, cots, min_std, xs):
         on = rows[t1, ..., col:col + h] > 0
         flip = on != (out > 0)
         if bool(flip.any()):
-            x64, w64, b64 = x.double(), w.double(), b.double()
-            exact = plain_f.linear(x64, w64, b64).abs()
-            scale = plain_f.linear(x64.abs(), w64.abs(), b64.abs())
+            xr, wr = (_rb(x), _rb(w)) if bf16 else (x, w)
+            x64, w64, b64 = xr.double(), wr.double(), b.double()
+            exact = F.linear(x64, w64, b64).abs()
+            scale = F.linear(x64.abs(), w64.abs(), b64.abs())
             margins[name].append((exact / scale)[flip])
         return torch.where(on, out.clamp(min=torch.finfo(out.dtype).tiny),
                            out.clamp(max=0.0))
 
-    F = types.SimpleNamespace(linear=linear, relu=plain_f.relu,
-                              softplus=plain_f.softplus)
+    _layer = layer
     try:
-        outs = bfvi_scan_bwd_ref(res, cots, min_std)
+        outs = bfvi_scan_bwd_ref(res, cots, min_std, bf16)
     finally:
-        F = plain_f
+        _layer = plain_layer
     none = torch.zeros((0,), dtype=torch.float64, device=z_traj.device)
     return outs, {n: torch.cat(v) if v else none for n, v in margins.items()}
 
@@ -302,8 +354,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _lib():
-    lib = _build.load("bfvi_scan")
+def _lib(bf16=False):
+    """The kernels' library: the float32 kernels, or with ``bf16`` their
+    bfloat16 variants (``csrc/bfvi_scan_bf16.cu``), with the same C entry
+    points."""
+    lib = _build.load("bfvi_scan_bf16" if bf16 else "bfvi_scan")
     if not getattr(lib, "_bfvi_typed", False):
         lib.bfvi_scan_fwd.argtypes = ([_P] * 22 + [_I] * 6
                                       + [ctypes.c_float, _P])
@@ -467,11 +522,19 @@ def _check_inputs(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
     return t_max, n_exp, b_dim, k, d, h
 
 
+def _count(wrapper, bf16):
+    """One launch of ``wrapper``'s kernel, on its route's counter."""
+    if bf16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
+
+
 def bfvi_scan_fwd_cuda(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
-                       eps, min_std):
-    """Launch the forward kernel on the current stream, at widths padded
-    to multiples of 4 (``_check_sizes``); same outputs as
-    ``bfvi_scan_fwd_ref``."""
+                       eps, min_std, bf16=False):
+    """Launch the forward kernel (its bfloat16 variant with ``bf16``) on
+    the current stream, at widths padded to multiples of 4
+    (``_check_sizes``); same outputs as ``bfvi_scan_fwd_ref``."""
     t_max, n_exp, b_dim, k, d, h = _check_inputs(
         obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps)
     dp, hp = _check_sizes(k, d, h)
@@ -482,21 +545,21 @@ def bfvi_scan_fwd_cuda(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
     x, gtf, eps = _pad_scan_inputs(obs_mean, obs_std, obs_mask, glb_mean,
                                   glb_std, gtf, eps, dp, hp)
     stream = torch.cuda.current_stream(obs_mean.device).cuda_stream
-    rc = _lib().bfvi_scan_fwd(
+    rc = _lib(bf16).bfvi_scan_fwd(
         *[_ptr(v) for v in x + _kernel_weights(gtf) + [eps] + outs
           + [work, _barrier(obs_mean.device)]],
         t_max, n_exp, b_dim, k, dp, hp, float(min_std),
         ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError("bfvi_scan_fwd kernel launch failed: CUDA error "
-                           "%d" % rc)
-    bfvi_scan_fwd_cuda.launches += 1
+        raise RuntimeError("bfvi_scan_fwd%s kernel launch failed: CUDA "
+                           "error %d" % ("_bf16" if bf16 else "", rc))
+    _count(bfvi_scan_fwd_cuda, bf16)
     if dp != d:
         outs = [o[..., :d].contiguous() for o in outs]
     return tuple(outs)
 
 
-bfvi_scan_fwd_cuda.launches = 0
+bfvi_scan_fwd_cuda.launches = bfvi_scan_fwd_cuda.launches_bf16 = 0
 
 
 def partial_size(d, h):
@@ -506,10 +569,11 @@ def partial_size(d, h):
     return d * la + la + 2 * (h * d + d) + d * d + d
 
 
-def bfvi_scan_bwd_cuda(res, cots, min_std):
+def bfvi_scan_bwd_cuda(res, cots, min_std, bf16=False):
     """Launch the backward scan kernel on the current stream, then the
-    weight-gradient kernel on the rows it wrote, at widths padded to
-    multiples of 4; same outputs as ``bfvi_scan_bwd_ref``."""
+    weight-gradient kernel on the rows it wrote (their bfloat16 variants
+    with ``bf16``), at widths padded to multiples of 4; same outputs as
+    ``bfvi_scan_bwd_ref``."""
     (obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps, z_traj,
      prior_mean, prior_std) = res
     t_max, n_exp, b_dim, k, d, h = _check_inputs(
@@ -534,20 +598,20 @@ def bfvi_scan_bwd_cuda(res, cots, min_std):
     x = (list(res[:5]) + _kernel_weights(res[5]) + list(res[6:])
          + list(cots))
     stream = torch.cuda.current_stream(obs_mean.device).cuda_stream
-    rc = _lib().bfvi_scan_bwd(
+    rc = _lib(bf16).bfvi_scan_bwd(
         *[_ptr(v) for v in x + [d_obs_mean, d_obs_std, d_glb_mean,
                                 d_glb_std, xs, ys, gz,
                                 _barrier(obs_mean.device)]],
         t_max, n_exp, b_dim, k, dp, hp, float(min_std),
         ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError("bfvi_scan_bwd kernel launch failed: CUDA error "
-                           "%d" % rc)
-    bfvi_scan_bwd_cuda.launches += 1
+        raise RuntimeError("bfvi_scan_bwd%s kernel launch failed: CUDA "
+                           "error %d" % ("_bf16" if bf16 else "", rc))
+    _count(bfvi_scan_bwd_cuda, bf16)
     if bfvi_scan_bwd_cuda.rows is not None:
         bfvi_scan_bwd_cuda.rows.append(
             _unpad_blocks(xs, (h, h, d), (hp, hp, dp)))
-    d_gtf = _gtf_wgrad_launch(z_traj, xs, ys, n_rows, dp, hp)
+    d_gtf = _gtf_wgrad_launch(z_traj, xs, ys, n_rows, dp, hp, bf16)
     outs = (d_obs_mean, d_obs_std, d_glb_mean, d_glb_std)
     if dp != d:
         outs = tuple(o[..., :d].contiguous() for o in outs)
@@ -556,11 +620,12 @@ def bfvi_scan_bwd_cuda(res, cots, min_std):
     return outs + (d_gtf,)
 
 
-bfvi_scan_bwd_cuda.launches = 0
-# A list to which each launch appends the xs rows it wrote, at the real
-# widths (their h1 and hn hold the kernel's ReLU masks, for
-# bfvi_scan_bwd_ref_on_masks), or None.
+bfvi_scan_bwd_cuda.launches = bfvi_scan_bwd_cuda.launches_bf16 = 0
+# A list to which each launch (of either variant) appends the xs rows it
+# wrote, at the real widths (their h1 and hn hold the kernel's ReLU masks,
+# for bfvi_scan_bwd_ref_on_masks), or None.
 bfvi_scan_bwd_cuda.rows = None
+
 
 
 # The weight-gradient kernel's CTAs: its output tiles (128 x 64, the
@@ -587,47 +652,53 @@ def _wgrad_dims(z_traj, xs):
     return (t_max - 1) * k * b_dim, d, (xs.shape[1] - d) // 2
 
 
-def gtf_wgrad_ref(z_traj, xs, ys):
+def gtf_wgrad_ref(z_traj, xs, ys, bf16=False):
     """Plain version of ``gtf_wgrad_cuda``: the GTF weight gradients, in
     PyTorch layout, as products over the backward's rows. Row
     ((t-1) K + k) B + b of xs = [h1 | hn | z_nonlin] and of ys = [d_a1 |
     d_b1 | d_zlin | d_a2 | d_znonlin | d_sraw] belong to particle k of
     column b at step t >= 1, whose input z_traj[t-1, k, b] is the same
-    row of z_traj."""
+    row of z_traj. ``bf16``: the weight gradients are products of the
+    bfloat16-rounded rows (summed in float32); the bias gradients sum the
+    float32 cotangents."""
     n_rows, d, h = _wgrad_dims(z_traj, xs)
     z = z_traj.reshape(-1, d)[:n_rows]
     y1, d_a2, d_znon, d_sraw = torch.split(ys, [2 * h + d, d, d, d], dim=1)
     h1, hn, z_non = torch.split(xs, [h, h, d], dim=1)
-    dw1, db1 = y1.t() @ z, y1.sum(0)
+    r = _rb if bf16 else (lambda x: x)
+    dw1, db1 = r(y1).t() @ r(z), y1.sum(0)
     return {
         "gate_1": {"w": dw1[:h], "b": db1[:h]},
         "nonlin_1": {"w": dw1[h:2 * h], "b": db1[h:2 * h]},
         "z_lin": {"w": dw1[2 * h:], "b": db1[2 * h:]},
-        "gate_2": {"w": d_a2.t() @ h1, "b": d_a2.sum(0)},
-        "nonlin_2": {"w": d_znon.t() @ hn, "b": d_znon.sum(0)},
-        "z_to_std": {"w": d_sraw.t() @ z_non, "b": d_sraw.sum(0)},
+        "gate_2": {"w": r(d_a2).t() @ r(h1), "b": d_a2.sum(0)},
+        "nonlin_2": {"w": r(d_znon).t() @ r(hn), "b": d_znon.sum(0)},
+        "z_to_std": {"w": r(d_sraw).t() @ r(z_non), "b": d_sraw.sum(0)},
     }
 
 
-def _gtf_wgrad_launch(z_traj, xs, ys, n_rows, d, h):
-    """Launch the weight-gradient kernel on rows at widths (D, H) that are
-    multiples of 4 and sum its partials in a fixed order."""
+def _gtf_wgrad_launch(z_traj, xs, ys, n_rows, d, h, bf16):
+    """Launch the weight-gradient kernel (its bfloat16 variant with
+    ``bf16``) on rows at widths (D, H) that are multiples of 4 and sum its
+    partials in a fixed order."""
     splits = wgrad_splits(d, h)
     partial = torch.empty((splits, partial_size(d, h)), dtype=torch.float32,
                           device=xs.device)
     stream = torch.cuda.current_stream(xs.device).cuda_stream
-    rc = _lib().gtf_wgrad(_ptr(z_traj), _ptr(xs), _ptr(ys), _ptr(partial),
-                          splits, n_rows, d, h, ctypes.c_void_p(stream))
+    rc = _lib(bf16).gtf_wgrad(_ptr(z_traj), _ptr(xs), _ptr(ys),
+                              _ptr(partial), splits, n_rows, d, h,
+                              ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError("gtf_wgrad kernel launch failed: CUDA error %d"
-                           % rc)
-    gtf_wgrad_cuda.launches += 1
+        raise RuntimeError("gtf_wgrad%s kernel launch failed: CUDA error %d"
+                           % ("_bf16" if bf16 else "", rc))
+    _count(gtf_wgrad_cuda, bf16)
     return unpack_partial(partial.sum(0), d, h)
 
 
-def gtf_wgrad_cuda(z_traj, xs, ys):
-    """Launch the weight-gradient kernel on the current stream, at widths
-    padded to multiples of 4; same outputs as ``gtf_wgrad_ref``."""
+def gtf_wgrad_cuda(z_traj, xs, ys, bf16=False):
+    """Launch the weight-gradient kernel (its bfloat16 variant with
+    ``bf16``) on the current stream, at widths padded to multiples of 4;
+    same outputs as ``gtf_wgrad_ref``."""
     n_rows, d, h = _wgrad_dims(z_traj, xs)
     _check_tensor("z_traj", z_traj, tuple(z_traj.shape))
     _check_tensor("xs", xs, (n_rows, 2 * h + d))
@@ -636,11 +707,11 @@ def gtf_wgrad_cuda(z_traj, xs, ys):
     grads = _gtf_wgrad_launch(
         _pad_last(z_traj, dp), _pad_blocks(xs, (h, h, d), (hp, hp, dp)),
         _pad_blocks(ys, (h, h) + (d,) * 4, (hp, hp) + (dp,) * 4), n_rows,
-        dp, hp)
+        dp, hp, bf16)
     return grads if (dp, hp) == (d, h) else _unpad_gtf(grads, d, h)
 
 
-gtf_wgrad_cuda.launches = 0
+gtf_wgrad_cuda.launches = gtf_wgrad_cuda.launches_bf16 = 0
 
 
 def unpack_partial(tot, d, h):
@@ -671,14 +742,15 @@ def _gtf_from_flat(wb):
 class _BfviScan(torch.autograd.Function):
 
     @staticmethod
-    def forward(ctx, min_std, plain, obs_mean, obs_std, obs_mask,
+    def forward(ctx, min_std, plain, bf16, obs_mean, obs_std, obs_mask,
                 glb_mean, glb_std, eps, *wb):
         gtf = _gtf_from_flat(wb)
         kernel = obs_mean.is_cuda and plain is not True
         fwd = bfvi_scan_fwd_cuda if kernel else bfvi_scan_fwd_ref
         outs = fwd(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps,
-                   min_std)
+                   min_std, bf16=bf16)
         ctx.min_std = min_std
+        ctx.bf16 = bf16
         ctx.kernel = kernel and not plain
         ctx.save_for_backward(obs_mean, obs_std, obs_mask, glb_mean,
                               glb_std, eps, outs[5], outs[0], outs[1], *wb)
@@ -693,20 +765,23 @@ class _BfviScan(torch.autograd.Function):
         res = (obs_mean, obs_std, obs_mask, glb_mean, glb_std,
                _gtf_from_flat(wb), eps, z_traj, prior_mean, prior_std)
         bwd = bfvi_scan_bwd_cuda if ctx.kernel else bfvi_scan_bwd_ref
-        d_om, d_os, d_gm, d_gs, d_gtf = bwd(res, cots, ctx.min_std)
+        d_om, d_os, d_gm, d_gs, d_gtf = bwd(res, cots, ctx.min_std,
+                                            bf16=ctx.bf16)
         flat = []
         for name in GTF_LAYERS:
             flat += [d_gtf[name]["w"], d_gtf[name]["b"]]
-        return (None, None, d_om, d_os, None, d_gm, d_gs, None) + tuple(flat)
+        return ((None, None, None, d_om, d_os, None, d_gm, d_gs, None)
+                + tuple(flat))
 
 
 def bfvi_scan(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps,
-              min_std, plain=False):
+              min_std, plain=False, bf16=False):
     """Differentiable fused filtering loop. Returns (prior_mean,
     prior_std, infer_mean, infer_std, samples), each (T, B, D).
     ``plain=True`` runs the plain versions on any device and
     ``plain="bwd"`` only the backward, to hold the kernels against them
-    on the GPU."""
+    on the GPU. ``bf16``: the GTF products in bfloat16 (module
+    docstring), through the kernels' bfloat16 variants on the GPU."""
     if plain not in (False, True, "bwd"):
         raise ValueError("plain must be False, True or 'bwd', got %r"
                          % (plain,))
@@ -714,7 +789,7 @@ def bfvi_scan(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps,
     for name in GTF_LAYERS:
         wb += [gtf[name]["w"].contiguous(), gtf[name]["b"].contiguous()]
     return _BfviScan.apply(
-        float(min_std), plain, obs_mean.contiguous(),
+        float(min_std), plain, bool(bf16), obs_mean.contiguous(),
         obs_std.contiguous(),
         obs_mask.to(torch.float32).contiguous(), glb_mean.contiguous(),
         glb_std.contiguous(), eps.contiguous(), *wb)

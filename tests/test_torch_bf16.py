@@ -20,7 +20,8 @@ from multimodal_dmm_tpu_torch.convert import tree_from_jax
 from multimodal_dmm_tpu_torch.models import codecs as tc
 from multimodal_dmm_tpu_torch.models import nn as tnn
 
-from torch_parity import np_tree, port_tree, t
+from torch_parity import (leaf_errors, np_tree, port_tree, t,
+                          weizmann_step)
 
 TOL = dict(rtol=0.05, atol=0.05)
 KW = dict(img_size=32, n_kernels=16)
@@ -136,76 +137,19 @@ def test_weizmann_model_bf16_map_forward(bf16):
 BF16_GRAD_RTOL = 0.25
 
 
-def _weizmann_step(bf16, zh=32, t_dim=6, b_dim=4):
-    """Loss and gradients of the Weizmann model's MAP step (full-size image
-    codecs, latent width ``zh``) in JAX and in the port, on one batch and
-    the same weights: ((jax loss, grads), (port loss, grads)), the grads
-    as {path: array} in the port's layout."""
-    from multimodal_dmm_tpu_torch.tree import tree_leaves_with_path
-    from torch_parity import grads_of, with_grad
-    mods = ["video", "person", "action"]
-    model_args = {"z_dim": zh, "h_dim": zh, "bf16": bf16}
-    args = types.SimpleNamespace(model_args=dict(model_args), model="dmm",
-                                 modalities=mods)
-    jmodel = WeizmannTrainer.build_model(None, JMultiDMM, args)
-    tmodel = tw.build_model(mods, dict(model_args))
-    rng = np.random.RandomState(3)
-    targets = {
-        "video": (rng.rand(t_dim, b_dim, 3, 64, 64) > 0.5).astype(
-            np.float32),
-        "person": rng.randint(0, 9, (t_dim, b_dim, 1)).astype(np.float32),
-        "action": rng.randint(0, 10, (t_dim, b_dim, 1)).astype(np.float32)}
-    inputs = {m: v.copy() for m, v in targets.items()}
-    inputs["video"][rng.rand(t_dim, b_dim) < 0.3] = np.nan
-    mask = np.ones((t_dim, b_dim, 1), np.float32)
-    rec_mults = {"video": 1.0, "person": 10.0, "action": 10.0}
-    kw = dict(sample=False, train_particles=1, match_mult=0.0,
-              uni_loss=True, train=True)
-    jparams, jstate = jmodel.init(jax.random.PRNGKey(0))
-    jx = lambda d: {m: jnp.asarray(v) for m, v in d.items()}  # noqa: E731
-
-    def jloss(p):
-        return jmodel.step(p, jstate, jx(inputs), jnp.asarray(mask), 1.0,
-                           rec_mults, jax.random.PRNGKey(2),
-                           targets=jx(targets), **kw)
-
-    (jl, _), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jparams)
-    tparams, tstate = port_tree(jparams, jstate, tmodel)
-    tparams = with_grad(tparams)
-    tl, _ = tmodel.step(tparams, tstate, {m: t(v) for m, v in inputs.items()},
-                        t(mask), 1.0, rec_mults,
-                        torch.Generator().manual_seed(0),
-                        targets={m: t(v) for m, v in targets.items()}, **kw)
-    tl.backward()
-    exp_g, _ = port_tree(jg, jstate, tmodel)
-    leaves = lambda g: {p: v.detach().numpy()  # noqa: E731
-                        for p, v in tree_leaves_with_path(g)}
-    return ((float(jl), leaves(exp_g)),
-            (tl.item(), leaves(grads_of(tparams))))
-
-
-def _leaf_errors(got, exp):
-    """{path: relative Frobenius error} of ``got`` against ``exp``, leaves
-    that are rounding noise (under 1e-5 of the largest, such as the bias
-    of a convolution that feeds a training-mode BatchNorm) left out."""
-    top = max(np.abs(e).max() for e in exp.values())
-    return {p: float(np.linalg.norm(got[p] - e) / np.linalg.norm(e))
-            for p, e in exp.items() if np.abs(e).max() >= 1e-5 * top}
-
-
 def test_weizmann_step_bf16_matches_jax():
     """The bf16 step (MAP, edge layout) against the JAX package's: loss
     within rtol 1e-4, each gradient leaf within BF16_GRAD_RTOL. Both
     frameworks' bf16 steps also stay within BF16_GRAD_RTOL of their f32
     steps, leaf by leaf; the largest of those errors are printed (the
     transition's weights, several per cent in each)."""
-    (jl16, jg16), (tl16, tg16) = _weizmann_step(True)
-    (jl32, jg32), (tl32, tg32) = _weizmann_step(False)
+    (jl16, jg16), (tl16, tg16) = weizmann_step({"bf16": True})
+    (jl32, jg32), (tl32, tg32) = weizmann_step({"bf16": False})
     np.testing.assert_allclose(tl16, jl16, rtol=1e-4)
     for name, got, exp in (("port bf16 vs JAX bf16", tg16, jg16),
                            ("JAX bf16 vs JAX f32", jg16, jg32),
                            ("port bf16 vs port f32", tg16, tg32)):
-        err = _leaf_errors(got, exp)
+        err = leaf_errors(got, exp)
         worst = max(err, key=err.get)
         print("%s: largest leaf error %.3g at %s"
               % (name, err[worst], "/".join(map(str, worst))))

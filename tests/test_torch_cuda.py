@@ -162,6 +162,40 @@ def _check_against_plain(x, gtf, eps, cots):
             _assert_grads(got[4][name][kk], ref[4][name][kk], name + kk)
 
 
+# The bf16 variants against the bf16 plain versions (chip_smoke.py's
+# BF16_TOL and BF16_GRAD_RTOL): the Small (K = 1, B = 7), Medium (1,125 rows
+# a step) and Large tiles, the Weizmann width, and the spirals widths padded
+# to D = 8, whose 8- and 20-deep products end inside one 16-deep step.
+@pytest.mark.parametrize("t_max,b_dim,d,h,k", [
+    (6, 7, 32, 24, 1), (6, 45, 32, 24, 25), (4, 50, 256, 256, 25),
+    (10, 45, 5, 20, 25)])
+def test_bf16_kernels_match_plain_versions(dev, t_max, b_dim, d, h, k):
+    x, gtf, eps, cots = _inputs(dev, t_max=t_max, b_dim=b_dim, d=d, h=h, k=k)
+    got = tscan.bfvi_scan_fwd_cuda(*x, gtf, eps, MIN_STD, bf16=True)
+    exp = tscan.bfvi_scan_fwd_ref(*x, gtf, eps, MIN_STD, bf16=True)
+    for i, (g, e) in enumerate(zip(got, exp)):
+        np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(),
+                                   rtol=5e-2, atol=5e-2, err_msg=str(i))
+    res = tuple(x) + (gtf, eps, exp[5], exp[0], exp[1])
+    tscan.bfvi_scan_bwd_cuda.rows = rows = []
+    try:
+        got = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD, bf16=True)
+    finally:
+        tscan.bfvi_scan_bwd_cuda.rows = None
+    again = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD, bf16=True)
+    ref, margins = tscan.bfvi_scan_bwd_ref_on_masks(res, cots, MIN_STD,
+                                                    rows[0], bf16=True)
+    bound = tscan.relu_flip_bound(d, bf16=True)
+    for name, m in margins.items():
+        assert bool((m <= bound).all()), (name, m.max().item(), bound)
+    pairs = list(zip(got[:4], ref[:4], again[:4]))
+    pairs += [(got[4][n][kk], ref[4][n][kk], again[4][n][kk])
+              for n in tscan.GTF_LAYERS for kk in ("w", "b")]
+    for g, e, g2 in pairs:
+        assert torch.equal(g, g2)
+        assert ((g - e).norm() / e.norm()).item() <= 0.25
+
+
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
 def test_z_filter_cuda_matches_cpu(dev, direction):
     """The model's filtering pass on the GPU (kernels) equals the same

@@ -260,9 +260,11 @@ def _argv(data_dir, save_dir, *extra):
 
 
 @pytest.mark.parametrize("flags", [["--method", "bfvi"],
+                                   ["--method", "bfvi", "--model_args",
+                                    "{bf16_gtf: true}"],
                                    ["--method", "b-skip"],
                                    ["--model", "vrnn"]],
-                         ids=["bfvi", "b-skip", "vrnn"])
+                         ids=["bfvi", "bfvi_bf16_gtf", "b-skip", "vrnn"])
 def test_cli_trains_and_evaluates(tiny_env, tmp_path, flags):
     save = tmp_path / "save"
     hist = ts.main(_argv(tiny_env, save, "--epochs", "2", "--eval_freq", "1",

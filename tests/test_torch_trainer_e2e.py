@@ -121,7 +121,6 @@ def _leaves(tree):
     ["--mesh", "2", "--visualize"], ["--visualize"],
     ["--find_best", "--visualize"],
     ["--rng_impl", "rbg"],
-    ["--model_args", "{bf16_gtf: true}"],
     ["--evaluate", "--save_args", "{}"]], ids=lambda f: f[0].strip("-"))
 def test_later_slice_flags_raise(data_dir, tmp_path, flags):
     if flags[0] == "--evaluate":
@@ -130,6 +129,28 @@ def test_later_slice_flags_raise(data_dir, tmp_path, flags):
     argv = _argv(data_dir, tmp_path / "save", *flags)
     with pytest.raises(NotImplementedError, match="later slice"):
         tw.main(argv)
+
+
+def test_bf16_gtf_trains_and_reloads(data_dir, tmp_path):
+    """``--model_args '{bf16_gtf: true}'`` (with the bf16 codecs and the
+    ragged step) reaches the model: one epoch trains, and ``--load
+    last.pth --evaluate`` runs on the checkpoint, whose evaluation without
+    the flag gives other metrics."""
+    save = tmp_path / "save"
+    args = "{bf16: true, bf16_gtf: true, z_dim: 8, h_dim: 8}"
+    hist = _run(data_dir, save, "--model_args", args, *TRAIN[
+        "ragged_bf16"][2:], epochs=1)
+    assert np.all(np.isfinite(hist["epoch_loss"]))
+    assert np.isfinite(hist["eval"][0]["rec_loss"])
+    evals = [_run(data_dir, save, "--model_args", a, "--load",
+                  str(save / "last.pth"), "--evaluate", "--save_args",
+                  "{skip: true}")
+             for a in (args, "{bf16: true, z_dim: 8, h_dim: 8}")]
+    for train_m, test_m in evals:
+        assert np.isfinite(train_m["rec_loss"])
+        assert np.isfinite(test_m["rec_loss"])
+        assert 0.0 <= test_m["ssim"] <= 1.0
+    assert evals[0][1]["rec_loss"] != evals[1][1]["rec_loss"]
 
 
 def test_flag_surface_is_the_jax_apps():

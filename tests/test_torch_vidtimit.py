@@ -661,6 +661,10 @@ def _argv(data_dir, save_dir, *extra):
 # --method replaces --model_args: the DKS baseline runs at z = h = 256.
 CLI = {"bfvi": ["--method", "bfvi", "--model_args", "{z_dim: 8, h_dim: 8}",
                 "--train_args", "{train_particles: 3, match_particles: 4}"],
+       "bfvi_bf16_gtf": ["--method", "bfvi", "--model_args",
+                         "{z_dim: 8, h_dim: 8, bf16: true, bf16_gtf: true}",
+                         "--train_args",
+                         "{train_particles: 3, match_particles: 4}"],
        "f_mask": ["--method", "f-mask"]}
 
 

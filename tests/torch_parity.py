@@ -55,3 +55,64 @@ def assert_trees_close(expected, got, rtol, atol, normalise=False):
 def grads_of(tree):
     return tree_map(lambda x: x.grad if x.grad is not None
                     else torch.zeros_like(x), tree)
+
+
+def weizmann_step(model_args, zh=32, t_dim=6, b_dim=4):
+    """Loss and gradients of the Weizmann model's MAP step (full-size image
+    codecs, latent width ``zh``, the app's ``model_args`` besides) in JAX
+    and in the port, on one batch and the same weights: ((jax loss,
+    grads), (port loss, grads)), the grads as {path: array} in the port's
+    layout."""
+    import types
+    import jax.numpy as jnp
+    from multimodal_dmm_tpu.apps.weizmann import WeizmannTrainer
+    from multimodal_dmm_tpu.models.dmm import MultiDMM as JMultiDMM
+    from multimodal_dmm_tpu_torch.apps import weizmann as tw
+    mods = ["video", "person", "action"]
+    model_args = dict(model_args, z_dim=zh, h_dim=zh)
+    args = types.SimpleNamespace(model_args=dict(model_args), model="dmm",
+                                 modalities=mods)
+    jmodel = WeizmannTrainer.build_model(None, JMultiDMM, args)
+    tmodel = tw.build_model(mods, dict(model_args))
+    rng = np.random.RandomState(3)
+    targets = {
+        "video": (rng.rand(t_dim, b_dim, 3, 64, 64) > 0.5).astype(
+            np.float32),
+        "person": rng.randint(0, 9, (t_dim, b_dim, 1)).astype(np.float32),
+        "action": rng.randint(0, 10, (t_dim, b_dim, 1)).astype(np.float32)}
+    inputs = {m: v.copy() for m, v in targets.items()}
+    inputs["video"][rng.rand(t_dim, b_dim) < 0.3] = np.nan
+    mask = np.ones((t_dim, b_dim, 1), np.float32)
+    rec_mults = {"video": 1.0, "person": 10.0, "action": 10.0}
+    kw = dict(sample=False, train_particles=1, match_mult=0.0,
+              uni_loss=True, train=True)
+    jparams, jstate = jmodel.init(jax.random.PRNGKey(0))
+    jx = lambda d: {m: jnp.asarray(v) for m, v in d.items()}  # noqa: E731
+
+    def jloss(p):
+        return jmodel.step(p, jstate, jx(inputs), jnp.asarray(mask), 1.0,
+                           rec_mults, jax.random.PRNGKey(2),
+                           targets=jx(targets), **kw)
+
+    (jl, _), jg = jax.jit(jax.value_and_grad(jloss, has_aux=True))(jparams)
+    tparams, tstate = port_tree(jparams, jstate, tmodel)
+    tparams = with_grad(tparams)
+    tl, _ = tmodel.step(tparams, tstate, {m: t(v) for m, v in inputs.items()},
+                        t(mask), 1.0, rec_mults,
+                        torch.Generator().manual_seed(0),
+                        targets={m: t(v) for m, v in targets.items()}, **kw)
+    tl.backward()
+    exp_g, _ = port_tree(jg, jstate, tmodel)
+    leaves = lambda g: {p: v.detach().numpy()  # noqa: E731
+                        for p, v in tree_leaves_with_path(g)}
+    return ((float(jl), leaves(exp_g)),
+            (tl.item(), leaves(grads_of(tparams))))
+
+
+def leaf_errors(got, exp):
+    """{path: relative Frobenius error} of ``got`` against ``exp``, leaves
+    that are rounding noise (under 1e-5 of the largest, such as the bias
+    of a convolution that feeds a training-mode BatchNorm) left out."""
+    top = max(np.abs(e).max() for e in exp.values())
+    return {p: float(np.linalg.norm(got[p] - e) / np.linalg.norm(e))
+            for p, e in exp.items() if np.abs(e).max() >= 1e-5 * top}
