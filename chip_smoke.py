@@ -130,13 +130,18 @@ imports nothing of JAX or of the JAX package. Phases:
    figure); (d) ``apps.weizmann --mesh 2`` on this one-card machine raises
    "needs 2 devices";
 15. ``bf16_gtf`` (the JAX package's ``MultiDMM(bf16_gtf=True)``: every GTF
-   product in bfloat16), Weizmann at full width: (a) each scan kernel's
-   bfloat16 variant against its bfloat16 plain version at the step's
-   three shapes and at the spirals shapes (outputs at BF16_TOL, the
-   backward's and the weight gradients' outputs each within
-   BF16_GRAD_RTOL in relative Frobenius norm, the backward on its own
-   ReLU masks, its flips within ``relu_flip_bound(D, bf16=True)``), with
-   their times and their bound at one bf16 pass (PEAK_BF16_FLOPS); (b)
+   product in bfloat16), Weizmann at full width: (a) the bf16 library's
+   ``-Xptxas -v`` lines; each scan kernel's bfloat16 variant (the two
+   scans: clusters over column groups, ``csrc/bf16_scan.cuh``) against its
+   bfloat16 plain version at the step's three shapes and at the spirals
+   shapes (outputs at BF16_TOL, the backward's and the weight gradients'
+   outputs each within BF16_GRAD_RTOL in relative Frobenius norm, the
+   backward on its own ReLU masks, its flips within
+   ``relu_flip_bound(D, bf16=True)``; the backward's recomputed transition
+   equal to the forward's own bit for bit, 0 ReLU flips), with their
+   times, each scan's beside its float32 twin's in the same call, their
+   launch plans (clusters, waves on the card, resident or streamed) and
+   their bound at one bf16 pass (PEAK_BF16_FLOPS); (b)
    one ``bf16_gtf`` step on the kernels against the plain versions (loss
    within BF16_GTF_LOSS_RTOL, each leaf within BF16_GRAD_RTOL), then the
    step timed in turns beside the float32 step and the bench
@@ -152,7 +157,8 @@ line. The line before the last is a JSON object with one entry per
 kernel and main path: the Weizmann rows, and the same kernels at the
 spirals and VidTIMIT shapes (``... (spirals)``, ``... (vidtimit)``), and
 the three bf16 variants (``..._bf16``, phase 15: times and bounds at the
-Weizmann step's shapes, launches of its command line, ``launches_by_phase``
+Weizmann step's shapes, ``f32_twin_ms`` the float32 twin's in the same
+call for the two scans, launches of its command line, ``launches_by_phase``
 those of its step, evaluation and command line). For
 the scan kernels ``ms``, ``plain_ms`` and ``bound_ms`` are sums over the
 training step's three launches (phase 3, 9 or 12); ``bound_ms`` is the
@@ -204,6 +210,7 @@ SCAN_KERNELS = ("bfvi_scan_fwd", "bfvi_scan_bwd", "gtf_wgrad")
 # f32 kernel it is a variant of.
 BF16_KERNELS = {name + "_bf16": name for name in SCAN_KERNELS}
 BF16_SRC = "multimodal_dmm_tpu_torch/csrc/bfvi_scan_bf16.cu"
+BF16_SCAN_SRC = "multimodal_dmm_tpu_torch/csrc/bf16_scan.cuh"
 # (M, K, smoothing) at B = 25, D = 256
 CELL_SHAPES = ((3, 200, False), (5, 1, True))
 N_EVAL_SEQS = 10
@@ -471,6 +478,62 @@ def check_flips(scan, margins, d, what, bf16=False):
     return n, worst
 
 
+def check_recompute(scan, x, gtf, eps, cots, what):
+    """Phase 15 (a): the bf16 backward's recomputed transition (its xs
+    rows h1, hn, z_nonlin) against the forward kernel's own rows on the
+    forward's z_traj: 0 ReLU flips and every value equal bit for bit (one
+    product routine and K-order for both, csrc/bf16_scan.cuh)."""
+    h = gtf["gate_1"]["w"].shape[0]
+    scan.bfvi_scan_fwd_cuda.rows = fwd_rows = []
+    scan.bfvi_scan_bwd_cuda.rows = bwd_rows = []
+    try:
+        got = scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3, True)
+        res = tuple(x) + (gtf, eps, got[5], got[0], got[1])
+        scan.bfvi_scan_bwd_cuda(res, cots, 1e-3, True)
+        torch.cuda.synchronize()
+    finally:
+        scan.bfvi_scan_fwd_cuda.rows = scan.bfvi_scan_bwd_cuda.rows = None
+    f, b = fwd_rows[0], bwd_rows[0]
+    flips = int(((f[:, :2 * h] > 0) != (b[:, :2 * h] > 0)).sum().item())
+    check(flips == 0, "bfvi_scan_bwd_bf16 at %s: %d ReLU flips between the "
+          "forward and the backward's recompute" % (what, flips))
+    check(torch.equal(f, b), "bfvi_scan_bwd_bf16 at %s: the recomputed "
+          "transition differs from the forward's (max %.3g)"
+          % (what, (f - b).abs().max().item()))
+    log("  bfvi_scan_bwd_bf16 %s: the recompute equals the forward's "
+        "transition bit for bit on %d rows, 0 ReLU flips" % (what, f.shape[0]))
+
+
+def log_plan(scan, name, k, b_dim, d, h, backward):
+    """The bf16 launch plan of ``name`` at one shape, with the clusters
+    that the card runs at once (cudaOccupancyMaxActiveClusters)."""
+    p = scan.bf16_scan_plan(k, b_dim, d, h, backward)
+    at_once = scan._lib(True).bfvi_scan_bf16_max_clusters(
+        int(backward), p["cluster"], p["smem"])
+    check(at_once >= 1, "%s_bf16: the card runs no cluster of %d CTAs with "
+          "%d bytes of shared memory" % (name, p["cluster"], p["smem"]))
+    log("    plan %s_bf16 (K = %d, %d columns, D = %d, H = %d): %d clusters "
+        "of %d CTAs, %d columns (%d rows) each, weights %s, %d bytes of "
+        "shared memory a CTA; %d clusters at once on the card: %d waves"
+        % (name, k, b_dim, d, h, p["groups"], p["cluster"], p["cols"],
+           p["rows"], "resident" if p["resident"] else "streamed", p["smem"],
+           at_once, -(-p["groups"] // at_once)))
+
+
+def ptxas_lines(name):
+    """The ``-Xptxas -v`` lines of library ``name``'s kernels: each
+    kernel's name, then its stack, spill and register lines."""
+    from multimodal_dmm_tpu_torch.ops.cuda import _build
+    out = []
+    for line in _build.build_log(name).splitlines():
+        line = line.strip()
+        if "Function properties for" in line:
+            out.append(line.split("for ")[-1])
+        elif "spill" in line or ("Used" in line and "registers" in line):
+            out.append("  " + line.replace("ptxas info    : ", ""))
+    return out
+
+
 def bwd_pairs(scan, out_a, out_b):
     """(name, a, b) for each output of two backward runs."""
     pairs = list(zip(("d_obs_mean", "d_obs_std", "d_glb_mean",
@@ -571,15 +634,51 @@ def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
         # The plain scans' Python loops take 0.2-0.5 s a call at T = 100:
         # one timed call there.
         plain_reps = 1 if t_max > T_MAIN else reps
+        kw = {}
+        if bf16:
+            check_recompute(scan, x, gtf, eps, cots, what)
+            # The bf16 scans' weight images, packed once as an autograd
+            # call packs them (timed on their own).
+            dp, hp = scan._check_sizes(k, d, h, True)
+            gtf_p = scan._pad_gtf(gtf, dp, hp)
+
+            def make_pack():
+                pk = scan.Bf16Pack(gtf_p, dp, hp)
+                pk.image(True)
+                return pk
+            kw["pack"] = make_pack()
+            pack_ms = time_ms(make_pack, reps)
         times = [time_ms(fn, r) for fn, r in (
-            (lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3, bf16), reps),
+            (lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3, bf16, **kw),
+             reps),
             (lambda: scan.bfvi_scan_fwd_ref(*x, gtf, eps, 1e-3, bf16),
              plain_reps),
-            (lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3, bf16), reps),
+            (lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3, bf16, **kw),
+             reps),
             (lambda: scan.bfvi_scan_bwd_ref(res, cots, 1e-3, bf16),
              plain_reps),
             (lambda: scan.gtf_wgrad_cuda(exp[5], xs, ys, bf16), reps),
             (lambda: scan.gtf_wgrad_ref(exp[5], xs, ys, bf16), reps))]
+        if bf16:
+            # Each bf16 scan beside its float32 twin, in turns.
+            twins = [time_ms(fn, reps) for fn in (
+                lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3),
+                lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3, True,
+                                                **kw),
+                lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3),
+                lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3, True,
+                                                **kw))]
+            twin = {"bfvi_scan_fwd": twins[0], "bfvi_scan_bwd": twins[2]}
+            log("  %s: bf16 forward %.3f ms against the f32 kernel's %.3f "
+                "(%.2fx), bf16 backward %.3f against %.3f (%.2fx), in turns "
+                "after the timed calls; packing the weight images %.3f ms"
+                % (what, twins[1], twins[0], twins[0] / twins[1], twins[3],
+                   twins[2], twins[2] / twins[3], pack_ms))
+            for name, backward in (("bfvi_scan_fwd", False),
+                                   ("bfvi_scan_bwd", True)):
+                log_plan(scan, name, k, b_dim, dp, hp, backward)
+                rec[name]["f32_twin_ms"] = (rec[name].get("f32_twin_ms", 0.0)
+                                            + twin[name])
         (ff, fb), (bf, bb), (wf, wb) = scan_work(t_max, n_exp, b_dim, k, d,
                                                  h)
         for name, e, ms, pms, fl, by in (
@@ -934,7 +1033,9 @@ def check_step_against_plain(scan, trainer, inputs, targets, mask, seed,
           "kernel %d times, expected %d" % (len(rows), n_launches))
     margins, launch = [], iter(rows)
 
-    def on_masks(res, cots, min_std, bf16=False):
+    def on_masks(res, cots, min_std, bf16=False, pack=None):
+        # pack: the bf16 kernels' weight images, which the plain backward
+        # does not read.
         outs, m = scan.bfvi_scan_bwd_ref_on_masks(res, cots, min_std,
                                                   next(launch), bf16)
         margins.append(m)
@@ -2353,7 +2454,7 @@ def check_bf16_step(scan, trainer, inputs, targets, mask, seed):
           "bf16 variant and nothing else" % launches)
     margins, launch = [], iter(rows)
 
-    def on_masks(res, cots, min_std, bf16=False):
+    def on_masks(res, cots, min_std, bf16=False, pack=None):
         check(bf16, "the bf16_gtf step ran the float32 backward")
         outs, m = scan.bfvi_scan_bwd_ref_on_masks(res, cots, min_std,
                                                   next(launch), bf16)
@@ -2511,14 +2612,23 @@ def check_bf16_gtf(scan, seed, dev, sp_gtf, card):
                                     model_args={"bf16_gtf": True})
     gtf = {n: {k: v.detach() for k, v in p.items()}
            for n, p in trainer.params["trans"]["bwd"].items()}
+    log("  (a) the bf16 library's kernels, nvcc -Xptxas -v:")
+    for line in ptxas_lines("bfvi_scan_bf16"):
+        log("    " + line)
     log("  (a) the bf16 variants against their bf16 plain versions, "
         "Weizmann (T = %d, %d columns, D = H = %d)"
         % (T_MAIN, V_MAIN * B_DATA, Z_DIM))
     rec = check_kernels(scan, gtf, dev, smooth_shape=None, bf16=True)
-    log("  (a) the same at the spirals shapes (T = %d, %d columns, z = 5 run "
-        "as 8, h = 20)" % (SP_T, 3 * SP_B))
-    check_kernels(scan, sp_gtf, dev, SP_T, 3 * SP_B,
-                  ((2, 1), (2, 25), (4, 1)), None, seed=700, bf16=True)
+    log("  (a) the same at the spirals shapes (T = %d, %d columns, z = 5 "
+        "and h = 20 run as 16 and 32)" % (SP_T, 3 * SP_B))
+    sp_rec = check_kernels(scan, sp_gtf, dev, SP_T, 3 * SP_B,
+                           ((2, 1), (2, 25), (4, 1)), None, seed=700,
+                           bf16=True)
+    for name in ("bfvi_scan_fwd", "bfvi_scan_bwd"):
+        log("  (a) %s_bf16, the three launches of a step: Weizmann %.3f ms "
+            "(f32 twin %.3f), spirals shapes %.3f ms (f32 twin %.3f) [%s]"
+            % (name, rec[name]["ms"], rec[name]["f32_twin_ms"],
+               sp_rec[name]["ms"], sp_rec[name]["f32_twin_ms"], card))
     log("  (a) %.1f s" % (time.perf_counter() - t0))
 
     log("  (b) the bf16_gtf step, kernels vs plain versions (T = B = %d)"
@@ -2607,9 +2717,8 @@ def main():
     log("build: %.1f s (nvcc, sm_90a, %d sources at once)"
         % (secs, len(_build.SOURCES)))
     for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log("  ptxas %s:" % name, line.strip())
+        for line in ptxas_lines(name):
+            log("  ptxas %s:" % name, line)
 
     trainer = weizmann.make_trainer(seed=args.seed, device=dev)
     model = trainer.model
@@ -2808,7 +2917,8 @@ def main():
     for name, f32_name in BF16_KERNELS.items():
         r = bf16_rec[f32_name]
         kernels.append({
-            "name": name, "route": "cuda", "source": BF16_SRC,
+            "name": name, "route": "cuda",
+            "source": BF16_SCAN_SRC if f32_name != "gtf_wgrad" else BF16_SRC,
             "replaces": KERNELS[f32_name][1],
             "launches": bf16_launches["15e"][name],
             "launches_by_phase": {k: v[name]
@@ -2818,6 +2928,8 @@ def main():
             "bound_ms": sum(r["bound_ms"].values()),
             "bound_by": max(r["bound_ms"], key=r["bound_ms"].get),
             "library_ms": None, "bound_f32_ms": r["bound_f32_ms"]})
+        if "f32_twin_ms" in r:
+            kernels[-1]["f32_twin_ms"] = r["f32_twin_ms"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

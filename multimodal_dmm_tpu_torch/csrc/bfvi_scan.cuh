@@ -1,31 +1,18 @@
-// BFVI filtering scan, forward and backward, for Hopper (sm_90a): the code
-// of both routes. bfvi_scan.cu builds the float32 kernels from it and
-// bfvi_scan_bf16.cu their bfloat16 variants (BFVI_SCAN_BF16, at the end).
+// BFVI filtering scan, forward and backward, for Hopper (sm_90a).
+// bfvi_scan.cu builds the float32 kernels from this file; bfvi_scan_bf16.cu
+// builds gtf_wgrad_bf16_kernel from it (BFVI_SCAN_BF16, at the end) and the
+// bfloat16 scan kernels from bf16_scan.cuh, which uses the elementwise
+// helpers below.
 //
 // Replaces the Pallas TPU kernels of multimodal_dmm_tpu/ops/pallas/bfvi_scan.py:
 //   bfvi_scan_fwd_kernel  <- bfvi_scan_pallas / _fwd_kernel
 //   bfvi_scan_bwd_kernel  <- bfvi_scan_pallas_bwd / _bwd_kernel (hand-derived VJP)
 //   gtf_wgrad_kernel      <- the weight-gradient products of _bwd_kernel
-// and computes what they compute, in float32. Each has a bfloat16 variant
-// (bfvi_scan_fwd_bf16_kernel, bfvi_scan_bwd_bf16_kernel,
-// gtf_wgrad_bf16_kernel) for the JAX package's MultiDMM(bf16_gtf=True),
-// whose lax.scan path runs every GTF product in bfloat16: the same code on
-// the engine's bf16 route (tf32x3.cuh), with the rounding points of JAX's
-// gtf_apply_packed and of its VJP:
-//   - each product's operands are rounded to bfloat16 (the engine does
-//     this as it builds fragments), and each product's f32 sum is rounded
-//     to bfloat16 before the bias, the ReLU or an add (the epilogue);
-//   - the backward's cotangents enter their products rounded as operands,
-//     and the cotangent of z_{t-1}, whose three partial products are added
-//     in the next elementwise phase, is rounded once after that add (JAX's
-//     one product over the packed [gate_1; nonlin_1; z_lin]);
-//   - the weight gradients are products of the rounded rows summed in f32
-//     (JAX sums each step's product in bfloat16 instead); the bias
-//     gradients sum the f32 cotangents, as JAX's do.
-// The backward recomputes the transition on every tile shape from the
-// forward's: the bf16 route sums every product in one K-order on every
-// shape (tf32x3.cuh), so the recomputed activations are the forward's bit
-// for bit, also where a sum lies at a bfloat16 rounding midpoint.
+// and computes what they compute, in float32. gtf_wgrad_bf16_kernel is the
+// weight gradients of the JAX package's MultiDMM(bf16_gtf=True) on the
+// engine's bf16 route (tf32x3.cuh): products of the bfloat16-rounded rows
+// summed in f32 (JAX sums each step's product in bfloat16 instead); the
+// bias gradients sum the f32 cotangents, as JAX's do.
 //
 // Layout (one scan direction; the caller flips time for backward passes):
 //   obs_mean/obs_std (T, M, B, D), obs_mask (T, M, B), glb_mean/glb_std (B, D),
@@ -122,10 +109,7 @@ struct Tf32Route {
   using WTile = tf32x3::LargePromoted;
   static constexpr bool BF16 = false;
 };
-struct Bf16Route {
-  using Large = tf32x3::Bf16Large;
-  using Medium = tf32x3::Bf16Medium;
-  using Small = tf32x3::Bf16Small;
+struct Bf16Route {  // the weight gradients only (bf16_scan.cuh: the scans)
   using WTile = tf32x3::Bf16LargePromoted;
   static constexpr bool BF16 = true;
 };
@@ -854,6 +838,8 @@ using Route = Tf32Route;
 #define BFVI_KERNEL(name) name##_kernel
 #endif
 
+// The bf16 library's scan kernels are those of bf16_scan.cuh.
+#if !BFVI_SCAN_BF16
 __global__ void __launch_bounds__(NT, 2) BFVI_KERNEL(bfvi_scan_fwd)(FwdArgs a) {
   scan_fwd<Route>(a);
 }
@@ -861,6 +847,7 @@ __global__ void __launch_bounds__(NT, 2) BFVI_KERNEL(bfvi_scan_fwd)(FwdArgs a) {
 __global__ void __launch_bounds__(NT, 2) BFVI_KERNEL(bfvi_scan_bwd)(BwdArgs a) {
   scan_bwd<Route>(a);
 }
+#endif
 
 __global__ void __launch_bounds__(NT, 2) BFVI_KERNEL(gtf_wgrad)(WgradArgs a) {
   wgrad<Route::WTile>(a);
@@ -875,6 +862,7 @@ cudaError_t set_smem(const void* kern) {
 // per SM), or fewer where no phase has more work (`work` tiles or blocks).
 // If the device cannot hold the grid, the launch fails: there is no other
 // path.
+#if !BFVI_SCAN_BF16
 template <typename Args>
 cudaError_t launch_coop(void (*kern)(Args), int work, cudaStream_t st,
                         Args* args) {
@@ -907,12 +895,14 @@ Weights make_weights(const float* w1, const float* b1, const float* wg2,
                      const float* ws, const float* bs) {
   return Weights{w1, b1, wg2, bg2, wn2, bn2, ws, bs};
 }
+#endif
 
 
 }  // namespace
 
 extern "C" {
 
+#if !BFVI_SCAN_BF16
 int bfvi_scan_fwd(const float* obs_mean, const float* obs_std,
                   const float* obs_mask, const float* glb_mean,
                   const float* glb_std, const float* w1, const float* b1,
@@ -979,6 +969,7 @@ int bfvi_scan_bwd(const float* obs_mean, const float* obs_std,
   return (int)launch_coop(BFVI_KERNEL(bfvi_scan_bwd), work_items,
                           (cudaStream_t)stream, &a);
 }
+#endif
 
 // The GTF weight gradients from the R rows that bfvi_scan_bwd wrote (and
 // z_traj, whose first R rows are the input side of dW1), into `splits`

@@ -5,7 +5,7 @@ Each source in ``csrc/`` is compiled by ``nvcc`` for Hopper
 plain C interface, at first use, and loaded with ``ctypes``. Nothing
 includes PyTorch's headers, so a build takes seconds. Libraries go to
 ``multimodal_dmm_tpu_torch/_build/`` (git-ignored), named by a hash of
-the source, every header in ``csrc/`` and the flags, so that an edited
+the source, every header in ``csrc/`` and its flags, so that an edited
 source or header is rebuilt; ``nvcc``'s
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside
 each library as ``<name>.log``.
@@ -27,6 +27,10 @@ SOURCES = {"bfvi_scan": "bfvi_scan.cu", "bfvi_scan_bf16": "bfvi_scan_bf16.cu",
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v"]
+# Flags of one source only: the bf16 scans' elementwise phases divide and
+# take square roots by the approximate instructions (1-2 ulp in float32,
+# far below the bfloat16 rounding of every product around them).
+SOURCE_FLAGS = {"bfvi_scan_bf16": ["-prec-div=false", "-prec-sqrt=false"]}
 
 _loaded = {}
 
@@ -39,12 +43,16 @@ def _nvcc():
     return path
 
 
+def _flags(name):
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def _target(name):
     src = CSRC_DIR / SOURCES[name]
     digest = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):
         digest.update(header.name.encode() + header.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    digest.update(" ".join(_flags(name)).encode())
     return src, BUILD_DIR / ("lib%s_%s.so" % (name, digest.hexdigest()[:16]))
 
 
@@ -63,7 +71,7 @@ def build(names=None):
         tmp = out.with_suffix(".so.tmp%d" % os.getpid())
         log = open(BUILD_DIR / (name + ".log"), "w")
         procs.append((name, out, tmp, log, subprocess.Popen(
-            [_nvcc()] + NVCC_FLAGS + ["-o", str(tmp), str(src)],
+            [_nvcc()] + _flags(name) + ["-o", str(tmp), str(src)],
             stdout=log, stderr=subprocess.STDOUT)))
     failed = []
     for name, out, tmp, log, proc in procs:

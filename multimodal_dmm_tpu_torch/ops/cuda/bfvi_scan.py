@@ -29,13 +29,17 @@ plus the particle trajectory z_traj (T, K, B, D) that the backward reads.
   version ``gtf_wgrad_ref``) forms those products. Each wrapper counts
   its launches in ``.launches``. With ``bf16=True`` each wrapper launches
   the kernel's bfloat16 variant instead (``*_bf16_kernel`` of
-  ``csrc/bfvi_scan_bf16.cu``: one mma.sync m16n8k16 bf16 pass a product,
-  ``csrc/tf32x3.cuh``) and counts it in ``.launches_bf16``. The kernels
-  read the GTF weights in
-  PyTorch's layout; the wrapper joins gate_1, nonlin_1 and z_lin into
-  one (2H + D, D) matrix and, where D or H is no multiple of 4 (the
-  spirals model's D = 5), zero-pads every operand to the next multiple
-  of 4 and slices the outputs back (``_check_sizes``).
+  ``csrc/bfvi_scan_bf16.cu``) and counts it in ``.launches_bf16``: the
+  two scans of ``csrc/bf16_scan.cuh`` (one thread block cluster per group
+  of batch columns, weights resident in shared memory as bfloat16, wgmma,
+  no grid barrier), launched as ``bf16_scan_plan`` says on the weight
+  images of ``bf16_pack``, and the weight gradients on the tile engine's
+  bf16 route (``csrc/tf32x3.cuh``). The float32 kernels read the GTF
+  weights in PyTorch's layout; the wrapper joins gate_1, nonlin_1 and
+  z_lin into one (2H + D, D) matrix and, where D or H is no multiple of 4
+  (the spirals model's D = 5), zero-pads every operand to the next
+  multiple of 4 (of 16 on the bf16 route) and slices the outputs back
+  (``_check_sizes``).
 - ``bfvi_scan``: differentiable entry. CPU tensors go through the plain
   pair, CUDA tensors through the kernels; there is no fallback between
   them. To hold the kernels against the plain pair on the GPU, the caller
@@ -360,12 +364,20 @@ def _lib(bf16=False):
     points."""
     lib = _build.load("bfvi_scan_bf16" if bf16 else "bfvi_scan")
     if not getattr(lib, "_bfvi_typed", False):
+        # The bf16 scans take their weight images and launch plan after
+        # the float32 kernels' arguments (csrc/bf16_scan.cuh).
         lib.bfvi_scan_fwd.argtypes = ([_P] * 22 + [_I] * 6
-                                      + [ctypes.c_float, _P])
+                                      + [ctypes.c_float, _P]
+                                      + ([_P, _I, _P] if bf16 else []))
         lib.bfvi_scan_fwd.restype = _I
         lib.bfvi_scan_bwd.argtypes = ([_P] * 30 + [_I] * 6
-                                      + [ctypes.c_float, _P])
+                                      + [ctypes.c_float, _P]
+                                      + ([_P, _I, _P, _I, _P] if bf16
+                                         else []))
         lib.bfvi_scan_bwd.restype = _I
+        if bf16:
+            lib.bfvi_scan_bf16_max_clusters.argtypes = [_I] * 3
+            lib.bfvi_scan_bf16_max_clusters.restype = _I
         lib.gtf_wgrad.argtypes = [_P] * 4 + [_I] * 4 + [_P]
         lib.gtf_wgrad.restype = _I
         lib._bfvi_typed = True
@@ -389,18 +401,200 @@ def _check_tensor(name, x, shape):
         raise ValueError("%s must be contiguous" % name)
 
 
-def _check_sizes(k, d, h):
+def _check_sizes(k, d, h, bf16=False):
     """Raise unless 1 <= K <= MAX_K; return the widths (D', H') that the
     kernels run at: D and H rounded up to multiples of 4, for the 16-byte
-    rows of their tile loads (``csrc/tf32x3.cuh``)."""
+    rows of their tile loads (``csrc/tf32x3.cuh``); with ``bf16`` to
+    multiples of 16, the depth of one wgmma step (``csrc/bf16_scan.cuh``),
+    raising where no launch plan fits (``bf16_scan_plan``)."""
     if not 1 <= k <= MAX_K:
         raise ValueError("the scan kernels take 1 <= K <= %d particles, "
                          "got K = %d" % (MAX_K, k))
-    return _padded(d), _padded(h)
+    if not bf16:
+        return _padded(d), _padded(h)
+    dp, hp = _padded(d, 16), _padded(h, 16)
+    for backward in (False, True):
+        bf16_scan_plan(k, 1, dp, hp, backward)
+    return dp, hp
 
 
-def _padded(n):
-    return -(-n // 4) * 4
+def _padded(n, m=4):
+    return -(-n // m) * m
+
+
+# ---------------------------------------------------------------------------
+# The bf16 scans' launch plan and weight images (csrc/bf16_scan.cuh)
+# ---------------------------------------------------------------------------
+
+# Dynamic shared memory a CTA may use on the H100 (232,448 bytes), less
+# the kernels' static mbarrier and its alignment.
+BF16_SMEM_LIMIT = 232448 - 64
+BF16_SMS = 132        # the H100's SMs, for the plan's estimate of waves
+BF16_SM_SMEM = 233472  # shared memory of an SM, 1 KB of it kept per CTA
+TILE_ROWS = 64        # wgmma's M: a cluster's particle rows
+MAX_CLUSTER = 8
+
+
+def bf16_cluster(d, h):
+    """CTAs a cluster at padded widths (D, H), multiples of 16: the most,
+    up to 8, that cut both D and H into slices of a multiple of 8 columns
+    (wgmma's N)."""
+    return max(c for c in range(1, MAX_CLUSTER + 1)
+               if (d // 8) % c == 0 and (h // 8) % c == 0)
+
+
+def _nslab(k):
+    return -(-k // 64)
+
+
+def bf16_layout(backward, d, h, c, rb, resident):
+    """``make_layout`` of csrc/bf16_scan.cuh: the weight matrices (rows,
+    depth, byte offset), their bytes, and a CTA's shared-memory bytes."""
+    ds, hs, la = d // c, h // c, 2 * h + d
+    if backward:
+        wn, wk, bk = (ds, ds, hs, hs), (la, d, d, d), (2 * d, d, la)
+        if d <= h:  # [d_a2 | d_sraw] shares [d_a1 | d_b1 | d_zlin]'s columns
+            bk = bk[1:]
+        loc = rb * (ds * 6 + hs * 2)
+    else:
+        wn, wk, bk = (2 * hs + ds, ds, ds, ds), (d, h, h, d), (d, d, 2 * h)
+        loc = 4 * rb * ds * 2
+    offs, off = [], 0
+    for n, k in zip(wn, wk):
+        offs.append(off)
+        off += _nslab(k) * n * 128
+    wbytes = off
+    # streamed: a slot of 64 weight rows (the widest chunk) a warpgroup
+    total = (wbytes if resident else 2 * 64 * 128)
+    total += sum(_nslab(k) * rb * 128 for k in bk)
+    bias = 0 if backward else (2 * hs + 4 * ds) * 4
+    total += (-(-loc // 1024) * 1024 + max(bias, (TILE_ROWS - rb) * 128)
+              + 1024)
+    return {"wn": wn, "wk": wk, "w": tuple(offs), "wbytes": wbytes,
+            "total": total}
+
+
+def bf16_smem(backward, d, h, c, rb, resident):
+    """A CTA's shared-memory bytes (``smem_bytes`` of the kernels): the
+    backward runs the forward's layout in its recompute."""
+    f = bf16_layout(False, d, h, c, rb, resident)["total"]
+    if not backward:
+        return f
+    return max(f, bf16_layout(True, d, h, c, rb, resident)["total"])
+
+
+def bf16_scan_plan(k, b_dim, d, h, backward=False):
+    """The launch of a bf16 scan kernel at K particles, ``b_dim`` batch
+    columns and padded widths (D, H): clusters of ``cluster`` CTAs, each
+    over ``cols`` columns (``rows`` = cols K rounded up to 8, at most one
+    64-row wgmma tile), weights ``resident`` in shared memory where they
+    fit, up to those that the 256 threads of the elementwise phase take
+    in one pass (four d each: more would lengthen every step). ``smem``
+    is a CTA's dynamic shared memory, ``waves`` the rounds of clusters on
+    132 SMs (an estimate: the card's GPCs may hold fewer clusters at
+    once). Raises where not even one column fits."""
+    c = bf16_cluster(d, h)
+    most = min(TILE_ROWS // k, b_dim, max(1, 1024 // (d // c)))
+    for resident in (True, False):
+        for cols in range(most, 0, -1):
+            rb = -(-cols * k // 8) * 8
+            smem = bf16_smem(backward, d, h, c, rb, resident)
+            if smem > BF16_SMEM_LIMIT:
+                continue
+            groups = -(-b_dim // cols)
+            per_sm = BF16_SM_SMEM // (smem + 1024)
+            at_once = max(1, BF16_SMS * per_sm // c)
+            return {"cols": cols, "cluster": c, "rows": rb,
+                    "resident": resident, "smem": smem, "groups": groups,
+                    "ctas": groups * c, "waves": -(-groups // at_once)}
+    raise ValueError("the bf16 scan kernels hold K = %d particles of one "
+                     "column at D = %d, H = %d in no CTA's shared memory"
+                     % (k, d, h))
+
+
+def _swizzled(mats, fill):
+    """(C, N, K) weight rows (or their indices) laid out as C images in the
+    128-byte swizzle of csrc/bf16_scan.cuh: 64-deep slabs of N rows of 64
+    values, the 8-value chunk j of row n at j ^ (n % 8); depth past K
+    holds ``fill``."""
+    c, n, k = mats.shape
+    ns = _nslab(k)
+    x = mats.new_full((c, n, ns * 64), fill)
+    x[..., :k] = mats
+    x = x.reshape(c, n, ns, 8, 8).permute(0, 2, 1, 3, 4)
+    rows = torch.arange(n, device=mats.device)
+    src = (torch.arange(8, device=mats.device)[None, :] ^ (rows[:, None] % 8))
+    out = torch.gather(x, 3, src[None, None, :, :, None].expand(
+        c, ns, n, 8, 8))
+    return out.reshape(c, -1)
+
+
+def _image_mats(w, d, h, backward):
+    """The four (C, N, K) matrices of the images, from the six weights
+    ``w`` (values or their indices) in PyTorch layout."""
+    c = bf16_cluster(d, h)
+    if backward:
+        w1 = torch.cat([w["gate_1"], w["nonlin_1"], w["z_lin"]])
+        mats = [w1.t(), w["z_to_std"].t(), w["gate_2"].t(),
+                w["nonlin_2"].t()]
+    else:
+        mats = [torch.cat([w["gate_1"].reshape(c, h // c, d),
+                           w["nonlin_1"].reshape(c, h // c, d),
+                           w["z_lin"].reshape(c, d // c, d)], 1),
+                w["gate_2"], w["nonlin_2"], w["z_to_std"]]
+    return [m.reshape(c, -1, m.shape[-1]) for m in mats]
+
+
+_PACK_INDEX = {}
+
+
+def _pack_index(d, h, backward, device):
+    """For each bf16 word of the images, its index in the six weights
+    flattened in GTF_LAYERS order, or one past them (a zero); cached."""
+    key = (d, h, bool(backward), str(device))
+    if key not in _PACK_INDEX:
+        shapes, w, n = _gtf_shapes(d, h), {}, 0
+        for name in GTF_LAYERS:
+            rows, cols = shapes[name]
+            w[name] = torch.arange(n, n + rows * cols).reshape(rows, cols)
+            n += rows * cols
+        _PACK_INDEX[key] = torch.cat(
+            [_swizzled(m, n) for m in _image_mats(w, d, h, backward)],
+            1).to(device)
+    return _PACK_INDEX[key]
+
+
+def bf16_pack(gtf, d, h, backward=False):
+    """The bf16 scan kernels' weights at padded widths (D, H): for each CTA
+    rank j of a cluster, the bfloat16 image of its slices (int16 words),
+    (C, bytes / 2). Forward: the rows of w1 = [gate_1; nonlin_1; z_lin]
+    that give its H-slices of gate_1 and nonlin_1 and its D-slice of z_lin,
+    then its D-slices of gate_2, nonlin_2 and z_to_std. Backward: the
+    columns of the same matrices (the transposed weights' rows) for its
+    output slices of the input-gradient products: w1's D-slice (2H + D
+    deep), z_to_std's D-slice, gate_2's and nonlin_2's H-slices. Each value
+    is the weight rounded to bfloat16, as ``nn.gtf_pack`` rounds it. One
+    gather through a cached index, then the cast."""
+    w = [gtf[n]["w"].detach().reshape(-1) for n in GTF_LAYERS]
+    flat = torch.cat(w + [w[0].new_zeros(1)])
+    idx = _pack_index(d, h, backward, flat.device)
+    return flat[idx].to(torch.bfloat16).view(torch.int16)
+
+
+class Bf16Pack:
+    """The bf16 weight images of one set of GTF weights at padded widths,
+    the forward's made at once, the backward's at first use, so that an
+    autograd call packs once and its backward reuses the pack."""
+
+    def __init__(self, gtf, d, h):
+        self.gtf, self.d, self.h = gtf, d, h
+        self.images = {False: bf16_pack(gtf, d, h)}
+
+    def image(self, backward):
+        if backward not in self.images:
+            self.images[backward] = bf16_pack(self.gtf, self.d, self.h,
+                                              backward)
+        return self.images[backward]
 
 
 # Zero-padding to the kernels' widths. A padded input dim meets only zero
@@ -500,7 +694,31 @@ def _barrier(device):
 
 
 def _ptr(x):
-    return ctypes.c_void_p(x.data_ptr())
+    return ctypes.c_void_p(None if x is None else x.data_ptr())
+
+
+def _plan_args(k, b_dim, d, h, backward):
+    """The C array of a bf16 scan launch's plan: [columns a cluster, CTAs
+    a cluster, rows a tile, resident, shared-memory bytes]."""
+    plan = bf16_scan_plan(k, b_dim, d, h, backward)
+    return (ctypes.c_int * 5)(plan["cols"], plan["cluster"], plan["rows"],
+                              int(plan["resident"]), plan["smem"])
+
+
+def _images(pack, gtf, d, h):
+    """``pack`` (a ``Bf16Pack`` of ``gtf`` at widths (D, H)), or one made
+    here."""
+    if pack is None:
+        return Bf16Pack(gtf, d, h)
+    if (pack.d, pack.h) != (d, h):
+        raise ValueError("the bf16 pack is at widths (%d, %d), the launch "
+                         "at (%d, %d)" % (pack.d, pack.h, d, h))
+    return pack
+
+
+def _image_args(pack, backward):
+    img = pack.image(backward)
+    return [ctypes.c_void_p(img.data_ptr()), img.shape[1] * 2]
 
 
 def _check_gtf(gtf, d, h):
@@ -531,25 +749,42 @@ def _count(wrapper, bf16):
 
 
 def bfvi_scan_fwd_cuda(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
-                       eps, min_std, bf16=False):
+                       eps, min_std, bf16=False, *, pack=None):
     """Launch the forward kernel (its bfloat16 variant with ``bf16``) on
-    the current stream, at widths padded to multiples of 4
-    (``_check_sizes``); same outputs as ``bfvi_scan_fwd_ref``."""
+    the current stream, at widths padded to multiples of 4 (16 with
+    ``bf16``, ``_check_sizes``); same outputs as ``bfvi_scan_fwd_ref``.
+    ``pack``: the ``Bf16Pack`` of ``gtf`` at the padded widths, made here
+    if None."""
     t_max, n_exp, b_dim, k, d, h = _check_inputs(
         obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps)
-    dp, hp = _check_sizes(k, d, h)
+    dp, hp = _check_sizes(k, d, h, bf16)
     opts = dict(dtype=torch.float32, device=obs_mean.device)
     outs = [torch.empty((t_max, b_dim, dp), **opts) for _ in range(5)]
     outs.append(torch.empty((t_max, k, b_dim, dp), **opts))
-    work = torch.empty((k * b_dim, 2 * hp + 4 * dp), **opts)
     x, gtf, eps = _pad_scan_inputs(obs_mean, obs_std, obs_mask, glb_mean,
                                   glb_std, gtf, eps, dp, hp)
-    stream = torch.cuda.current_stream(obs_mean.device).cuda_stream
-    rc = _lib(bf16).bfvi_scan_fwd(
-        *[_ptr(v) for v in x + _kernel_weights(gtf) + [eps] + outs
-          + [work, _barrier(obs_mean.device)]],
-        t_max, n_exp, b_dim, k, dp, hp, float(min_std),
-        ctypes.c_void_p(stream))
+    stream = ctypes.c_void_p(
+        torch.cuda.current_stream(obs_mean.device).cuda_stream)
+    if bf16:
+        # (getattr: a caller may stand a recording wrapper in for this one)
+        keep = getattr(bfvi_scan_fwd_cuda, "rows", None)
+        rows = None
+        if keep is not None:
+            rows = torch.empty(((t_max - 1) * k * b_dim, 2 * hp + dp), **opts)
+        pack = _images(pack, gtf, dp, hp)
+        rc = _lib(True).bfvi_scan_fwd(
+            *[_ptr(v) for v in x + _kernel_weights(gtf) + [eps] + outs
+              + [rows, None]],
+            t_max, n_exp, b_dim, k, dp, hp, float(min_std), stream,
+            *_image_args(pack, False), _plan_args(k, b_dim, dp, hp, False))
+        if rows is not None:
+            keep.append(_unpad_blocks(rows, (h, h, d), (hp, hp, dp)))
+    else:
+        work = torch.empty((k * b_dim, 2 * hp + 4 * dp), **opts)
+        rc = _lib().bfvi_scan_fwd(
+            *[_ptr(v) for v in x + _kernel_weights(gtf) + [eps] + outs
+              + [work, _barrier(obs_mean.device)]],
+            t_max, n_exp, b_dim, k, dp, hp, float(min_std), stream)
     if rc != 0:
         raise RuntimeError("bfvi_scan_fwd%s kernel launch failed: CUDA "
                            "error %d" % ("_bf16" if bf16 else "", rc))
@@ -560,6 +795,10 @@ def bfvi_scan_fwd_cuda(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
 
 
 bfvi_scan_fwd_cuda.launches = bfvi_scan_fwd_cuda.launches_bf16 = 0
+# A list to which each bf16 launch appends the rows [h1 | hn | z_nonlin]
+# of its own transition (laid out as the backward's xs, at the real
+# widths), or None: the backward's recompute must equal them bit for bit.
+bfvi_scan_fwd_cuda.rows = None
 
 
 def partial_size(d, h):
@@ -569,16 +808,17 @@ def partial_size(d, h):
     return d * la + la + 2 * (h * d + d) + d * d + d
 
 
-def bfvi_scan_bwd_cuda(res, cots, min_std, bf16=False):
+def bfvi_scan_bwd_cuda(res, cots, min_std, bf16=False, *, pack=None):
     """Launch the backward scan kernel on the current stream, then the
     weight-gradient kernel on the rows it wrote (their bfloat16 variants
-    with ``bf16``), at widths padded to multiples of 4; same outputs as
-    ``bfvi_scan_bwd_ref``."""
+    with ``bf16``), at widths padded to multiples of 4 (16 with ``bf16``);
+    same outputs as ``bfvi_scan_bwd_ref``. ``pack`` as in
+    ``bfvi_scan_fwd_cuda``."""
     (obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps, z_traj,
      prior_mean, prior_std) = res
     t_max, n_exp, b_dim, k, d, h = _check_inputs(
         obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps)
-    dp, hp = _check_sizes(k, d, h)
+    dp, hp = _check_sizes(k, d, h, bf16)
     _check_tensor("z_traj", z_traj, (t_max, k, b_dim, d))
     for name, x in zip(("prior_mean", "prior_std", "g_prior_mean",
                         "g_prior_std", "g_infer_mean", "g_infer_std",
@@ -592,18 +832,25 @@ def bfvi_scan_bwd_cuda(res, cots, min_std, bf16=False):
     n_rows = (t_max - 1) * k * b_dim
     xs = torch.empty((n_rows, 2 * hp + dp), **opts)
     ys = torch.empty((n_rows, 2 * hp + 4 * dp), **opts)
-    gz = torch.zeros((3, k * b_dim, dp), **opts)
     res, cots = _pad_bwd_inputs(res, cots, dp, hp)
     z_traj = res[7]
     x = (list(res[:5]) + _kernel_weights(res[5]) + list(res[6:])
          + list(cots))
-    stream = torch.cuda.current_stream(obs_mean.device).cuda_stream
-    rc = _lib(bf16).bfvi_scan_bwd(
-        *[_ptr(v) for v in x + [d_obs_mean, d_obs_std, d_glb_mean,
-                                d_glb_std, xs, ys, gz,
-                                _barrier(obs_mean.device)]],
-        t_max, n_exp, b_dim, k, dp, hp, float(min_std),
-        ctypes.c_void_p(stream))
+    stream = ctypes.c_void_p(
+        torch.cuda.current_stream(obs_mean.device).cuda_stream)
+    outs = [d_obs_mean, d_obs_std, d_glb_mean, d_glb_std, xs, ys]
+    if bf16:
+        pack = _images(pack, res[5], dp, hp)
+        rc = _lib(True).bfvi_scan_bwd(
+            *[_ptr(v) for v in x + outs + [None, None]],
+            t_max, n_exp, b_dim, k, dp, hp, float(min_std), stream,
+            *_image_args(pack, True), *_image_args(pack, False),
+            _plan_args(k, b_dim, dp, hp, True))
+    else:
+        gz = torch.zeros((3, k * b_dim, dp), **opts)
+        rc = _lib().bfvi_scan_bwd(
+            *[_ptr(v) for v in x + outs + [gz, _barrier(obs_mean.device)]],
+            t_max, n_exp, b_dim, k, dp, hp, float(min_std), stream)
     if rc != 0:
         raise RuntimeError("bfvi_scan_bwd%s kernel launch failed: CUDA "
                            "error %d" % ("_bf16" if bf16 else "", rc))
@@ -746,9 +993,19 @@ class _BfviScan(torch.autograd.Function):
                 glb_mean, glb_std, eps, *wb):
         gtf = _gtf_from_flat(wb)
         kernel = obs_mean.is_cuda and plain is not True
-        fwd = bfvi_scan_fwd_cuda if kernel else bfvi_scan_fwd_ref
-        outs = fwd(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps,
-                   min_std, bf16=bf16)
+        ctx.pack = None
+        if kernel:
+            kw = {}
+            if bf16:  # one pack of the weights for the forward and backward
+                d, h = obs_mean.shape[-1], gtf["gate_1"]["w"].shape[0]
+                dp, hp = _check_sizes(eps.shape[1], d, h, True)
+                ctx.pack = kw["pack"] = Bf16Pack(_pad_gtf(gtf, dp, hp), dp,
+                                                 hp)
+            outs = bfvi_scan_fwd_cuda(obs_mean, obs_std, obs_mask, glb_mean,
+                                      glb_std, gtf, eps, min_std, bf16, **kw)
+        else:
+            outs = bfvi_scan_fwd_ref(obs_mean, obs_std, obs_mask, glb_mean,
+                                     glb_std, gtf, eps, min_std, bf16=bf16)
         ctx.min_std = min_std
         ctx.bf16 = bf16
         ctx.kernel = kernel and not plain
@@ -764,9 +1021,13 @@ class _BfviScan(torch.autograd.Function):
                      else g.contiguous() for g in grads)
         res = (obs_mean, obs_std, obs_mask, glb_mean, glb_std,
                _gtf_from_flat(wb), eps, z_traj, prior_mean, prior_std)
-        bwd = bfvi_scan_bwd_cuda if ctx.kernel else bfvi_scan_bwd_ref
-        d_om, d_os, d_gm, d_gs, d_gtf = bwd(res, cots, ctx.min_std,
-                                            bf16=ctx.bf16)
+        if ctx.kernel:
+            kw = {"pack": ctx.pack} if ctx.bf16 else {}
+            d_om, d_os, d_gm, d_gs, d_gtf = bfvi_scan_bwd_cuda(
+                res, cots, ctx.min_std, ctx.bf16, **kw)
+        else:
+            d_om, d_os, d_gm, d_gs, d_gtf = bfvi_scan_bwd_ref(
+                res, cots, ctx.min_std, bf16=ctx.bf16)
         flat = []
         for name in GTF_LAYERS:
             flat += [d_gtf[name]["w"], d_gtf[name]["b"]]

@@ -163,12 +163,16 @@ def _check_against_plain(x, gtf, eps, cots):
 
 
 # The bf16 variants against the bf16 plain versions (chip_smoke.py's
-# BF16_TOL and BF16_GRAD_RTOL): the Small (K = 1, B = 7), Medium (1,125 rows
-# a step) and Large tiles, the Weizmann width, and the spirals widths padded
-# to D = 8, whose 8- and 20-deep products end inside one 16-deep step.
+# BF16_TOL and BF16_GRAD_RTOL), on the plans of ops/cuda/bfvi_scan.py:
+# K = 1 with 7 columns, K = 25 in clusters of two columns, the Weizmann
+# width (clusters of 8 CTAs), and widths that the bf16 route pads to
+# multiples of 16: the spirals model's D = 5, H = 20 (run as 16 and 32, two
+# CTAs a cluster), D = 12, H = 20 (the same) and D = 48, H = 40 (48 and
+# 48: six CTAs a cluster); D = H = 512 streams its weights.
 @pytest.mark.parametrize("t_max,b_dim,d,h,k", [
     (6, 7, 32, 24, 1), (6, 45, 32, 24, 25), (4, 50, 256, 256, 25),
-    (10, 45, 5, 20, 25)])
+    (10, 45, 5, 20, 25), (6, 45, 12, 20, 25), (6, 45, 12, 20, 1),
+    (5, 13, 48, 40, 25), (3, 9, 512, 512, 25), (3, 70, 512, 512, 1)])
 def test_bf16_kernels_match_plain_versions(dev, t_max, b_dim, d, h, k):
     x, gtf, eps, cots = _inputs(dev, t_max=t_max, b_dim=b_dim, d=d, h=h, k=k)
     got = tscan.bfvi_scan_fwd_cuda(*x, gtf, eps, MIN_STD, bf16=True)
@@ -194,6 +198,26 @@ def test_bf16_kernels_match_plain_versions(dev, t_max, b_dim, d, h, k):
     for g, e, g2 in pairs:
         assert torch.equal(g, g2)
         assert ((g - e).norm() / e.norm()).item() <= 0.25
+
+
+@pytest.mark.parametrize("d,h,k", [(32, 24, 25), (256, 256, 25),
+                                   (5, 20, 1), (512, 512, 25)])
+def test_bf16_recompute_equals_forward(dev, d, h, k):
+    """The bf16 backward's recomputed transition (its xs rows: h1, hn,
+    z_nonlin) equals the forward kernel's own, bit for bit: one product
+    routine and one K-order for both, so no ReLU or gate can flip between
+    them."""
+    x, gtf, eps, cots = _inputs(dev, t_max=5, b_dim=9, d=d, h=h, k=k)
+    tscan.bfvi_scan_fwd_cuda.rows = fwd_rows = []
+    tscan.bfvi_scan_bwd_cuda.rows = bwd_rows = []
+    try:
+        got = tscan.bfvi_scan_fwd_cuda(*x, gtf, eps, MIN_STD, bf16=True)
+        res = tuple(x) + (gtf, eps, got[5], got[0], got[1])
+        tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD, bf16=True)
+    finally:
+        tscan.bfvi_scan_fwd_cuda.rows = tscan.bfvi_scan_bwd_cuda.rows = None
+    assert fwd_rows[0].shape == bwd_rows[0].shape == (4 * k * 9, 2 * h + d)
+    assert torch.equal(fwd_rows[0], bwd_rows[0])
 
 
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
