@@ -16,9 +16,11 @@ imports nothing of JAX or of the JAX package. Phases:
    cores); the backward is held to the plain backward run on its own ReLU
    masks in the GTF's first layers, each unit where those differ from the
    plain masks within rounding of 0 (``relu_flip_bound``), and two runs
-   of it must agree bit for bit; the forward kernel also at the
-   evaluation's smoothing shape (T = 56, B = 25, (M, K) = (5, 1)), a row
-   of its own;
+   of it must agree bit for bit; the weight-gradient kernel's device time
+   on rows at its padded widths, as the backward launches it, beside its
+   library yardstick (four ``torch.mm`` and the bias sums); the forward
+   kernel also at the evaluation's smoothing shape (T = 56, B = 25, (M,
+   K) = (5, 1)), a row of its own;
 4. the Weizmann BFVI training step at full width (weights from --seed,
    a synthetic batch of T = B = 25, KLD multiplier 1 as at the end of the
    trainer's anneal): one step's loss and gradients on the kernels
@@ -141,7 +143,12 @@ imports nothing of JAX or of the JAX package. Phases:
    equal to the forward's own bit for bit, 0 ReLU flips), with their
    times, each scan's beside its float32 twin's in the same call, their
    launch plans (clusters, waves on the card, resident or streamed) and
-   their bound at one bf16 pass (PEAK_BF16_FLOPS); (b)
+   their bound at one bf16 pass (PEAK_BF16_FLOPS); the bf16 weight-gradient
+   kernel (``csrc/wgrad_bf16.cuh``) on rows in the bf16 backward's form
+   (bfloat16 rows, ``BIAS_CHUNKS`` partials of the float32 bias sums,
+   as the tiled route hands them over) against
+   ``gtf_wgrad_bf16_ref``, two runs bit for bit, its library yardstick
+   ``torch.mm(..., out_dtype=torch.float32)`` on the same rows; (b)
    one ``bf16_gtf`` step on the kernels against the plain versions (loss
    within BF16_GTF_LOSS_RTOL, each leaf within BF16_GRAD_RTOL), then the
    step timed in turns beside the float32 step and the bench
@@ -150,7 +157,18 @@ imports nothing of JAX or of the JAX package. Phases:
    versions, metrics within BF16_GTF_EVAL_RTOL; (d) torch.profiler's
    kernel names of one step: every scan launch a bf16 variant; (e)
    ``apps.weizmann.main --model_args '{bf16_gtf: true}'``: one epoch, then
-   ``--load last.pth --evaluate --save_args '{skip: true}'``.
+   ``--load last.pth --evaluate --save_args '{skip: true}'``;
+16. every width and particle count that the reference takes: (a) phase 3's
+   and 15 (a)'s checks at one launch each (T = 25, M = 3): the float32
+   kernels at K = 50 (100 columns) and K = 256 (25 columns), the bf16
+   cluster route at K = 50, the bf16 tiled route (``..._bf16_tiled``,
+   where no cluster holds a column's operands) at K = 100 and at z = h =
+   768, K = 25; (b) one Weizmann step with ``train_particles: 50``, float32
+   (phase 4's checks) and ``bf16_gtf`` (phase 15 (b)'s on the kernel's
+   masks); (c) one ``bf16_gtf`` step at z = h = 768 (its K = 25 scan on the
+   tiled route); the launches of each of the three steps' kernel runs by
+   route, counted from 0 just before the run and read just after it,
+   every kernel of the slice launched.
 
 Any failed check raises, so the script exits non-zero before its last
 line. The line before the last is a JSON object with one entry per
@@ -159,7 +177,13 @@ spirals and VidTIMIT shapes (``... (spirals)``, ``... (vidtimit)``), and
 the three bf16 variants (``..._bf16``, phase 15: times and bounds at the
 Weizmann step's shapes, ``f32_twin_ms`` the float32 twin's in the same
 call for the two scans, launches of its command line, ``launches_by_phase``
-those of its step, evaluation and command line). For
+those of its step, evaluation and command line), and the tiled route's two
+scans (``..._bf16_tiled``: phase 16 (a)'s one launch at z = h = 768, K =
+25, launches of phase 16 (c)'s step; ``launches_by_phase`` of the bf16
+rows adds phase 16 (b)'s ``bf16_gtf`` step and (c)'s, each on its own). ``library_ms`` is null for the scans
+and the cell (no PyTorch call computes them) and, for the weight
+gradients, the device time of four ``torch.mm`` (float32, or bf16 rows
+with ``out_dtype=torch.float32``) and the bias sums. For
 the scan kernels ``ms``, ``plain_ms`` and ``bound_ms`` are sums over the
 training step's three launches (phase 3, 9 or 12); ``bound_ms`` is the
 bound of the route the kernels take and ``bound_f32_ms`` that of float32
@@ -168,7 +192,8 @@ they are per launch at the evaluation's 200-particle shape. ``launches``
 counts the launches of the row's command-line run (phase 8, 10 or 12),
 and ``launches_by_phase`` those of the runs of phases 4 (the training
 steps), 6 (one evaluation), 7 (the timed bench-configuration steps), 8,
-10, 12, 13 (the Weizmann grid) and 14 (summed over the ranks); the last is
+10, 12, 13 (the Weizmann grid), 14 (summed over the ranks) and 16 (b)'s
+float32 step at K = 50; the last is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -211,6 +236,12 @@ SCAN_KERNELS = ("bfvi_scan_fwd", "bfvi_scan_bwd", "gtf_wgrad")
 BF16_KERNELS = {name + "_bf16": name for name in SCAN_KERNELS}
 BF16_SRC = "multimodal_dmm_tpu_torch/csrc/bfvi_scan_bf16.cu"
 BF16_SCAN_SRC = "multimodal_dmm_tpu_torch/csrc/bf16_scan.cuh"
+WGRAD_BF16_SRC = "multimodal_dmm_tpu_torch/csrc/wgrad_bf16.cuh"
+# The bf16 scans' tiled route (csrc/bfvi_scan.cuh on the tile engine's bf16
+# route), counted in ``.launches_bf16_tiled``: name -> its f32 twin.
+TILED_KERNELS = {"bfvi_scan_fwd_bf16_tiled": "bfvi_scan_fwd",
+                 "bfvi_scan_bwd_bf16_tiled": "bfvi_scan_bwd"}
+TILED_SRC = "multimodal_dmm_tpu_torch/csrc/bfvi_scan.cuh"
 # (M, K, smoothing) at B = 25, D = 256
 CELL_SHAPES = ((3, 200, False), (5, 1, True))
 N_EVAL_SEQS = 10
@@ -480,9 +511,11 @@ def check_flips(scan, margins, d, what, bf16=False):
 
 def check_recompute(scan, x, gtf, eps, cots, what):
     """Phase 15 (a): the bf16 backward's recomputed transition (its xs
-    rows h1, hn, z_nonlin) against the forward kernel's own rows on the
-    forward's z_traj: 0 ReLU flips and every value equal bit for bit (one
-    product routine and K-order for both, csrc/bf16_scan.cuh)."""
+    rows h1, hn, z_nonlin, in bfloat16 as the weight gradients read them)
+    against the forward kernel's own rows on the forward's z_traj, rounded
+    alike: 0 ReLU flips and every value equal bit for bit (one product
+    routine and K-order for both, csrc/bf16_scan.cuh and, on the tiled
+    route, csrc/tf32x3.cuh)."""
     h = gtf["gate_1"]["w"].shape[0]
     scan.bfvi_scan_fwd_cuda.rows = fwd_rows = []
     scan.bfvi_scan_bwd_cuda.rows = bwd_rows = []
@@ -508,6 +541,11 @@ def log_plan(scan, name, k, b_dim, d, h, backward):
     """The bf16 launch plan of ``name`` at one shape, with the clusters
     that the card runs at once (cudaOccupancyMaxActiveClusters)."""
     p = scan.bf16_scan_plan(k, b_dim, d, h, backward)
+    if p["route"] == "tiled":
+        log("    plan %s_bf16 (K = %d, %d columns, D = %d, H = %d): the tiled "
+            "route (no cluster holds a column's operands), a cooperative "
+            "launch on the tile engine's bf16 route" % (name, k, b_dim, d, h))
+        return
     at_once = scan._lib(True).bfvi_scan_bf16_max_clusters(
         int(backward), p["cluster"], p["smem"])
     check(at_once >= 1, "%s_bf16: the card runs no cluster of %d CTAs with "
@@ -542,6 +580,60 @@ def bwd_pairs(scan, out_a, out_b):
                     for n in scan.GTF_LAYERS for kk in ("w", "b")]
 
 
+def has_mm_out_dtype():
+    """Whether this PyTorch has ``torch.mm``'s ``out_dtype`` overload on the
+    card (bfloat16 operands, a float32 result), the bf16 weight gradients'
+    library yardstick."""
+    a = torch.ones((16, 16), dtype=torch.bfloat16, device="cuda")
+    try:
+        torch.mm(a, a, out_dtype=torch.float32)
+    except (TypeError, RuntimeError, NotImplementedError):
+        return False
+    return True
+
+
+def wgrad_library(z, xs, ys, parts=None):
+    """The weight gradients' library yardstick: the four products and the
+    bias sums, one PyTorch call each. On float32 rows (z the first rows of
+    z_traj) ``torch.mm`` in full float32 and ``sum(0)`` of the four
+    cotangent blocks; with ``parts`` (bf16 rows and the float32 bias
+    partials) ``torch.mm(..., out_dtype=torch.float32)`` on the bfloat16
+    rows and the partials' ``sum(0)``."""
+    d = z.shape[1]
+    h = (xs.shape[1] - d) // 2
+    y1, da2, dzn, dsr = torch.split(ys, [2 * h + d, d, d, d], 1)
+    h1, hn, zn = torch.split(xs, [h, h, d], 1)
+    if parts is None:
+        mm, sums = torch.mm, [y.sum(0) for y in (y1, da2, dzn, dsr)]
+    else:
+        sums = [parts.sum(0)]
+
+        def mm(a, b):
+            return torch.mm(a, b, out_dtype=torch.float32)
+    return [mm(y1.t(), z), mm(da2.t(), h1), mm(dzn.t(), hn),
+            mm(dsr.t(), zn)] + sums
+
+
+def wgrad_bf16_inputs(scan, z_traj, xs, ys, n_rows):
+    """Rows in the bf16 backward's form from float32 rows: the bfloat16
+    images of z_traj's first ``n_rows`` rows, of xs and of ys, and
+    ``scan.BIAS_CHUNKS`` partials of ys's float32 column sums (the tiled
+    route's)."""
+    d = z_traj.shape[-1]
+    parts = torch.stack([c.sum(0) for c in ys.chunk(scan.BIAS_CHUNKS)])
+    return (z_traj.reshape(-1, d)[:n_rows].to(torch.bfloat16),
+            xs.to(torch.bfloat16), ys.to(torch.bfloat16), parts)
+
+
+def wgrad_bf16_bytes(n_rows, d, h, n_parts):
+    """Bytes that the bf16 weight gradients must move: the bf16 rows and the
+    bias partials read once, the gradients written once."""
+    la = 2 * h + d
+    n_w = la * d + 2 * d * h + d * d
+    return (2 * n_rows * (d + la + la + 3 * d)
+            + 4 * (n_parts * (la + 3 * d) + n_w + la + 3 * d))
+
+
 def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
                   shapes=SCAN_SHAPES, smooth_shape=SMOOTH_SHAPE, seed=100,
                   bf16=False):
@@ -570,6 +662,8 @@ def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
     rec = {name: dict(err=0.0, ms=0.0, plain_ms=0.0, bound_f32_ms=0.0,
                       bound_ms={"operations": 0.0, "bytes": 0.0})
            for name in SCAN_KERNELS}
+    has_lib = not bf16 or has_mm_out_dtype()
+    rec["gtf_wgrad"]["library_ms"] = 0.0 if has_lib else None
     for i, (n_exp, k) in enumerate(shapes):
         x, eps, cots = scan_inputs(n_exp, k, dev, seed + i, t_max, b_dim, d,
                                    smoothing=i == len(shapes) - 1)
@@ -605,13 +699,41 @@ def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
             check(torch.equal(g, g2), "backward kernel %s: two runs differ "
                   "at (M, K) = (%d, %d)" % (name, n_exp, k))
         # The weight-gradient kernel alone, on rows shaped like those the
-        # backward kernel writes.
+        # backward kernel writes: float32, or with bf16 in the bf16
+        # backward's form (their bfloat16 images and partials of the
+        # float32 bias sums); two runs agree bit for bit.
         gen = torch.Generator(device=dev).manual_seed(seed + 100 + i)
         n_rows = (t_max - 1) * k * b_dim
         xs = torch.randn((n_rows, 2 * h + d), generator=gen, device=dev)
         ys = torch.randn((n_rows, 2 * h + 4 * d), generator=gen, device=dev)
-        w_got = scan.gtf_wgrad_cuda(exp[5], xs, ys, bf16)
-        w_exp = scan.gtf_wgrad_ref(exp[5], xs, ys, bf16)
+        # Timed as the backward launches it, on rows at the kernels' padded
+        # widths (the wrapper's padding copies are no part of the path).
+        y_real = (h, h) + (d,) * 4
+        if bf16:
+            w_in = wgrad_bf16_inputs(scan, exp[5], xs, ys, n_rows)
+            w_fn = lambda: scan.gtf_wgrad_bf16_cuda(*w_in)  # noqa: E731
+            w_ref = lambda: scan.gtf_wgrad_bf16_ref(*w_in)  # noqa: E731
+            w_lib = lambda: wgrad_library(*w_in)  # noqa: E731
+            dp, hp = scan._check_sizes(k, d, h, True)
+            blocks = (y_real, (hp, hp) + (dp,) * 4)
+            w_pad = (scan._pad_last(w_in[0], dp),
+                     scan._pad_blocks(w_in[1], (h, h, d), (hp, hp, dp)),
+                     scan._pad_blocks(w_in[2], *blocks),
+                     scan._pad_blocks(w_in[3], *blocks))
+            w_path = lambda: scan._gtf_wgrad_bf16_launch(  # noqa: E731
+                *w_pad, dp, hp)
+        else:
+            z_rows = exp[5].reshape(-1, d)[:n_rows]
+            w_fn = lambda: scan.gtf_wgrad_cuda(exp[5], xs, ys)  # noqa: E731
+            w_ref = lambda: scan.gtf_wgrad_ref(exp[5], xs, ys)  # noqa: E731
+            w_lib = lambda: wgrad_library(z_rows, xs, ys)  # noqa: E731
+            dp, hp = scan._check_sizes(k, d, h)
+            w_pad = (scan._pad_last(exp[5], dp),
+                     scan._pad_blocks(xs, (h, h, d), (hp, hp, dp)),
+                     scan._pad_blocks(ys, y_real, (hp, hp) + (dp,) * 4))
+            w_path = lambda: scan._gtf_wgrad_launch(  # noqa: E731
+                *w_pad, n_rows, dp, hp)
+        w_got, w_again, w_exp = w_fn(), w_fn(), w_ref()
         torch.cuda.synchronize()
         werr = 0.0
         for n in scan.GTF_LAYERS:
@@ -621,6 +743,9 @@ def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
                 check(ok, "weight-gradient kernel %s.%s disagrees at K = %d: "
                       "max abs err %.3g, relative Frobenius %.3g"
                       % (n, kk, k, a, rel_fro(w_got[n][kk], w_exp[n][kk])))
+                check(torch.equal(w_got[n][kk], w_again[n][kk]),
+                      "weight-gradient kernel %s.%s: two runs differ at K = "
+                      "%d" % (n, kk, k))
         if bf16:
             # The bias gradients sum float32 cotangents on both routes:
             # only the weights tell them apart.
@@ -637,17 +762,19 @@ def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
         kw = {}
         if bf16:
             check_recompute(scan, x, gtf, eps, cots, what)
-            # The bf16 scans' weight images, packed once as an autograd
-            # call packs them (timed on their own).
+            # The cluster route's weight images, packed once as an autograd
+            # call packs them (timed on their own); the tiled route reads
+            # the weights as they are.
             dp, hp = scan._check_sizes(k, d, h, True)
             gtf_p = scan._pad_gtf(gtf, dp, hp)
-
-            def make_pack():
-                pk = scan.Bf16Pack(gtf_p, dp, hp)
-                pk.image(True)
-                return pk
-            kw["pack"] = make_pack()
-            pack_ms = time_ms(make_pack, reps)
+            pack_ms = 0.0
+            if scan.bf16_scan_plan(k, b_dim, dp, hp)["route"] == "cluster":
+                def make_pack():
+                    pk = scan.Bf16Pack(gtf_p, dp, hp)
+                    pk.image(True)
+                    return pk
+                kw["pack"] = make_pack()
+                pack_ms = time_ms(make_pack, reps)
         times = [time_ms(fn, r) for fn, r in (
             (lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3, bf16, **kw),
              reps),
@@ -657,8 +784,11 @@ def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
              reps),
             (lambda: scan.bfvi_scan_bwd_ref(res, cots, 1e-3, bf16),
              plain_reps),
-            (lambda: scan.gtf_wgrad_cuda(exp[5], xs, ys, bf16), reps),
-            (lambda: scan.gtf_wgrad_ref(exp[5], xs, ys, bf16), reps))]
+            (w_ref, reps))]
+        # The weight gradients and their library yardstick: device time
+        # (the host's enqueue of a call outlasts a K = 1 launch).
+        times.insert(4, time_device_ms(w_path, max(reps, 10)))
+        lib_ms = time_device_ms(w_lib, max(reps, 10)) if has_lib else None
         if bf16:
             # Each bf16 scan beside its float32 twin, in turns.
             twins = [time_ms(fn, reps) for fn in (
@@ -681,6 +811,10 @@ def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
                                             + twin[name])
         (ff, fb), (bf, bb), (wf, wb) = scan_work(t_max, n_exp, b_dim, k, d,
                                                  h)
+        if bf16:  # the weight gradients read the rows in bfloat16
+            wb = wgrad_bf16_bytes(n_rows, d, h, w_in[3].shape[0])
+        if has_lib:
+            rec["gtf_wgrad"]["library_ms"] += lib_ms
         for name, e, ms, pms, fl, by in (
                 ("bfvi_scan_fwd", err, times[0], times[1], ff, fb),
                 ("bfvi_scan_bwd", berr, times[2], times[3], bf, bb),
@@ -693,10 +827,15 @@ def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
             r["bound_ms"][by_what] += bms
             f32_ms, f32_by = bound_ms(fl, by)
             r["bound_f32_ms"] += f32_ms
-            log("  %s%s (M, K) = (%d, %d): kernel %.3f ms, plain %.3f ms, "
+            lib = ""
+            if name == "gtf_wgrad":
+                lib = ", library %s" % ("%.3f ms" % lib_ms if has_lib else
+                                        "not available")
+            log("  %s%s (M, K) = (%d, %d): kernel %.3f ms, plain %.3f ms%s, "
                 "bound %.3f ms (%s, %s), f32 bound %.3f ms (%s), max abs "
                 "err %.3g" % (name, "_bf16" if bf16 else "", n_exp, k, ms,
-                              pms, bms, by_what, route, f32_ms, f32_by, e))
+                              pms, lib, bms, by_what, route, f32_ms, f32_by,
+                              e))
 
     if smooth_shape is None:
         return rec
@@ -898,28 +1037,33 @@ def kernel_wrappers():
     return out
 
 
-class Bf16Route:
-    """A scan wrapper's count of its bfloat16 variant's launches
-    (``.launches_bf16``), read and set as ``.launches`` like the others."""
+class RouteCount:
+    """A scan wrapper's count of one bf16 route's launches
+    (``.launches_bf16``: the cluster route; ``.launches_bf16_tiled``),
+    read and set as ``.launches`` like the others."""
 
-    def __init__(self, wrapper):
-        self.wrapper = wrapper
+    def __init__(self, wrapper, attr="launches_bf16"):
+        self.wrapper, self.attr = wrapper, attr
 
     @property
     def launches(self):
-        return self.wrapper.launches_bf16
+        return getattr(self.wrapper, self.attr)
 
     @launches.setter
     def launches(self, n):
-        self.wrapper.launches_bf16 = n
+        setattr(self.wrapper, self.attr, n)
 
 
 def all_wrappers():
-    """``kernel_wrappers()`` and the counts of the scan kernels' bfloat16
-    variants."""
+    """``kernel_wrappers()``, the counts of the scan kernels' bfloat16
+    variants on both routes and the bf16 weight-gradient kernel's."""
+    from multimodal_dmm_tpu_torch.ops.cuda import bfvi_scan
     out = kernel_wrappers()
-    out.update({name: Bf16Route(out[f32]) for name, f32 in
-                BF16_KERNELS.items()})
+    for name, f32 in BF16_KERNELS.items():
+        out[name] = (bfvi_scan.gtf_wgrad_bf16_cuda if f32 == "gtf_wgrad"
+                     else RouteCount(out[f32]))
+    for name, f32 in TILED_KERNELS.items():
+        out[name] = RouteCount(out[f32], "launches_bf16_tiled")
     return out
 
 
@@ -1025,10 +1169,16 @@ def check_step_against_plain(scan, trainer, inputs, targets, mask, seed,
       weight gradient by one sample's whole term. How many flip depends
       on the weights (PERF.md). A second plain run shows that the plain
       path itself is deterministic.
+
+    Returns the launches of the first run (the kernels' step) alone, by
+    wrapper (``all_wrappers``), read just before and just after it.
     """
     torch.backends.cudnn.deterministic = True
+    wrappers = all_wrappers()
+    before = {n: w.launches for n, w in wrappers.items()}
     (l_k, g_k), rows = with_kernel_rows(scan, lambda: step_grads(
         trainer, inputs, targets, mask, False, seed, **step_kw))
+    launches = {n: w.launches - before[n] for n, w in wrappers.items()}
     check(len(rows) == n_launches, "the step launched the backward "
           "kernel %d times, expected %d" % (len(rows), n_launches))
     margins, launch = [], iter(rows)
@@ -1100,6 +1250,7 @@ def check_step_against_plain(scan, trainer, inputs, targets, mask, seed,
           "relative Frobenius norm: %s" % (len(bad), STEP_GRAD_TOL["rtol"],
                                            bad))
     log("  gradients: %d leaves agree" % len(d_all))
+    return launches
 
 def native_batch(batch, perms):
     """``batch`` with the modalities of ``perms`` in the codec-native
@@ -1428,15 +1579,15 @@ def scan_launch_shapes(scan, fn):
         shapes.append(tuple(obs_mean.shape[:3]) + (rest[5].shape[1],))
         return launch(obs_mean, *rest, **kw)
     # The wrapper counts its launches under the module's name, which is
-    # the recording one's while it is in place.
-    recorded.launches = launch.launches
-    recorded.launches_bf16 = launch.launches_bf16
+    # the recording one's while it is in place: every route's counter.
+    for name in scan._COUNTERS.values():
+        setattr(recorded, name, getattr(launch, name))
     scan.bfvi_scan_fwd_cuda = recorded
     try:
         out = fn()
     finally:
-        launch.launches = recorded.launches
-        launch.launches_bf16 = recorded.launches_bf16
+        for name in scan._COUNTERS.values():
+            setattr(launch, name, getattr(recorded, name))
         scan.bfvi_scan_fwd_cuda = launch
     return out, shapes
 
@@ -2419,29 +2570,47 @@ def scan_kernel_names(fn):
               if e.device_type == torch.autograd.DeviceType.CUDA]
     if not events:
         return None
-    names = [n + "_kernel" for n in list(SCAN_KERNELS) + list(BF16_KERNELS)]
+    names = [n + "_kernel" for n in
+             list(SCAN_KERNELS) + list(BF16_KERNELS) + list(TILED_KERNELS)]
     counts = {n: 0 for n in names}
     for e in events:
         for n in names:
-            # "bfvi_scan_fwd_kernel" is no substring of the bf16 variant's
-            # name, nor the reverse.
+            # "bfvi_scan_fwd_kernel" is no substring of a bf16 variant's
+            # name ("..._bf16_kernel", "..._bf16_tiled_kernel"), nor the
+            # reverse; "gtf_wgrad_bf16_kernel" none of its reduction's.
             if n in e.name:
                 counts[n] += 1
     return counts
 
 
-def check_bf16_step(scan, trainer, inputs, targets, mask, seed):
-    """Phase 15 (b) and (d): one ``bf16_gtf`` step's loss and gradients on
-    the kernels against the same step on the plain versions, with the
-    same noise and deterministic cuDNN: the loss within
+def step_bf16_launches(scan, model, ks):
+    """The launches of a ``bf16_gtf`` step whose three scans take K = ``ks``
+    particles over V B columns: each scan's route as ``bf16_scan_plan``
+    chooses it, one bf16 weight-gradient launch a backward."""
+    dp, hp = scan._check_sizes(1, model.z_dim, model.h_dim, True)
+    want = {n: 0 for n in all_wrappers()}
+    for k in ks:
+        route = scan.bf16_scan_plan(k, V_MAIN * B_DATA, dp, hp)["route"]
+        for f32 in ("bfvi_scan_fwd", "bfvi_scan_bwd"):
+            want[f32 + ("_bf16" if route == "cluster" else "_bf16_tiled")] += 1
+        want["gtf_wgrad_bf16"] += 1
+    return want
+
+
+def check_bf16_step(scan, trainer, inputs, targets, mask, seed,
+                    ks=(1, 25, 1), control=True):
+    """Phase 15 (b) and (d) (and 16): one ``bf16_gtf`` step's loss and
+    gradients on the kernels against the same step on the plain versions,
+    with the same noise and deterministic cuDNN: the loss within
     BF16_GTF_LOSS_RTOL, each gradient leaf within BF16_GRAD_RTOL in
     relative Frobenius norm, and within BF16_GTF_STEP_RFRO against the
     plain backward run on the backward kernel's ReLU masks (every flip
-    within ``relu_flip_bound(D, bf16=True)``), where the same step in
-    float32 on the same weights (the control) lies BF16_GTF_SEPARATION
-    times farther in every transition weight that has a gradient; every
-    scan launch of the step a bf16 variant, by the wrappers' counts and by
-    the profiler's kernel names. Returns the step's launches."""
+    within ``relu_flip_bound(D, bf16=True)``); with ``control``, the same
+    step in float32 on the same weights lies BF16_GTF_SEPARATION times
+    farther in every transition weight that has a gradient, and the
+    profiler's kernel names agree with the wrappers' counts. Every scan
+    launch of the step is a bf16 variant on the route of its plan (the
+    scans' K: ``ks``). Returns the step's launches."""
     wrappers = all_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
@@ -2449,9 +2618,9 @@ def check_bf16_step(scan, trainer, inputs, targets, mask, seed):
     (l_k, g_k), rows = with_kernel_rows(scan, lambda: step_grads(
         trainer, inputs, targets, mask, False, seed))
     launches = {n: fn.launches for n, fn in wrappers.items()}
-    want = {n: 3 if n in BF16_KERNELS else 0 for n in wrappers}
-    check(launches == want, "bf16_gtf step launches %s, expected 3 of each "
-          "bf16 variant and nothing else" % launches)
+    want = step_bf16_launches(scan, trainer.model, ks)
+    check(launches == want, "bf16_gtf step launches %s, expected %s"
+          % (launches, want))
     margins, launch = [], iter(rows)
 
     def on_masks(res, cots, min_std, bf16=False, pack=None):
@@ -2466,11 +2635,12 @@ def check_bf16_step(scan, trainer, inputs, targets, mask, seed):
     finally:
         scan.bfvi_scan_bwd_cuda = bwd_kernel
     l_p, g_p = step_grads(trainer, inputs, targets, mask, True, seed)
-    trainer.model.bf16_gtf = False
-    try:
-        l_f, g_f = step_grads(trainer, inputs, targets, mask, False, seed)
-    finally:
-        trainer.model.bf16_gtf = True
+    if control:
+        trainer.model.bf16_gtf = False
+        try:
+            l_f, g_f = step_grads(trainer, inputs, targets, mask, False, seed)
+        finally:
+            trainer.model.bf16_gtf = True
     torch.backends.cudnn.deterministic = False
     log("  loss: kernels %.6f, forward kernel + plain backward on the "
         "kernel's ReLU masks %.6f, plain %.6f (relative difference %.3g)"
@@ -2495,6 +2665,12 @@ def check_bf16_step(scan, trainer, inputs, targets, mask, seed):
                lim, sum(x["bad"] for x in diffs.values())))
         check(not bad, "bf16_gtf step, %s: %d leaves beyond %g in relative "
               "Frobenius norm: %s" % (what, len(bad), lim, bad))
+    log("  backward kernel: %d ReLU flips in the GTF first layers against the "
+        "plain backward (largest exact margin %.3g of the bound %.3g)"
+        % (sum(n for n, _ in flips), max((w for _, w in flips), default=0.0),
+           scan.relu_flip_bound(d, True)))
+    if not control:
+        return launches
     # The transition weights whose gradient is more than rounding noise.
     on_masks = grad_diffs(g_k, g_km, BF16_TOL)
     ratio = {p: x["fro"] / max(on_masks[p]["fro"], 1e-7)
@@ -2511,10 +2687,6 @@ def check_bf16_step(scan, trainer, inputs, targets, mask, seed):
     check(ratio[least] >= BF16_GTF_SEPARATION, "the float32 step's %s is "
           "only %.1fx farther from the bf16 plain backward than the bf16 "
           "kernels'" % ("/".join(map(str, least)), ratio[least]))
-    log("  backward kernel: %d ReLU flips in the GTF first layers against the "
-        "plain backward (largest exact margin %.3g of the bound %.3g)"
-        % (sum(n for n, _ in flips), max((w for _, w in flips), default=0.0),
-           scan.relu_flip_bound(d, True)))
 
     def one_step():
         for p in trainer.leaves:
@@ -2529,9 +2701,9 @@ def check_bf16_step(scan, trainer, inputs, targets, mask, seed):
         p.grad = None
     log("  (d) torch.profiler, one bf16_gtf step's scan kernels: %s" % names)
     check(names is not None, "torch.profiler saw no device activity")
-    check(all(v == (3 if "bf16" in n else 0) for n, v in names.items()),
-          "bf16_gtf step: the profiler's scan launches %s, expected 3 of "
-          "each bf16 variant and no float32 scan kernel" % names)
+    check(all(v == want[n[:-len("_kernel")]] for n, v in names.items()),
+          "bf16_gtf step: the profiler's scan launches %s, expected %s"
+          % (names, want))
     return launches
 
 
@@ -2678,6 +2850,94 @@ def check_bf16_gtf(scan, seed, dev, sp_gtf, card):
                  "15e": cli_launches}
 
 
+# -- phase 16: every width and particle count the reference takes ------------
+
+REPAIR_K = 50      # train_particles of phase 16's steps
+WIDE_ZH = 768      # z = h of its wide bf16_gtf step
+# (K, columns, D = H, bf16) of phase 16 (a)'s kernel checks at T = 25: the
+# float32 kernels past 32 particles, the bf16 cluster route at K = 50 (one
+# column a cluster) and the tiled route at K = 100 and at D = H = 768.
+REPAIR_KERNELS = ((REPAIR_K, V_MAIN * B_DATA, Z_DIM, False),
+                  (256, B_DATA, Z_DIM, False),
+                  (REPAIR_K, V_MAIN * B_DATA, Z_DIM, True),
+                  (100, B_DATA, Z_DIM, True),
+                  (25, V_MAIN * B_DATA, WIDE_ZH, True))
+
+
+def check_repaired(scan, seed, dev, gtf, card):
+    """Phase 16: the widths and particle counts that the scan kernels took
+    only up to K = 32 (float32) and within a cluster's shared memory
+    (bf16). (a) Each kernel against its plain version (phase 3's and 15
+    (a)'s checks, one launch each, M = 3) at REPAIR_KERNELS; (b) one
+    Weizmann step at z = h = 256 with ``train_particles: 50`` in float32
+    (phase 4's checks) and with ``bf16_gtf`` (phase 15 (b)'s, on the
+    backward kernel's masks); (c) one ``bf16_gtf`` step at z = h = 768, K =
+    25, on the tiled route, against the plain backward on its masks; each
+    route's launches. Returns (the records of (a) by (K, D, bf16), the
+    launches of each step's kernel run, "16b_f32", "16b_bf16" and "16c",
+    each counted from 0 just before that run and read just after it)."""
+    from multimodal_dmm_tpu_torch.apps import weizmann
+    t0 = time.perf_counter()
+    recs = {}
+    wide = weizmann.make_trainer(
+        seed=seed, device=dev, train_args={"train_particles": 25},
+        model_args={"bf16_gtf": True, "z_dim": WIDE_ZH, "h_dim": WIDE_ZH})
+    wide_gtf = {n: {k: v.detach() for k, v in p.items()}
+                for n, p in wide.params["trans"]["bwd"].items()}
+    for i, (k, cols, zh, bf16) in enumerate(REPAIR_KERNELS):
+        dp, hp = scan._check_sizes(k, zh, zh, bf16)
+        route = (scan.bf16_scan_plan(k, cols, dp, hp)["route"] if bf16
+                 else "f32")
+        log("  (a) K = %d, %d columns, z = h = %d, %s route" % (k, cols, zh,
+                                                               route))
+        recs[(k, zh, bf16)] = check_kernels(
+            scan, wide_gtf if zh == WIDE_ZH else gtf, dev, T_MAIN, cols,
+            ((3, k),), None, seed=900 + 10 * i, bf16=bf16)
+    log("  (a) %.1f s" % (time.perf_counter() - t0))
+
+    inputs, targets, mask = synthetic_batch(seed, dev)
+    wrappers = all_wrappers()
+
+    def counted(what, fn):
+        """The launches of the kernel run of ``fn``'s step (``fn`` returns
+        them, read just after that run), the counts set to 0 before it."""
+        for w in wrappers.values():
+            w.launches = 0
+        got = fn()
+        log("  %s: launches by route %s" % (what, {n: v for n, v in
+                                                  got.items() if v}))
+        return got
+    log("  (b) the Weizmann step at K = %d, float32, kernels vs plain "
+        "versions" % REPAIR_K)
+    f32 = weizmann.make_trainer(seed=seed, device=dev,
+                                train_args={"train_particles": REPAIR_K})
+    runs = {"16b_f32": counted("(b) float32", lambda: check_step_against_plain(
+        scan, f32, inputs, targets, mask, seed))}
+    want = {n: 3 if n in SCAN_KERNELS else 0 for n in wrappers}
+    check(runs["16b_f32"] == want, "the float32 step at K = %d launched %s, "
+          "expected %s" % (REPAIR_K, runs["16b_f32"], want))
+    log("  (b) the same with bf16_gtf")
+    b16 = weizmann.make_trainer(seed=seed, device=dev,
+                                model_args={"bf16_gtf": True},
+                                train_args={"train_particles": REPAIR_K})
+    runs["16b_bf16"] = counted("(b) bf16_gtf", lambda: check_bf16_step(
+        scan, b16, inputs, targets, mask, seed, ks=(1, REPAIR_K, 1),
+        control=False))
+    log("  (c) the bf16_gtf step at z = h = %d, K = 25" % WIDE_ZH)
+    runs["16c"] = counted("(c) bf16_gtf, z = h = %d" % WIDE_ZH,
+                          lambda: check_bf16_step(scan, wide, inputs, targets,
+                                                  mask, seed, control=False))
+    for name in list(SCAN_KERNELS) + list(BF16_KERNELS) + list(TILED_KERNELS):
+        check(any(r[name] for r in runs.values()),
+              "phase 16's steps launched %s no time" % name)
+    for name in TILED_KERNELS:
+        check(runs["16c"][name] > 0, "the step at z = h = %d launched %s no "
+              "time" % (WIDE_ZH, name))
+    log("  phase 16: launches %s (%.1f s) [%s]"
+        % (runs, time.perf_counter() - t0, card))
+    return recs, runs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2728,9 +2988,10 @@ def main():
     # -- phase 3: kernels against their plain versions -----------------------
     log_phase("phase 3: kernels vs plain versions [%s]" % card)
     rec = check_kernels(scan, gtf, dev)
-    log("  no single PyTorch call computes the scan, or the weight "
-        "gradients' four products with their sums: library_ms is null "
-        "(gtf_wgrad's plain version is those four cuBLAS products)")
+    log("  no single PyTorch call computes a scan: its library_ms is null; "
+        "the weight gradients' library_ms is four torch.mm in float32 and "
+        "the four bias sums (the products that their plain version runs, "
+        "one call each)")
 
     # -- phase 4: the training path -------------------------------------------
     log_phase("phase 4: Weizmann BFVI training step, T = B = %d, z = h = %d"
@@ -2881,6 +3142,12 @@ def main():
     bf16_rec, bf16_launches = check_bf16_gtf(scan, args.seed, dev, sp_gtf,
                                              card)
 
+    # -- phase 16: every width and particle count --------------------------
+    log_phase("phase 16: the scans past 32 particles and at wide bf16_gtf "
+              "transitions, kernels and steps [%s]" % card)
+    repair_rec, repair_launches = check_repaired(scan, args.seed, dev, gtf,
+                                                 card)
+
     # -- summary --------------------------------------------------------------
     log(card)
     rec["poe_sample_cell"] = cell_rec
@@ -2888,7 +3155,8 @@ def main():
     vt_rec["poe_sample_cell"] = vt_cell
     by_phase = {"4": launches, "6": eval_launches, "7": bench_launches,
                 "8": cli_launches, "10": sp_launches, "12": vt_launches,
-                "13": exp_launches, "14": dp_launches}
+                "13": exp_launches, "14": dp_launches,
+                "16b": repair_launches["16b_f32"]}
     kernels = []
     for rows, suffix, main_path in ((rec, "", cli_launches),
                                     (sp_rec, " (spirals)", sp_launches),
@@ -2908,26 +3176,35 @@ def main():
                                       for k, v in by_phase.items()},
                 "max_abs_err": r["err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
-                "bound_ms": bms, "bound_by": by_what, "library_ms": None})
+                "bound_ms": bms, "bound_by": by_what,
+                "library_ms": r.get("library_ms")})
             if name in SCAN_KERNELS:
                 kernels[-1]["bound_f32_ms"] = r["bound_f32_ms"]
     # The bf16 variants: times and bounds of phase 15 (a) at the Weizmann
     # step's shapes (one bf16 pass a product), launches of its command line
     # (e), of its step (b) and evaluation (c).
-    for name, f32_name in BF16_KERNELS.items():
-        r = bf16_rec[f32_name]
+    # The tiled route's rows: phase 16 (a) at z = h = 768, K = 25 (one
+    # launch), launches of phase 16 (c)'s step.
+    bf16_launches["16b"] = repair_launches["16b_bf16"]
+    bf16_launches["16c"] = repair_launches["16c"]
+    wide = repair_rec[(25, WIDE_ZH, True)]
+    for name, f32_name, r, src in (
+            [(n, f, bf16_rec[f], WGRAD_BF16_SRC if f == "gtf_wgrad"
+              else BF16_SCAN_SRC) for n, f in BF16_KERNELS.items()]
+            + [(n, f, wide[f], TILED_SRC) for n, f in TILED_KERNELS.items()]):
+        tiled = name in TILED_KERNELS
         kernels.append({
-            "name": name, "route": "cuda",
-            "source": BF16_SCAN_SRC if f32_name != "gtf_wgrad" else BF16_SRC,
+            "name": name, "route": "cuda", "source": src,
             "replaces": KERNELS[f32_name][1],
-            "launches": bf16_launches["15e"][name],
+            "launches": bf16_launches["16c" if tiled else "15e"][name],
             "launches_by_phase": {k: v[name]
                                   for k, v in bf16_launches.items()},
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": sum(r["bound_ms"].values()),
             "bound_by": max(r["bound_ms"], key=r["bound_ms"].get),
-            "library_ms": None, "bound_f32_ms": r["bound_f32_ms"]})
+            "library_ms": r.get("library_ms"),
+            "bound_f32_ms": r["bound_f32_ms"]})
         if "f32_twin_ms" in r:
             kernels[-1]["f32_twin_ms"] = r["f32_twin_ms"]
     print(json.dumps({"kernels": kernels}))

@@ -13,10 +13,20 @@
 //     to bfloat16 before the bias, the ReLU or an add;
 //   - the cotangent of z_{t-1} is one product over the packed [gate_1;
 //     nonlin_1; z_lin] (depth 2H + D), rounded once;
-//   - the rows xs = [h1 | hn | z_nonlin] and ys = [d_a1 | d_b1 | d_zlin |
-//     d_a2 | d_znonlin | d_sraw] (float32) that gtf_wgrad_bf16_kernel reads
-//     are written as bfvi_scan.cuh lays them out; the bias gradients sum
-//     their float32 cotangents.
+//   - the rows xs = [h1 | hn | z_nonlin], ys = [d_a1 | d_b1 | d_zlin | d_a2
+//     | d_znonlin | d_sraw] and z that gtf_wgrad_bf16_kernel reads
+//     (wgrad_bf16.cuh) are written in bfloat16, laid out as bfvi_scan.cuh
+//     lays out its float32 rows: the images of the operands that JAX's
+//     weight-gradient products take, so half the bytes and the same
+//     products. The bias gradients sum the float32 cotangents in f32
+//     accumulators of the CTA's own in global memory (bacc), each updated
+//     by one thread in step order: for d_a1, d_b1 and d_znonlin one a tile
+//     row and column, read ahead of the products that make the values; for
+//     d_zlin, d_a2 and d_sraw one a batch column and d, to which the lanes
+//     of an element add their particles' sum (a fixed butterfly). At the
+//     end each CTA sums its accumulators column by column into its
+//     cluster's partial (bias_part), which the weight gradients' reduction
+//     adds in group order. No float atomics.
 //
 // What bounds a launch on the H100: latency, not work. One step of the
 // Weizmann K = 25 forward (2,500 particle rows, D = H = 256) is 2 GFLOP,
@@ -161,6 +171,11 @@ __host__ __device__ inline Layout make_layout(int bwd, int D, int H, int C,
   off += bias > pad ? bias : pad;
   L.total = off + 1024;  // aligning the base
   return L;
+}
+
+// Floats of a CTA's bias-gradient accumulators (Args::bacc).
+__host__ __device__ inline int bacc_floats(int rb, int cols, int Hs, int Ds) {
+  return rb * (2 * Hs + Ds) + cols * 3 * Ds;
 }
 
 // A CTA's shared memory: the backward runs the forward's layout during its
@@ -389,7 +404,7 @@ __device__ __forceinline__ void chunk(const Ctx& cx, const Job& jb, int n0,
   // arrives while the products run.
   const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
   const int r0 = 16 * warp + (lane >> 2);
-  float2 pv[NC / 4];
+  decltype(pre(0, 0, 0)) pv[NC / 4];
 #pragma unroll
   for (int j = 0; j < NC / 8; ++j) {
     const int col = n0 + 8 * j + 2 * (lane & 3);
@@ -577,7 +592,15 @@ struct Args {
   const float *z_in, *prior_mean_in, *prior_std_in;
   const float *g_pm, *g_ps, *g_im, *g_is, *g_smp;
   float *d_obs_mean, *d_obs_std, *d_glb_mean, *d_glb_std;
+  // f32 ys: the recompute's z_lin, a2, z_nonlin (in d_znonlin's columns)
+  // and s_raw, with their biases, for the elementwise VJP; xs is not read.
   float *xs, *ys;
+  uint16_t *xs_bf, *ys_bf, *zs_bf;  // the rows of the weight gradients, bf16
+  // Per CTA, the bias gradients' f32 accumulators: rb x (2 Hs + Ds) for
+  // [d_a1 | d_b1 | d_znonlin] a tile row, then cols x 3 x Ds for [d_zlin |
+  // d_a2 | d_sraw] a batch column (bacc_floats).
+  float* bacc;
+  float* bias_part;  // per cluster: the 2H + 4D bias gradients' sums
   const char* wimg_fwd;  // backward: the forward images, for the recompute
   int img_bytes_fwd;
   int T, M, B, K, D, H;
@@ -698,6 +721,33 @@ __device__ __forceinline__ F4 bf4_at(const char* sm, int off) {
 __device__ __forceinline__ void put_bf4(char* sm, int off, const float (&v)[4]) {
   *reinterpret_cast<uint2*>(sm + off) =
       make_uint2(pack_bf2(v[0], v[1]), pack_bf2(v[2], v[3]));
+}
+// Four values rounded to bfloat16 into a row in global memory.
+__device__ __forceinline__ void st_bf4(uint16_t* p, const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(pack_bf2(v[0], v[1]), pack_bf2(v[2], v[3]));
+}
+// An accumulator of the bias gradients' sums, += v[0..3] (its thread's own).
+__device__ __forceinline__ void add4(float* p, const float* v) {
+  float4 o = *reinterpret_cast<const float4*>(p);
+  o.x += v[0];
+  o.y += v[1];
+  o.z += v[2];
+  o.w += v[3];
+  *reinterpret_cast<float4*>(p) = o;
+}
+// What a backward epilogue reads ahead of its products: a pair's bias
+// accumulators and, for d_a1 and d_b1, the pair's ReLU mask (h1 or hn
+// there in bf16: > 0 where the f32 value is).
+struct Ahead {
+  float2 acc;
+  uint32_t mask;
+};
+__device__ __forceinline__ float on0(uint32_t m) {
+  return __uint_as_float(m << 16) > 0.f ? 1.f : 0.f;
+}
+__device__ __forceinline__ float on1(uint32_t m) {
+  return __uint_as_float(m & 0xffff0000u) > 0.f ? 1.f : 0.f;
 }
 
 // The masked, signed-precision observation experts of (t, b, d..d+3),
@@ -1000,6 +1050,8 @@ __device__ void recompute(const Args& a, const Ctx& cx, const Cluster& cl) {
       w.z = pack_bf2(v.x, v.y);
       w.w = pack_bf2(v.z, v.w);
       *reinterpret_cast<uint4*>(zbuf + swz(rb, row, c)) = w;
+      if (c >= cl.d0 && c < cl.d0 + Ds)  // the CTA's slice of the z rows
+        *reinterpret_cast<uint4*>(a.zs_bf + cl.xrow(a, t, row) * D + c) = w;
     }
     fence_async_cta();
     __syncthreads();
@@ -1013,7 +1065,7 @@ __device__ void recompute(const Args& a, const Ctx& cx, const Cluster& cl) {
         v0 = fmaxf(v0 + bias[n], 0.f);
         v1 = fmaxf(v1 + bias[n + 1], 0.f);
         put_bf2(cx.sm, cx.L.buf[2] + swz(a.rb, row, col), v0, v1);
-        *reinterpret_cast<float2*>(a.xs + r * lx + col) = make_float2(v0, v1);
+        *reinterpret_cast<uint32_t*>(a.xs_bf + r * lx + col) = pack_bf2(v0, v1);
       } else {
         const int d = cl.d0 + n - 2 * Hs;
         *reinterpret_cast<float2*>(a.ys + r * ly + 2 * H + d) = make_float2(
@@ -1038,7 +1090,9 @@ __device__ void recompute(const Args& a, const Ctx& cx, const Cluster& cl) {
       v0 += bias[2 * Hs + 2 * Ds + n];
       v1 += bias[2 * Hs + 2 * Ds + n + 1];
       put_bf2(cx.sm, cx.L.buf[1] + swz(a.rb, row, d), v0, v1);
-      *reinterpret_cast<float2*>(a.xs + r * lx + 2 * H + d) = make_float2(v0, v1);
+      *reinterpret_cast<float2*>(a.ys + r * ly + la + D + d) = make_float2(v0, v1);
+      *reinterpret_cast<uint32_t*>(a.xs_bf + r * lx + 2 * H + d) =
+          pack_bf2(v0, v1);
     });
     __syncthreads();
     push_cols(cx, 1, rows, cl.d0, Ds, a.C, cl.rank);
@@ -1061,8 +1115,11 @@ __device__ __noinline__ void bwd_elementwise(const Args& a, const Ctx& cx,
                                              const Cluster& cl, int t) {
   // The fields used in the loops, in registers (as fwd_elementwise).
   const int D = a.D, H = a.H, K = a.K, M = a.M, Ds = cl.Ds, Q = Ds / 4;
-  const int la = 2 * H + D, lx = la, ly = la + 3 * D, rb = a.rb;
+  const int la = 2 * H + D, ly = la + 3 * D, rb = a.rb;
   const int c_first = cl.c0, d_first = cl.d0, B = a.B;
+  // The CTA's accumulators of [d_zlin | d_a2 | d_sraw] a batch column.
+  float* const bacc = a.bacc + (size_t)blockIdx.x *
+      bacc_floats(rb, a.cols, cl.Hs, Ds) + rb * (2 * cl.Hs + Ds);
   const size_t t_rows = (size_t)(t - 1) * K;  // the step's first xs/ys row / B
   char* const sm = cx.sm;
   const int dfbuf = cx.L.buf[0], g7buf = cx.L.buf[2];
@@ -1089,7 +1146,7 @@ __device__ __noinline__ void bwd_elementwise(const Args& a, const Ctx& cx,
           const float* y = a.ys + r * ly;
           pa2[j] = ld4(y + la + d);
           pzl[j] = ld4(y + 2 * H + d);
-          pzn[j] = ld4(a.xs + r * lx + 2 * H + d);
+          pzn[j] = ld4(y + la + D + d);
           psr[j] = ld4(y + la + 2 * D + d);
         }
       }
@@ -1199,7 +1256,7 @@ __device__ __noinline__ void bwd_elementwise(const Args& a, const Ctx& cx,
       const float* y = a.ys + r * ly;
       a2 = ld4(y + la + d);
       zl = ld4(y + 2 * H + d);
-      zn = ld4(a.xs + r * lx + 2 * H + d);
+      zn = ld4(y + la + D + d);
       sr = ld4(y + la + 2 * D + d);
     };
     auto mix = [&](const F4& a2, const F4& zl, const F4& zn, const F4& sr) {
@@ -1232,13 +1289,15 @@ __device__ __noinline__ void bwd_elementwise(const Args& a, const Ctx& cx,
       const float ps_val = sqrtf(fmaxf(var, kEps));  // floored at _EPS, as on the TPU
       d_var[i] = (var > 0.f) ? d_prior_s[i] / (2.f * ps_val) : 0.f;
     }
-    float dg[8];
+    float dg[8], bs[12];  // bs: the lane's sums of d_zlin, d_a2, d_sraw
 #pragma unroll
     for (int i = 0; i < 8; ++i) dg[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 12; ++i) bs[i] = 0.f;
     auto vjp = [&](int k, const F4& a2v, const F4& zlv, const F4& znv,
                    const F4& srv) {
       const int row = c * K + k;
-      float* y = a.ys + ((t_rows + k) * B + b) * ly;
+      uint16_t* y = a.ys_bf + ((t_rows + k) * B + b) * ly;
       float d_sraw[4], d_a2[4], d_zlin[4], d_zn[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
@@ -1267,9 +1326,15 @@ __device__ __noinline__ void bwd_elementwise(const Args& a, const Ctx& cx,
         d_zlin[i] = d_qm * (1.f - gate);
         d_zn[i] = d_qm * gate;  // d_znonlin, partial
       }
-      st4(y + la + 2 * D + d, d_sraw);
-      st4(y + la + d, d_a2);
-      st4(y + 2 * H + d, d_zlin);
+      st_bf4(y + la + 2 * D + d, d_sraw);
+      st_bf4(y + la + d, d_a2);
+      st_bf4(y + 2 * H + d, d_zlin);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        bs[i] += d_zlin[i];
+        bs[4 + i] += d_a2[i];
+        bs[8 + i] += d_sraw[i];
+      }
       st4(zp + row * Ds + dd, d_zn);
       put_bf4(sm, dfbuf + swz(rb, row, d), d_a2);
       put_bf4(sm, dfbuf + swz(rb, row, D + d), d_sraw);
@@ -1286,6 +1351,13 @@ __device__ __noinline__ void bwd_elementwise(const Args& a, const Ctx& cx,
       vjp(k, a2, zl, zn, sr);
     }
     lane_sum(dg, ln.tpe);
+    lane_sum(bs, ln.tpe);
+    if (live && sub == 0) {
+      float* acc = bacc + c * 3 * Ds + dd;
+      add4(acc, bs);
+      add4(acc + Ds, bs + 4);
+      add4(acc + 2 * Ds, bs + 8);
+    }
     obs_vjp();
     if (live && sub == 0) {
       float* pgm = a.d_glb_mean + bd;
@@ -1322,6 +1394,11 @@ __device__ void scan_bwd(const Args& a) {
   cx.wimg = a.wimg_fwd + (size_t)cl.rank * a.img_bytes_fwd;
   if (a.resident) bulk_load(cx.sm_addr, cx.wimg, cx.L.wbytes, bar, 0);
   load_bias(a, cx, cl);
+  {
+    const int n = bacc_floats(a.rb, a.cols, Hs, Ds);
+    float* acc = a.bacc + (size_t)blockIdx.x * n;
+    for (int i = threadIdx.x; i < n; i += kThreads) acc[i] = 0.f;
+  }
   cluster_sync();
   if (a.T > 1) recompute(a, cx, cl);
   // Every peer is done with the forward layout before the backward's is
@@ -1341,6 +1418,12 @@ __device__ void scan_bwd(const Args& a) {
   const Job p6[1] = {Job{1, 0, D, 3, Hs, 2}};
   const Job p7[1] = {Job{2, 0, la, 0, Ds, 3}};
   const int rows = cl.rows;
+  // The CTA's accumulators of the bias gradients' sums: [d_a1 | d_b1 (Hs
+  // each) | d_znonlin (Ds)] for each tile row, then [d_zlin | d_a2 |
+  // d_sraw] (Ds each) for each batch column (bwd_elementwise).
+  const int nb = 2 * Hs + Ds;
+  float* const bacc = a.bacc + (size_t)blockIdx.x *
+                                   bacc_floats(a.rb, a.cols, Hs, Ds);
   char* stage = gzb + a.rb * Ds * 2;  // d_a1, rb x Hs bf16
   for (int t = a.T - 1; t >= 0; --t) {
     bwd_elementwise(a, cx, cl, t);
@@ -1356,29 +1439,37 @@ __device__ void scan_bwd(const Args& a) {
     push_cols(cx, 2, rows, 2 * H + cl.d0, Ds, a.C, cl.rank);
     publish();
     // d_znonlin += d_sraw @ ws;  d_a1 = (d_a2 @ wg2) * (h1 > 0)
-    run_phase(cx, p5, 2, [=, &a](int tag, int row, int n, float v0, float v1, float2 pv) {
+    run_phase(cx, p5, 2, [=, &a](int tag, int row, int n, float v0, float v1,
+                                 const Ahead& pv) {
       if (row >= rows) return;
       const size_t r = cl.xrow(a, t, row);
       v0 = round_bf(v0);
       v1 = round_bf(v1);
+      float* acc;
       if (tag == 0) {  // plus the partial d_znonlin of the elementwise VJP
         const int d = cl.d0 + n;
         v0 += zp[row * Ds + n];
         v1 += zp[row * Ds + n + 1];
-        *reinterpret_cast<float2*>(a.ys + r * ly + la + D + d) =
-            make_float2(v0, v1);
+        *reinterpret_cast<uint32_t*>(a.ys_bf + r * ly + la + D + d) =
+            pack_bf2(v0, v1);
+        acc = bacc + row * nb + 2 * Hs + n;
         put_bf2(cx.sm, cx.L.buf[1] + swz(a.rb, row, d), v0, v1);
       } else {  // staged: its columns may share [d_a2 | d_sraw]'s
-        const int h = cl.h0 + n;  // pv: h1, its ReLU mask
-        v0 *= (pv.x > 0.f) ? 1.f : 0.f;
-        v1 *= (pv.y > 0.f) ? 1.f : 0.f;
-        *reinterpret_cast<float2*>(a.ys + r * ly + h) = make_float2(v0, v1);
+        const int h = cl.h0 + n;  // pv.mask: h1, its ReLU mask
+        v0 *= on0(pv.mask);
+        v1 *= on1(pv.mask);
+        *reinterpret_cast<uint32_t*>(a.ys_bf + r * ly + h) = pack_bf2(v0, v1);
+        acc = bacc + row * nb + n;
         put_bf2(stage, (row * Hs + n) * 2, v0, v1);
       }
+      *reinterpret_cast<float2*>(acc) =
+          make_float2(pv.acc.x + v0, pv.acc.y + v1);
     }, [=, &a](int tag, int row, int n) {
-      if (tag == 0 || row >= rows) return make_float2(0.f, 0.f);
-      return *reinterpret_cast<const float2*>(
-          a.xs + cl.xrow(a, t, row) * lx + cl.h0 + n);
+      if (row >= rows) return Ahead{make_float2(0.f, 0.f), 0u};
+      const float* acc = bacc + row * nb + (tag == 0 ? 2 * Hs : 0) + n;
+      return Ahead{*reinterpret_cast<const float2*>(acc),
+                   tag == 0 ? 0u : *reinterpret_cast<const uint32_t*>(
+                       a.xs_bf + cl.xrow(a, t, row) * lx + cl.h0 + n)};
     });
     __syncthreads();
     push_cols(cx, 1, rows, cl.d0, Ds, a.C, cl.rank);
@@ -1386,18 +1477,22 @@ __device__ void scan_bwd(const Args& a) {
     // Every peer is done with [d_a2 | d_sraw]: d_a1 goes to its columns.
     push_stage(cx, stage, 2, rows, cl.h0, Hs, a.C, cl.rank);
     // d_b1 = (d_znonlin @ wn2) * (hn > 0)
-    run_phase(cx, p6, 1, [=, &a](int, int row, int n, float v0, float v1, float2 pv) {
+    run_phase(cx, p6, 1, [=, &a](int, int row, int n, float v0, float v1,
+                                 const Ahead& pv) {
       if (row >= rows) return;
       const size_t r = cl.xrow(a, t, row);
-      const int h = H + cl.h0 + n;  // pv: hn, its ReLU mask
-      v0 = round_bf(v0) * ((pv.x > 0.f) ? 1.f : 0.f);
-      v1 = round_bf(v1) * ((pv.y > 0.f) ? 1.f : 0.f);
-      *reinterpret_cast<float2*>(a.ys + r * ly + h) = make_float2(v0, v1);
+      const int h = H + cl.h0 + n;  // pv.mask: hn, its ReLU mask
+      v0 = round_bf(v0) * on0(pv.mask);
+      v1 = round_bf(v1) * on1(pv.mask);
+      *reinterpret_cast<uint32_t*>(a.ys_bf + r * ly + h) = pack_bf2(v0, v1);
+      *reinterpret_cast<float2*>(bacc + row * nb + Hs + n) =
+          make_float2(pv.acc.x + v0, pv.acc.y + v1);
       put_bf2(cx.sm, cx.L.buf[2] + swz(a.rb, row, h), v0, v1);
     }, [=, &a](int, int row, int n) {
-      if (row >= rows) return make_float2(0.f, 0.f);
-      return *reinterpret_cast<const float2*>(
-          a.xs + cl.xrow(a, t, row) * lx + H + cl.h0 + n);
+      if (row >= rows) return Ahead{make_float2(0.f, 0.f), 0u};
+      return Ahead{*reinterpret_cast<const float2*>(bacc + row * nb + Hs + n),
+                   *reinterpret_cast<const uint32_t*>(
+                       a.xs_bf + cl.xrow(a, t, row) * lx + H + cl.h0 + n)};
     });
     __syncthreads();
     push_cols(cx, 2, rows, H + cl.h0, Hs, a.C, cl.rank);
@@ -1408,6 +1503,26 @@ __device__ void scan_bwd(const Args& a) {
       put_bf2(gzb, (row * Ds + n) * 2, v0, v1);
     });
     __syncthreads();
+  }
+  // The cluster's partial of the bias gradients: the CTA's columns, each
+  // the sum of its accumulators over the tile rows (or batch columns) in
+  // order.
+  __syncthreads();
+  const float* bcol = bacc + a.rb * nb;  // [d_zlin | d_a2 | d_sraw] a column
+  for (int j = threadIdx.x; j < nb + 3 * Ds; j += kThreads) {
+    float sum = 0.f;
+    int col;
+    if (j < nb) {
+      for (int r = 0; r < rows; ++r) sum += bacc[r * nb + j];
+      col = j < Hs ? cl.h0 + j
+          : j < 2 * Hs ? H + cl.h0 + j - Hs
+                       : la + D + cl.d0 + j - 2 * Hs;
+    } else {
+      const int q = (j - nb) / Ds, dd = (j - nb) % Ds;
+      for (int c = 0; c < cl.g; ++c) sum += bcol[(c * 3 + q) * Ds + dd];
+      col = (q == 0 ? 2 * H : q == 1 ? la : la + 2 * D) + cl.d0 + dd;
+    }
+    a.bias_part[(size_t)(blockIdx.x / a.C) * ly + col] = sum;
   }
   cluster_sync();  // no CTA leaves while a peer may still write to it
 }
@@ -1508,7 +1623,12 @@ int bfvi_scan_fwd(const float* obs_mean, const float* obs_std,
 
 // The bf16 backward: wimg holds the backward's images (the transposed
 // slices), wimg_fwd the forward's, for the recompute; gz and bar are not
-// read. xs/ys as bfvi_scan.cuh.
+// read, nor is xs: ys (f32, bfvi_scan.cuh's layout) keeps only the
+// recompute's z_lin, a2, z_nonlin (in d_znonlin's columns) and s_raw, the
+// cotangents go to ys_bf. xs_bf, ys_bf and zs_bf: the weight gradients'
+// rows in bfloat16 (bfvi_scan.cuh's layouts; zs_bf as z_traj's first (T-1)
+// K B rows); bacc: scratch of bacc_floats(...) f32 a CTA; bias_part: one
+// partial of the 2H + 4D bias gradients' sums a cluster.
 int bfvi_scan_bwd(const float* obs_mean, const float* obs_std,
                   const float* obs_mask, const float* glb_mean,
                   const float* glb_std, const float* w1, const float* b1,
@@ -1522,7 +1642,9 @@ int bfvi_scan_bwd(const float* obs_mean, const float* obs_std,
                   float* xs, float* ys, float* gz, unsigned* bar, int T,
                   int M, int B, int K, int D, int H, float min_std,
                   void* stream, const void* wimg, int img_bytes,
-                  const void* wimg_fwd, int img_bytes_fwd, const int* plan) {
+                  const void* wimg_fwd, int img_bytes_fwd, const int* plan,
+                  uint16_t* xs_bf, uint16_t* ys_bf, uint16_t* zs_bf,
+                  float* bacc, float* bias_part) {
   (void)w1; (void)wg2; (void)wn2; (void)ws; (void)gz; (void)bar;
   bf16scan::Args a = bf16_args(obs_mean, obs_std, obs_mask, glb_mean, glb_std,
                                b1, bg2, bn2, bs, eps, T, M, B, K, D, H,
@@ -1536,6 +1658,8 @@ int bfvi_scan_bwd(const float* obs_mean, const float* obs_std,
   a.d_obs_mean = d_obs_mean; a.d_obs_std = d_obs_std;
   a.d_glb_mean = d_glb_mean; a.d_glb_std = d_glb_std;
   a.xs = xs; a.ys = ys;
+  a.xs_bf = xs_bf; a.ys_bf = ys_bf; a.zs_bf = zs_bf;
+  a.bacc = bacc; a.bias_part = bias_part;
   return (int)launch_bf16_scan(bfvi_scan_bwd_bf16_kernel, 1, a,
                                (cudaStream_t)stream);
 }

@@ -1,18 +1,34 @@
 // BFVI filtering scan, forward and backward, for Hopper (sm_90a).
-// bfvi_scan.cu builds the float32 kernels from this file; bfvi_scan_bf16.cu
-// builds gtf_wgrad_bf16_kernel from it (BFVI_SCAN_BF16, at the end) and the
-// bfloat16 scan kernels from bf16_scan.cuh, which uses the elementwise
-// helpers below.
+// bfvi_scan.cu builds the float32 kernels from this file. bfvi_scan_bf16.cu
+// builds from it (BFVI_SCAN_BF16, at the end) the tiled bfloat16 scans,
+// bfvi_scan_fwd_bf16_tiled_kernel and bfvi_scan_bwd_bf16_tiled_kernel,
+// which run every width and particle count the launch plan gives no
+// cluster to (ops/cuda/bfvi_scan.py: bf16_scan_plan); the bfloat16 scans'
+// cluster route from bf16_scan.cuh, which uses the elementwise helpers
+// below; and the bfloat16 weight gradients from wgrad_bf16.cuh.
 //
 // Replaces the Pallas TPU kernels of multimodal_dmm_tpu/ops/pallas/bfvi_scan.py:
 //   bfvi_scan_fwd_kernel  <- bfvi_scan_pallas / _fwd_kernel
 //   bfvi_scan_bwd_kernel  <- bfvi_scan_pallas_bwd / _bwd_kernel (hand-derived VJP)
 //   gtf_wgrad_kernel      <- the weight-gradient products of _bwd_kernel
-// and computes what they compute, in float32. gtf_wgrad_bf16_kernel is the
-// weight gradients of the JAX package's MultiDMM(bf16_gtf=True) on the
-// engine's bf16 route (tf32x3.cuh): products of the bfloat16-rounded rows
-// summed in f32 (JAX sums each step's product in bfloat16 instead); the
-// bias gradients sum the f32 cotangents, as JAX's do.
+// and computes what they compute, in float32. The tiled bf16 scans are the
+// same code on the engine's bf16 route (tf32x3.cuh), with the rounding
+// points of the JAX package's MultiDMM(bf16_gtf=True) (its lax.scan path,
+// gtf_apply_packed and its VJP):
+//   - each product's operands are rounded to bfloat16 (the engine does
+//     this as it builds fragments), and each product's f32 sum is rounded
+//     to bfloat16 before the bias, the ReLU or an add (the epilogue);
+//   - the backward's cotangents enter their products rounded as operands,
+//     and the cotangent of z_{t-1}, whose three partial products are added
+//     in the next elementwise phase, is rounded once after that add (JAX's
+//     one product over the packed [gate_1; nonlin_1; z_lin]);
+//   - the backward writes its rows for the weight gradients in bfloat16
+//     (exact images of the products' operands) and the bias gradients' f32
+//     sums of its cotangents (emit_bf16_rows).
+// The backward recomputes the transition on every tile shape from the
+// forward's: the bf16 route sums every product in one K-order on every
+// shape (tf32x3.cuh), so the recomputed activations are the forward's bit
+// for bit, also where a sum lies at a bfloat16 rounding midpoint.
 //
 // Layout (one scan direction; the caller flips time for backward passes):
 //   obs_mean/obs_std (T, M, B, D), obs_mask (T, M, B), glb_mean/glb_std (B, D),
@@ -109,8 +125,10 @@ struct Tf32Route {
   using WTile = tf32x3::LargePromoted;
   static constexpr bool BF16 = false;
 };
-struct Bf16Route {  // the weight gradients only (bf16_scan.cuh: the scans)
-  using WTile = tf32x3::Bf16LargePromoted;
+struct Bf16Route {  // the tiled bf16 scans
+  using Large = tf32x3::Bf16Large;
+  using Medium = tf32x3::Bf16Medium;
+  using Small = tf32x3::Bf16Small;
   static constexpr bool BF16 = true;
 };
 
@@ -345,6 +363,9 @@ struct FwdArgs {
   float *prior_mean, *prior_std, *infer_mean, *infer_std, *samples, *z_traj;
   // K B rows of [A (2H + D) | G (D) | N (D) | S (D)]: one step's activations.
   float* work;
+  // Null, or (T-1) K B rows [h1 | hn | z_nonlin] that the forward writes
+  // for its activations (a check against the backward's recompute).
+  float* rows;
   unsigned* bar;
   Dims s;
 };
@@ -354,7 +375,7 @@ struct FwdArgs {
 // memory and are added in group order, so every group holds the same sum.
 // (Two, not more: at B = 100 the 25,600 elements then take one pass of
 // the 264 resident CTAs, and a pass has a fixed cost of several
-// microseconds.) A thread walks its particles (at most 16: K <= 32) in
+// microseconds.) A thread walks its particles, any number of them, in
 // chunks of kChunk kept in registers, each chunk's loads all issued
 // before any is used.
 constexpr int kChunk = 8;
@@ -478,6 +499,22 @@ __device__ void fwd_elementwise(const FwdArgs& a, int t, float* red) {
   }
 }
 
+// The forward's rows [h1 | hn | z_nonlin] of step t >= 1, from the work
+// rows (run in the phase of the last product, which reads neither A nor N).
+__device__ void copy_fwd_rows(const FwdArgs& a, int t) {
+  const Dims& s = a.s;
+  const int D = s.D, H = s.H, R = s.K * s.B;
+  const int la = 2 * H + D, lw = la + 3 * D, q = la / 4;
+  const size_t n = (size_t)R * q;
+  for (size_t i = (size_t)blockIdx.x * NT + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * NT) {
+    const int r = (int)(i / q), c = 4 * (int)(i % q);
+    const float* src = a.work + (size_t)r * lw + (c < 2 * H ? c : c + 2 * D);
+    *reinterpret_cast<float4*>(a.rows + ((size_t)(t - 1) * R + r) * la + c) =
+        __ldcg(reinterpret_cast<const float4*>(src));
+  }
+}
+
 template <class Rt>  // the route
 __device__ __forceinline__ void scan_fwd(const FwdArgs& a) {
   extern __shared__ __align__(16) float smem[];
@@ -504,6 +541,7 @@ __device__ __forceinline__ void scan_fwd(const FwdArgs& a) {
       grid_sync(a.bar, target);
       Job p3[1] = {{{N, lw}, {w.ws, D}, R, D, D, store_to(S, lw, w.bs, D)}};
       run_jobs<Rt, tf32x3::B_NK>(p3, 1, smem);
+      if (a.rows != nullptr) copy_fwd_rows(a, t);
       grid_sync(a.bar, target);
     }
     fwd_elementwise(a, t, smem);
@@ -530,6 +568,12 @@ struct BwdArgs {
   float* gz;  // 3 x K B x D: the particles' cotangent in 3 parts (zeroed)
   unsigned* bar;
   Dims s;
+  // The bf16 route's rows for gtf_wgrad_bf16_kernel (wgrad_bf16.cuh), as
+  // bfloat16 words: xs and ys as above and zs, row r of z_traj; and the
+  // bias gradients' f32 sums, nch partials of 2H + 4D (zeroed).
+  uint16_t *xs_bf, *ys_bf, *zs_bf;
+  float* bias_part;
+  int nch;
 };
 
 template <bool BF16>
@@ -704,6 +748,51 @@ __device__ void bwd_elementwise(const BwdArgs& a, int t, float* red) {
   }
 }
 
+// The bf16 route: step t's rows (t >= 1) in bfloat16 for the weight
+// gradients, 16 bytes a store, and the f32 sums of its cotangents for the
+// bias gradients: partial c adds chunk c of the step's rows, column by
+// column, rows in order (one thread an item, the same thread every step,
+// steps in order: no float atomics). Runs in the phase of the z cotangent's
+// product, which writes no row.
+__device__ void emit_bf16_rows(const BwdArgs& a, int t) {
+  const Dims& s = a.s;
+  const int D = s.D, H = s.H, R = s.K * s.B;
+  const int lx = 2 * H + D, ly = lx + 3 * D;
+  const int qx = lx / 8, qy = ly / 8, per_row = qx + qy + D / 8;
+  const size_t r0 = (size_t)(t - 1) * R, step = (size_t)gridDim.x * NT;
+  const size_t n = (size_t)R * per_row;
+  for (size_t i = (size_t)blockIdx.x * NT + threadIdx.x; i < n; i += step) {
+    const size_t r = r0 + i / per_row;
+    const int q = (int)(i % per_row);
+    const float* src;
+    uint16_t* dst;
+    if (q < qx) {
+      src = a.xs + r * lx + 8 * q;
+      dst = a.xs_bf + r * lx + 8 * q;
+    } else if (q < qx + qy) {
+      src = a.ys + r * ly + 8 * (q - qx);
+      dst = a.ys_bf + r * ly + 8 * (q - qx);
+    } else {
+      src = a.z_traj + r * D + 8 * (q - qx - qy);
+      dst = a.zs_bf + r * D + 8 * (q - qx - qy);
+    }
+    const float4 u = __ldcg(reinterpret_cast<const float4*>(src));
+    const float4 v = __ldcg(reinterpret_cast<const float4*>(src) + 1);
+    *reinterpret_cast<uint4*>(dst) =
+        make_uint4(tf32x3::bf16x2_(u.x, u.y), tf32x3::bf16x2_(u.z, u.w),
+                   tf32x3::bf16x2_(v.x, v.y), tf32x3::bf16x2_(v.z, v.w));
+  }
+  const int per = (R + a.nch - 1) / a.nch;
+  for (size_t i = (size_t)blockIdx.x * NT + threadIdx.x;
+       i < (size_t)a.nch * ly; i += step) {
+    const int c = (int)(i / ly), j = (int)(i % ly);
+    const int e = min(R, (c + 1) * per);
+    float sum = 0.f;
+    for (int r = c * per; r < e; ++r) sum += __ldcg(a.ys + (r0 + r) * ly + j);
+    a.bias_part[i] += sum;
+  }
+}
+
 template <class Rt>  // the route
 __device__ __forceinline__ void scan_bwd(const BwdArgs& a) {
   extern __shared__ __align__(16) float smem[];
@@ -770,6 +859,7 @@ __device__ __forceinline__ void scan_bwd(const BwdArgs& a) {
          store_to(a.gz + 2 * RD, D, nullptr, D)}};
     for (Job& j : p7) j.ep.keep_f32 = 1;
     run_jobs<Rt, tf32x3::B_KN>(p7, 3, smem);
+    if constexpr (Rt::BF16) emit_bf16_rows(a, t);
     grid_sync(a.bar, target);
   }
 }
@@ -826,20 +916,21 @@ __device__ __forceinline__ void wgrad(const WgradArgs& a) {
 // The kernels of one route, and their launches
 // ---------------------------------------------------------------------------
 
-// The includer defines BFVI_SCAN_BF16 as 1 for the bf16 variants
-// (bfvi_scan_bf16.cu) and leaves it undefined for the float32 kernels
-// (bfvi_scan.cu): two libraries with the same C entry points, which nvcc
-// builds side by side.
+// The includer defines BFVI_SCAN_BF16 as 1 for the bf16 library
+// (bfvi_scan_bf16.cu: the tiled bf16 scans, with the C entry points
+// bfvi_scan_fwd_tiled and bfvi_scan_bwd_tiled) and leaves it undefined for
+// the float32 kernels (bfvi_scan.cu: bfvi_scan_fwd, bfvi_scan_bwd,
+// gtf_wgrad): two libraries, which nvcc builds side by side.
 #if BFVI_SCAN_BF16
 using Route = Bf16Route;
-#define BFVI_KERNEL(name) name##_bf16_kernel
+#define BFVI_KERNEL(name) name##_bf16_tiled_kernel
+#define BFVI_ENTRY(name) name##_tiled
 #else
 using Route = Tf32Route;
 #define BFVI_KERNEL(name) name##_kernel
+#define BFVI_ENTRY(name) name
 #endif
 
-// The bf16 library's scan kernels are those of bf16_scan.cuh.
-#if !BFVI_SCAN_BF16
 __global__ void __launch_bounds__(NT, 2) BFVI_KERNEL(bfvi_scan_fwd)(FwdArgs a) {
   scan_fwd<Route>(a);
 }
@@ -847,11 +938,12 @@ __global__ void __launch_bounds__(NT, 2) BFVI_KERNEL(bfvi_scan_fwd)(FwdArgs a) {
 __global__ void __launch_bounds__(NT, 2) BFVI_KERNEL(bfvi_scan_bwd)(BwdArgs a) {
   scan_bwd<Route>(a);
 }
-#endif
 
-__global__ void __launch_bounds__(NT, 2) BFVI_KERNEL(gtf_wgrad)(WgradArgs a) {
-  wgrad<Route::WTile>(a);
+#if !BFVI_SCAN_BF16
+__global__ void __launch_bounds__(NT, 2) gtf_wgrad_kernel(WgradArgs a) {
+  wgrad<tf32x3::LargePromoted>(a);
 }
+#endif
 
 cudaError_t set_smem(const void* kern) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -862,7 +954,6 @@ cudaError_t set_smem(const void* kern) {
 // per SM), or fewer where no phase has more work (`work` tiles or blocks).
 // If the device cannot hold the grid, the launch fails: there is no other
 // path.
-#if !BFVI_SCAN_BF16
 template <typename Args>
 cudaError_t launch_coop(void (*kern)(Args), int work, cudaStream_t st,
                         Args* args) {
@@ -895,23 +986,26 @@ Weights make_weights(const float* w1, const float* b1, const float* wg2,
                      const float* ws, const float* bs) {
   return Weights{w1, b1, wg2, bg2, wn2, bn2, ws, bs};
 }
-#endif
-
 
 }  // namespace
 
 extern "C" {
 
-#if !BFVI_SCAN_BF16
-int bfvi_scan_fwd(const float* obs_mean, const float* obs_std,
-                  const float* obs_mask, const float* glb_mean,
-                  const float* glb_std, const float* w1, const float* b1,
-                  const float* wg2, const float* bg2, const float* wn2,
-                  const float* bn2, const float* ws, const float* bs,
-                  const float* eps, float* prior_mean, float* prior_std,
-                  float* infer_mean, float* infer_std, float* samples,
-                  float* z_traj, float* work, unsigned* bar, int T, int M,
-                  int B, int K, int D, int H, float min_std, void* stream) {
+// The forward scan. bfvi_scan_fwd_tiled (the bf16 library) also takes
+// `rows`: null, or the (T-1) K B rows [h1 | hn | z_nonlin] that it writes
+// for its activations.
+int BFVI_ENTRY(bfvi_scan_fwd)(
+    const float* obs_mean, const float* obs_std, const float* obs_mask,
+    const float* glb_mean, const float* glb_std, const float* w1,
+    const float* b1, const float* wg2, const float* bg2, const float* wn2,
+    const float* bn2, const float* ws, const float* bs, const float* eps,
+    float* prior_mean, float* prior_std, float* infer_mean, float* infer_std,
+    float* samples, float* z_traj, float* work, unsigned* bar, int T, int M,
+    int B, int K, int D, int H, float min_std, void* stream
+#if BFVI_SCAN_BF16
+    , float* rows
+#endif
+) {
   FwdArgs a;
   a.obs_mean = obs_mean; a.obs_std = obs_std; a.obs_mask = obs_mask;
   a.glb_mean = glb_mean; a.glb_std = glb_std; a.eps = eps;
@@ -919,6 +1013,10 @@ int bfvi_scan_fwd(const float* obs_mean, const float* obs_std,
   a.prior_mean = prior_mean; a.prior_std = prior_std;
   a.infer_mean = infer_mean; a.infer_std = infer_std;
   a.samples = samples; a.z_traj = z_traj; a.work = work; a.bar = bar;
+  a.rows = nullptr;
+#if BFVI_SCAN_BF16
+  a.rows = rows;
+#endif
   a.s = Dims{T, M, B, K, D, H, min_std};
   const int R = K * B, la = 2 * H + D;
   int work_items = elementwise_blocks(B * D, K);
@@ -932,19 +1030,27 @@ int bfvi_scan_fwd(const float* obs_mean, const float* obs_std,
                           (cudaStream_t)stream, &a);
 }
 
-int bfvi_scan_bwd(const float* obs_mean, const float* obs_std,
-                  const float* obs_mask, const float* glb_mean,
-                  const float* glb_std, const float* w1, const float* b1,
-                  const float* wg2, const float* bg2, const float* wn2,
-                  const float* bn2, const float* ws, const float* bs,
-                  const float* eps, const float* z_traj,
-                  const float* prior_mean, const float* prior_std,
-                  const float* g_pm, const float* g_ps, const float* g_im,
-                  const float* g_is, const float* g_smp, float* d_obs_mean,
-                  float* d_obs_std, float* d_glb_mean, float* d_glb_std,
-                  float* xs, float* ys, float* gz, unsigned* bar, int T,
-                  int M, int B, int K, int D, int H, float min_std,
-                  void* stream) {
+// The backward scan. bfvi_scan_bwd_tiled (the bf16 library) also takes
+// the rows in bfloat16 that it writes for gtf_wgrad_bf16_kernel (xs_bf,
+// ys_bf as xs and ys, zs_bf as z_traj's first (T-1) K B rows) and the
+// bias gradients' f32 sums of its cotangents, nch partials of 2H + 4D
+// (bias_part, zeroed).
+int BFVI_ENTRY(bfvi_scan_bwd)(
+    const float* obs_mean, const float* obs_std, const float* obs_mask,
+    const float* glb_mean, const float* glb_std, const float* w1,
+    const float* b1, const float* wg2, const float* bg2, const float* wn2,
+    const float* bn2, const float* ws, const float* bs, const float* eps,
+    const float* z_traj, const float* prior_mean, const float* prior_std,
+    const float* g_pm, const float* g_ps, const float* g_im,
+    const float* g_is, const float* g_smp, float* d_obs_mean,
+    float* d_obs_std, float* d_glb_mean, float* d_glb_std, float* xs,
+    float* ys, float* gz, unsigned* bar, int T, int M, int B, int K, int D,
+    int H, float min_std, void* stream
+#if BFVI_SCAN_BF16
+    , uint16_t* xs_bf, uint16_t* ys_bf, uint16_t* zs_bf, float* bias_part,
+    int nch
+#endif
+) {
   BwdArgs a;
   a.obs_mean = obs_mean; a.obs_std = obs_std; a.obs_mask = obs_mask;
   a.glb_mean = glb_mean; a.glb_std = glb_std; a.eps = eps;
@@ -955,6 +1061,13 @@ int bfvi_scan_bwd(const float* obs_mean, const float* obs_std,
   a.d_glb_mean = d_glb_mean; a.d_glb_std = d_glb_std;
   a.xs = xs; a.ys = ys; a.gz = gz; a.bar = bar;
   a.s = Dims{T, M, B, K, D, H, min_std};
+  a.xs_bf = a.ys_bf = a.zs_bf = nullptr;
+  a.bias_part = nullptr;
+  a.nch = 0;
+#if BFVI_SCAN_BF16
+  a.xs_bf = xs_bf; a.ys_bf = ys_bf; a.zs_bf = zs_bf;
+  a.bias_part = bias_part; a.nch = nch;
+#endif
   const int R = K * B, RA = (T - 1) * R, la = 2 * H + D;
   int work_items = elementwise_blocks(B * D, K);
   if (T > 1) {
@@ -969,8 +1082,8 @@ int bfvi_scan_bwd(const float* obs_mean, const float* obs_std,
   return (int)launch_coop(BFVI_KERNEL(bfvi_scan_bwd), work_items,
                           (cudaStream_t)stream, &a);
 }
-#endif
 
+#if !BFVI_SCAN_BF16
 // The GTF weight gradients from the R rows that bfvi_scan_bwd wrote (and
 // z_traj, whose first R rows are the input side of dW1), into `splits`
 // partials laid out as [dW1 (D x la) | db1 | dWg2 (H x D) | dbg2 |
@@ -992,18 +1105,19 @@ int gtf_wgrad(const float* z_traj, const float* xs, const float* ys,
                    dWs + (size_t)D * D};
   a.R = R;
   a.rows_per_split = (R + splits - 1) / splits;
-  // Both routes' weight-gradient tiles are 128 x 64, as the wrapper's
-  // split count assumes (ops/cuda/bfvi_scan.py, WGRAD_TILE).
-  static_assert(Route::WTile::BM == 128 && Route::WTile::BN == 64,
+  // The weight-gradient tile is 128 x 64, as the wrapper's split count
+  // assumes (ops/cuda/bfvi_scan.py, WGRAD_TILE).
+  using WTile = tf32x3::LargePromoted;
+  static_assert(WTile::BM == 128 && WTile::BN == 64,
                 "the wrapper's weight-gradient tile");
   int tiles = 0;
-  for (const WJob& j : a.jobs)
-    tiles += tf32x3::tiles_of<Route::WTile>(j.M1, j.N1);
-  cudaError_t err = set_smem((const void*)BFVI_KERNEL(gtf_wgrad));
+  for (const WJob& j : a.jobs) tiles += tf32x3::tiles_of<WTile>(j.M1, j.N1);
+  cudaError_t err = set_smem((const void*)gtf_wgrad_kernel);
   if (err != cudaSuccess) return (int)err;
-  BFVI_KERNEL(gtf_wgrad)<<<dim3(tiles, splits), NT, tf32x3::kSmemBytes,
-                           (cudaStream_t)stream>>>(a);
+  gtf_wgrad_kernel<<<dim3(tiles, splits), NT, tf32x3::kSmemBytes,
+                     (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
+#endif
 
 }  // extern "C"

@@ -38,10 +38,13 @@
 // route's; each fragment element is rounded to bfloat16 (to nearest even,
 // cvt.rn.bf16x2.f32) as the fragment is built. A bf16 x bf16 product is
 // exact in f32, so a tile sums the exact products of the rounded operands
-// in the tensor cores' f32 adds. A BF16 shape has one reduction group
+// in the tensor cores' f32 adds. Every BF16 shape has one reduction group
 // (WK = 1) and so sums the 16-deep steps of K in order from zero, into
-// one accumulator. (The bf16 scan kernels have an engine of their own,
-// bf16_scan.cuh.)
+// one accumulator: the same K-order for every tile shape, so a product
+// that two shapes compute (the tiled bf16 scan's forward and its
+// backward's recompute) is the same bit for bit, also after its output is
+// rounded to bfloat16. (The bf16 scans' cluster route has an engine of its
+// own, bf16_scan.cuh; the bf16 weight gradients too, wgrad_bf16.cuh.)
 
 #pragma once
 
@@ -84,8 +87,12 @@ using LargePromoted = Cfg<128, 64, 32, 4, 2, 1, 3, true>;  // weight gradients
 using Medium = Cfg<64, 64, 32, 2, 2, 2, 3>;
 using Small = Cfg<16, 32, 128, 1, 2, 4, 2>;
 constexpr int kLargeRows = 1024, kFillTiles = 128;
-// The bfloat16 route's shape (gtf_wgrad_bf16_kernel): LargePromoted's.
-using Bf16LargePromoted = Cfg<128, 64, 32, 4, 2, 1, 3, true, true>;
+// The bfloat16 route's shapes (the tiled bf16 scans): the same rows and
+// columns, except that 8 warps in one reduction group cover 16 rows only
+// as 64 columns.
+using Bf16Large = Cfg<128, 64, 32, 4, 2, 1, 3, false, true>;
+using Bf16Medium = Cfg<64, 64, 32, 2, 4, 1, 3, false, true>;
+using Bf16Small = Cfg<16, 64, 128, 1, 8, 1, 2, false, true>;
 
 // Floats of one stage's A and B tiles in shared memory.
 template <class C, int LA>
@@ -114,8 +121,10 @@ constexpr size_t kSmemBytes =
     (size_t)max_(smem_floats<Large>(),
                  max_(smem_floats<Medium>(), smem_floats<Small>())) *
     sizeof(float);
-static_assert(smem_floats<Bf16LargePromoted>() * sizeof(float) <= kSmemBytes,
-              "the bf16 tile fits the CTA's shared memory");
+static_assert(smem_floats<Bf16Large>() * sizeof(float) <= kSmemBytes &&
+                  smem_floats<Bf16Medium>() * sizeof(float) <= kSmemBytes &&
+                  smem_floats<Bf16Small>() * sizeof(float) <= kSmemBytes,
+              "bf16 tiles fit the CTA's shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return (uint32_t)__cvta_generic_to_shared(p);

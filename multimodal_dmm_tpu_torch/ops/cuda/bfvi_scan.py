@@ -27,19 +27,26 @@ plus the particle trajectory z_traj (T, K, B, D) that the backward reads.
   every particle row of every step, the activations and cotangents that
   the weight gradients are products of, and ``gtf_wgrad_cuda`` (plain
   version ``gtf_wgrad_ref``) forms those products. Each wrapper counts
-  its launches in ``.launches``. With ``bf16=True`` each wrapper launches
-  the kernel's bfloat16 variant instead (``*_bf16_kernel`` of
-  ``csrc/bfvi_scan_bf16.cu``) and counts it in ``.launches_bf16``: the
-  two scans of ``csrc/bf16_scan.cuh`` (one thread block cluster per group
-  of batch columns, weights resident in shared memory as bfloat16, wgmma,
-  no grid barrier), launched as ``bf16_scan_plan`` says on the weight
-  images of ``bf16_pack``, and the weight gradients on the tile engine's
-  bf16 route (``csrc/tf32x3.cuh``). The float32 kernels read the GTF
-  weights in PyTorch's layout; the wrapper joins gate_1, nonlin_1 and
-  z_lin into one (2H + D, D) matrix and, where D or H is no multiple of 4
-  (the spirals model's D = 5), zero-pads every operand to the next
-  multiple of 4 (of 16 on the bf16 route) and slices the outputs back
-  (``_check_sizes``).
+  its launches in ``.launches``. With ``bf16=True`` the scan wrappers
+  launch the kernels' bfloat16 variants instead (``csrc/bfvi_scan_bf16.cu``)
+  on the route that ``bf16_scan_plan`` chooses by shape before any launch:
+  the cluster route, the two scans of ``csrc/bf16_scan.cuh`` (one thread
+  block cluster per group of batch columns, weights resident in shared
+  memory as bfloat16, wgmma, no grid barrier) on the weight images of
+  ``bf16_pack``, counted in ``.launches_bf16``; or, where no cluster plan
+  fits (wide operands, K > 64 particles), the tiled route,
+  ``*_bf16_tiled_kernel`` (``csrc/bfvi_scan.cuh`` on the tile engine's bf16
+  route, ``csrc/tf32x3.cuh``), counted in ``.launches_bf16_tiled``. Either
+  backward writes the weight gradients' rows in bfloat16 and the f32 sums
+  of its cotangents for the bias gradients, from which
+  ``gtf_wgrad_bf16_cuda`` (``csrc/wgrad_bf16.cuh``, TMA and wgmma; plain
+  version ``gtf_wgrad_bf16_ref``) forms the weight gradients. The float32
+  kernels read the GTF weights in PyTorch's layout; the wrapper joins
+  gate_1, nonlin_1 and z_lin into one (2H + D, D) matrix and, where D or H
+  is no multiple of 4 (the spirals model's D = 5), zero-pads every operand
+  to the next multiple of 4 (of 16 on the bf16 routes) and slices the
+  outputs back (``_check_sizes``). Every route takes any D and H and up to
+  ``MAX_K`` particles.
 - ``bfvi_scan``: differentiable entry. CPU tensors go through the plain
   pair, CUDA tensors through the kernels; there is no fallback between
   them. To hold the kernels against the plain pair on the GPU, the caller
@@ -70,10 +77,16 @@ from . import _build
 
 EPS = 1e-8
 PREC_FLOOR = 1e-6
-# The particle counts the kernels take: the filtering passes of the
-# training step and the MAP smoothing pass use 1 and 25; the evaluation's
-# 200-particle pass goes through the cell kernel (poe_cell.py).
-MAX_K = 32
+# The most particles the scan kernels take, on every route: the training
+# step's filtering passes use 1 and 25 by default (``train_particles``), the
+# MAP smoothing pass 1; the evaluation's 200-particle pass goes through the
+# cell kernel (poe_cell.py). Nothing in the kernels is sized by K (the f32
+# kernels walk a column's particles in chunks, the tiled bf16 route too, the
+# cluster route takes K <= 64); the limit is what the card tests check.
+MAX_K = 256
+# Partials of the bias gradients' sums that the tiled bf16 backward writes
+# (chunks of a step's rows; csrc/bfvi_scan.cuh, emit_bf16_rows).
+BIAS_CHUNKS = 32
 
 
 # ---------------------------------------------------------------------------
@@ -372,14 +385,29 @@ def _lib(bf16=False):
         lib.bfvi_scan_fwd.restype = _I
         lib.bfvi_scan_bwd.argtypes = ([_P] * 30 + [_I] * 6
                                       + [ctypes.c_float, _P]
-                                      + ([_P, _I, _P, _I, _P] if bf16
-                                         else []))
+                                      + ([_P, _I, _P, _I, _P] + [_P] * 5
+                                         if bf16 else []))
         lib.bfvi_scan_bwd.restype = _I
         if bf16:
             lib.bfvi_scan_bf16_max_clusters.argtypes = [_I] * 3
             lib.bfvi_scan_bf16_max_clusters.restype = _I
-        lib.gtf_wgrad.argtypes = [_P] * 4 + [_I] * 4 + [_P]
-        lib.gtf_wgrad.restype = _I
+            # The tiled route: the float32 kernels' arguments, then the
+            # forward's rows; the backward's bf16 rows and bias partials.
+            lib.bfvi_scan_fwd_tiled.argtypes = ([_P] * 22 + [_I] * 6
+                                                + [ctypes.c_float, _P, _P])
+            lib.bfvi_scan_fwd_tiled.restype = _I
+            lib.bfvi_scan_bwd_tiled.argtypes = ([_P] * 30 + [_I] * 6
+                                                + [ctypes.c_float, _P]
+                                                + [_P] * 4 + [_I])
+            lib.bfvi_scan_bwd_tiled.restype = _I
+            lib.gtf_wgrad_bf16.argtypes = ([_P] * 4 + [_I, _P, _P]
+                                           + [_I] * 3 + [_P])
+            lib.gtf_wgrad_bf16.restype = _I
+            lib.gtf_wgrad_bf16_partial_floats.argtypes = [_I] * 3
+            lib.gtf_wgrad_bf16_partial_floats.restype = ctypes.c_longlong
+        else:
+            lib.gtf_wgrad.argtypes = [_P] * 4 + [_I] * 4 + [_P]
+            lib.gtf_wgrad.restype = _I
         lib._bfvi_typed = True
     return lib
 
@@ -405,17 +433,15 @@ def _check_sizes(k, d, h, bf16=False):
     """Raise unless 1 <= K <= MAX_K; return the widths (D', H') that the
     kernels run at: D and H rounded up to multiples of 4, for the 16-byte
     rows of their tile loads (``csrc/tf32x3.cuh``); with ``bf16`` to
-    multiples of 16, the depth of one wgmma step (``csrc/bf16_scan.cuh``),
-    raising where no launch plan fits (``bf16_scan_plan``)."""
+    multiples of 16, the depth of one wgmma step (``csrc/bf16_scan.cuh``,
+    ``csrc/wgrad_bf16.cuh``; the tiled route takes them too). Every width
+    has a bf16 route (``bf16_scan_plan``)."""
     if not 1 <= k <= MAX_K:
         raise ValueError("the scan kernels take 1 <= K <= %d particles, "
                          "got K = %d" % (MAX_K, k))
     if not bf16:
         return _padded(d), _padded(h)
-    dp, hp = _padded(d, 16), _padded(h, 16)
-    for backward in (False, True):
-        bf16_scan_plan(k, 1, dp, hp, backward)
-    return dp, hp
+    return _padded(d, 16), _padded(h, 16)
 
 
 def _padded(n, m=4):
@@ -483,16 +509,9 @@ def bf16_smem(backward, d, h, c, rb, resident):
     return max(f, bf16_layout(True, d, h, c, rb, resident)["total"])
 
 
-def bf16_scan_plan(k, b_dim, d, h, backward=False):
-    """The launch of a bf16 scan kernel at K particles, ``b_dim`` batch
-    columns and padded widths (D, H): clusters of ``cluster`` CTAs, each
-    over ``cols`` columns (``rows`` = cols K rounded up to 8, at most one
-    64-row wgmma tile), weights ``resident`` in shared memory where they
-    fit, up to those that the 256 threads of the elementwise phase take
-    in one pass (four d each: more would lengthen every step). ``smem``
-    is a CTA's dynamic shared memory, ``waves`` the rounds of clusters on
-    132 SMs (an estimate: the card's GPCs may hold fewer clusters at
-    once). Raises where not even one column fits."""
+def _cluster_plan(k, b_dim, d, h, backward):
+    """``bf16_scan_plan``'s cluster route in one direction, or None where
+    not even one column fits."""
     c = bf16_cluster(d, h)
     most = min(TILE_ROWS // k, b_dim, max(1, 1024 // (d // c)))
     for resident in (True, False):
@@ -504,12 +523,38 @@ def bf16_scan_plan(k, b_dim, d, h, backward=False):
             groups = -(-b_dim // cols)
             per_sm = BF16_SM_SMEM // (smem + 1024)
             at_once = max(1, BF16_SMS * per_sm // c)
-            return {"cols": cols, "cluster": c, "rows": rb,
-                    "resident": resident, "smem": smem, "groups": groups,
-                    "ctas": groups * c, "waves": -(-groups // at_once)}
-    raise ValueError("the bf16 scan kernels hold K = %d particles of one "
-                     "column at D = %d, H = %d in no CTA's shared memory"
-                     % (k, d, h))
+            return {"route": "cluster", "cols": cols, "cluster": c,
+                    "rows": rb, "resident": resident, "smem": smem,
+                    "groups": groups, "ctas": groups * c,
+                    "waves": -(-groups // at_once)}
+    return None
+
+
+def bf16_scan_plan(k, b_dim, d, h, backward=False):
+    """The route and launch of a bf16 scan kernel at K particles,
+    ``b_dim`` batch columns and padded widths (D, H), chosen by shape
+    before any launch.
+
+    ``route`` "cluster" (``csrc/bf16_scan.cuh``): clusters of ``cluster``
+    CTAs, each over ``cols`` columns (``rows`` = cols K rounded up to 8, at
+    most one 64-row wgmma tile), weights ``resident`` in shared memory
+    where they fit, up to those that the 256 threads of the elementwise
+    phase take in one pass (four d each: more would lengthen every step).
+    ``smem`` is a CTA's dynamic shared memory, ``waves`` the rounds of
+    clusters on 132 SMs (an estimate: the card's GPCs may hold fewer
+    clusters at once). Taken where both directions have such a plan, so
+    that the backward's recompute runs the forward's products.
+
+    ``route`` "tiled" (``csrc/bfvi_scan.cuh`` on the tile engine's bf16
+    route): where either direction has none, as where a column's K
+    particles exceed one 64-row tile or the gathered full-width operands
+    and weight slices exceed a CTA's shared memory (wide D or H, or widths
+    that split into few CTAs). ``bias_chunks``: the partials of the bias
+    gradients' sums that its backward writes."""
+    plans = [_cluster_plan(k, b_dim, d, h, bw) for bw in (False, True)]
+    if None in plans:
+        return {"route": "tiled", "bias_chunks": BIAS_CHUNKS}
+    return plans[int(bool(backward))]
 
 
 def _swizzled(mats, fill):
@@ -697,10 +742,9 @@ def _ptr(x):
     return ctypes.c_void_p(None if x is None else x.data_ptr())
 
 
-def _plan_args(k, b_dim, d, h, backward):
-    """The C array of a bf16 scan launch's plan: [columns a cluster, CTAs
-    a cluster, rows a tile, resident, shared-memory bytes]."""
-    plan = bf16_scan_plan(k, b_dim, d, h, backward)
+def _plan_args(plan):
+    """The C array of a cluster-route launch's plan: [columns a cluster,
+    CTAs a cluster, rows a tile, resident, shared-memory bytes]."""
     return (ctypes.c_int * 5)(plan["cols"], plan["cluster"], plan["rows"],
                               int(plan["resident"]), plan["smem"])
 
@@ -740,64 +784,90 @@ def _check_inputs(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
     return t_max, n_exp, b_dim, k, d, h
 
 
-def _count(wrapper, bf16):
+# A wrapper's launch counter by route: the float32 kernel, the bf16
+# cluster route, the bf16 tiled route.
+_COUNTERS = {"f32": "launches", "cluster": "launches_bf16",
+             "tiled": "launches_bf16_tiled"}
+
+
+def _count(wrapper, route):
     """One launch of ``wrapper``'s kernel, on its route's counter."""
-    if bf16:
-        wrapper.launches_bf16 += 1
-    else:
-        wrapper.launches += 1
+    name = _COUNTERS[route]
+    setattr(wrapper, name, getattr(wrapper, name) + 1)
+
+
+def _route(k, b_dim, dp, hp, bf16, backward):
+    """(route, plan) of a scan launch: "f32", or the bf16 plan's route."""
+    if not bf16:
+        return "f32", None
+    plan = bf16_scan_plan(k, b_dim, dp, hp, backward)
+    return plan["route"], plan
+
+
+def _stream(x):
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _raise_on(rc, what):
+    if rc != 0:
+        raise RuntimeError("%s kernel launch failed: CUDA error %d"
+                           % (what, rc))
 
 
 def bfvi_scan_fwd_cuda(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
                        eps, min_std, bf16=False, *, pack=None):
-    """Launch the forward kernel (its bfloat16 variant with ``bf16``) on
-    the current stream, at widths padded to multiples of 4 (16 with
-    ``bf16``, ``_check_sizes``); same outputs as ``bfvi_scan_fwd_ref``.
-    ``pack``: the ``Bf16Pack`` of ``gtf`` at the padded widths, made here
-    if None."""
+    """Launch the forward kernel (with ``bf16`` its bfloat16 variant on the
+    route of ``bf16_scan_plan``) on the current stream, at widths padded to
+    multiples of 4 (16 with ``bf16``, ``_check_sizes``); same outputs as
+    ``bfvi_scan_fwd_ref``. ``pack``: the ``Bf16Pack`` of ``gtf`` at the
+    padded widths for the cluster route, made here if None."""
     t_max, n_exp, b_dim, k, d, h = _check_inputs(
         obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps)
     dp, hp = _check_sizes(k, d, h, bf16)
+    route, plan = _route(k, b_dim, dp, hp, bf16, False)
     opts = dict(dtype=torch.float32, device=obs_mean.device)
     outs = [torch.empty((t_max, b_dim, dp), **opts) for _ in range(5)]
     outs.append(torch.empty((t_max, k, b_dim, dp), **opts))
     x, gtf, eps = _pad_scan_inputs(obs_mean, obs_std, obs_mask, glb_mean,
                                   glb_std, gtf, eps, dp, hp)
-    stream = ctypes.c_void_p(
-        torch.cuda.current_stream(obs_mean.device).cuda_stream)
-    if bf16:
-        # (getattr: a caller may stand a recording wrapper in for this one)
-        keep = getattr(bfvi_scan_fwd_cuda, "rows", None)
-        rows = None
-        if keep is not None:
-            rows = torch.empty(((t_max - 1) * k * b_dim, 2 * hp + dp), **opts)
+    args = x + _kernel_weights(gtf) + [eps] + outs
+    dims = (t_max, n_exp, b_dim, k, dp, hp, float(min_std),
+            _stream(obs_mean))
+    # (getattr: a caller may stand a recording wrapper in for this one)
+    keep = getattr(bfvi_scan_fwd_cuda, "rows", None) if bf16 else None
+    rows = None
+    if keep is not None:
+        rows = torch.empty(((t_max - 1) * k * b_dim, 2 * hp + dp), **opts)
+    if route == "cluster":
         pack = _images(pack, gtf, dp, hp)
         rc = _lib(True).bfvi_scan_fwd(
-            *[_ptr(v) for v in x + _kernel_weights(gtf) + [eps] + outs
-              + [rows, None]],
-            t_max, n_exp, b_dim, k, dp, hp, float(min_std), stream,
-            *_image_args(pack, False), _plan_args(k, b_dim, dp, hp, False))
-        if rows is not None:
-            keep.append(_unpad_blocks(rows, (h, h, d), (hp, hp, dp)))
+            *[_ptr(v) for v in args + [rows, None]], *dims,
+            *_image_args(pack, False), _plan_args(plan))
+    elif route == "tiled":
+        work = torch.empty((k * b_dim, 2 * hp + 4 * dp), **opts)
+        rc = _lib(True).bfvi_scan_fwd_tiled(
+            *[_ptr(v) for v in args + [work, _barrier(obs_mean.device)]],
+            *dims, _ptr(rows))
     else:
         work = torch.empty((k * b_dim, 2 * hp + 4 * dp), **opts)
         rc = _lib().bfvi_scan_fwd(
-            *[_ptr(v) for v in x + _kernel_weights(gtf) + [eps] + outs
-              + [work, _barrier(obs_mean.device)]],
-            t_max, n_exp, b_dim, k, dp, hp, float(min_std), stream)
-    if rc != 0:
-        raise RuntimeError("bfvi_scan_fwd%s kernel launch failed: CUDA "
-                           "error %d" % ("_bf16" if bf16 else "", rc))
-    _count(bfvi_scan_fwd_cuda, bf16)
+            *[_ptr(v) for v in args + [work, _barrier(obs_mean.device)]],
+            *dims)
+    _raise_on(rc, "bfvi_scan_fwd (%s)" % route)
+    _count(bfvi_scan_fwd_cuda, route)
+    if rows is not None:
+        keep.append(_rb(_unpad_blocks(rows, (h, h, d), (hp, hp, dp))))
     if dp != d:
         outs = [o[..., :d].contiguous() for o in outs]
     return tuple(outs)
 
 
 bfvi_scan_fwd_cuda.launches = bfvi_scan_fwd_cuda.launches_bf16 = 0
-# A list to which each bf16 launch appends the rows [h1 | hn | z_nonlin]
-# of its own transition (laid out as the backward's xs, at the real
-# widths), or None: the backward's recompute must equal them bit for bit.
+bfvi_scan_fwd_cuda.launches_bf16_tiled = 0
+# A list to which each bf16 launch (either route) appends the rows [h1 |
+# hn | z_nonlin] of its own transition rounded to bfloat16 (laid out as the
+# backward's xs, at the real widths), or None: the backward's recompute
+# must give the same rows bit for bit.
 bfvi_scan_fwd_cuda.rows = None
 
 
@@ -810,55 +880,76 @@ def partial_size(d, h):
 
 def bfvi_scan_bwd_cuda(res, cots, min_std, bf16=False, *, pack=None):
     """Launch the backward scan kernel on the current stream, then the
-    weight-gradient kernel on the rows it wrote (their bfloat16 variants
-    with ``bf16``), at widths padded to multiples of 4 (16 with ``bf16``);
-    same outputs as ``bfvi_scan_bwd_ref``. ``pack`` as in
-    ``bfvi_scan_fwd_cuda``."""
+    weight-gradient kernel on the rows it wrote (with ``bf16`` the
+    bfloat16 variants: the scan on the route of ``bf16_scan_plan``, which
+    writes its rows in bfloat16 and the bias gradients' f32 sums, and
+    ``gtf_wgrad_bf16_cuda``'s kernel), at widths padded to multiples of 4
+    (16 with ``bf16``); same outputs as ``bfvi_scan_bwd_ref``. ``pack`` as
+    in ``bfvi_scan_fwd_cuda``."""
     (obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps, z_traj,
      prior_mean, prior_std) = res
     t_max, n_exp, b_dim, k, d, h = _check_inputs(
         obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps)
     dp, hp = _check_sizes(k, d, h, bf16)
+    route, plan = _route(k, b_dim, dp, hp, bf16, True)
     _check_tensor("z_traj", z_traj, (t_max, k, b_dim, d))
     for name, x in zip(("prior_mean", "prior_std", "g_prior_mean",
                         "g_prior_std", "g_infer_mean", "g_infer_std",
                         "g_samples"), (prior_mean, prior_std) + tuple(cots)):
         _check_tensor(name, x, (t_max, b_dim, d))
-    opts = dict(dtype=torch.float32, device=obs_mean.device)
+    dev = obs_mean.device
+    opts = dict(dtype=torch.float32, device=dev)
     d_obs_mean = torch.empty((t_max, n_exp, b_dim, dp), **opts)
     d_obs_std = torch.empty((t_max, n_exp, b_dim, dp), **opts)
     d_glb_mean = torch.zeros((b_dim, dp), **opts)
     d_glb_std = torch.zeros((b_dim, dp), **opts)
     n_rows = (t_max - 1) * k * b_dim
-    xs = torch.empty((n_rows, 2 * hp + dp), **opts)
-    ys = torch.empty((n_rows, 2 * hp + 4 * dp), **opts)
+    lx, ly = 2 * hp + dp, 2 * hp + 4 * dp
+    # float32 rows: the kernels' own (the cluster route keeps only ys's
+    # pre-activations there and writes no xs)
+    xs = torch.empty((0 if route == "cluster" else n_rows, lx), **opts)
+    ys = torch.empty((n_rows, ly), **opts)
     res, cots = _pad_bwd_inputs(res, cots, dp, hp)
     z_traj = res[7]
-    x = (list(res[:5]) + _kernel_weights(res[5]) + list(res[6:])
-         + list(cots))
-    stream = ctypes.c_void_p(
-        torch.cuda.current_stream(obs_mean.device).cuda_stream)
-    outs = [d_obs_mean, d_obs_std, d_glb_mean, d_glb_std, xs, ys]
-    if bf16:
+    args = (list(res[:5]) + _kernel_weights(res[5]) + list(res[6:])
+            + list(cots) + [d_obs_mean, d_obs_std, d_glb_mean, d_glb_std,
+                            xs, ys])
+    dims = (t_max, n_exp, b_dim, k, dp, hp, float(min_std), _stream(xs))
+    if bf16:  # the weight gradients' rows, and the bias gradients' sums
+        bfo = dict(dtype=torch.bfloat16, device=dev)
+        rows = [torch.empty((n_rows, w), **bfo) for w in (dp, lx, ly)]
+        n_bp = plan["groups"] if route == "cluster" else plan["bias_chunks"]
+        bias_part = torch.zeros((n_bp, ly), **opts)
+    if route == "cluster":
         pack = _images(pack, res[5], dp, hp)
+        ds, hs = dp // plan["cluster"], hp // plan["cluster"]
+        bacc = torch.empty((plan["ctas"], plan["rows"] * (2 * hs + ds)
+                            + plan["cols"] * 3 * ds), **opts)
         rc = _lib(True).bfvi_scan_bwd(
-            *[_ptr(v) for v in x + outs + [None, None]],
-            t_max, n_exp, b_dim, k, dp, hp, float(min_std), stream,
+            *[_ptr(v) for v in args + [None, None]], *dims,
             *_image_args(pack, True), *_image_args(pack, False),
-            _plan_args(k, b_dim, dp, hp, True))
+            _plan_args(plan), *[_ptr(v) for v in (rows[1], rows[2], rows[0],
+                                                  bacc, bias_part)])
     else:
         gz = torch.zeros((3, k * b_dim, dp), **opts)
-        rc = _lib().bfvi_scan_bwd(
-            *[_ptr(v) for v in x + outs + [gz, _barrier(obs_mean.device)]],
-            t_max, n_exp, b_dim, k, dp, hp, float(min_std), stream)
-    if rc != 0:
-        raise RuntimeError("bfvi_scan_bwd%s kernel launch failed: CUDA "
-                           "error %d" % ("_bf16" if bf16 else "", rc))
-    _count(bfvi_scan_bwd_cuda, bf16)
+        tail = []
+        if route == "tiled":
+            tail = [_ptr(v) for v in (rows[1], rows[2], rows[0], bias_part)]
+            tail.append(n_bp)
+        lib = _lib(bf16)
+        fn = lib.bfvi_scan_bwd_tiled if bf16 else lib.bfvi_scan_bwd
+        rc = fn(*[_ptr(v) for v in args + [gz, _barrier(dev)]], *dims,
+                *tail)
+    _raise_on(rc, "bfvi_scan_bwd (%s)" % route)
+    _count(bfvi_scan_bwd_cuda, route)
     if bfvi_scan_bwd_cuda.rows is not None:
-        bfvi_scan_bwd_cuda.rows.append(
-            _unpad_blocks(xs, (h, h, d), (hp, hp, dp)))
-    d_gtf = _gtf_wgrad_launch(z_traj, xs, ys, n_rows, dp, hp, bf16)
+        bfvi_scan_bwd_cuda.rows.append(_unpad_blocks(
+            rows[1].to(torch.float32) if bf16 else xs, (h, h, d),
+            (hp, hp, dp)))
+    if bf16:
+        d_gtf = _gtf_wgrad_bf16_launch(*rows, bias_part, dp, hp)
+    else:
+        d_gtf = _gtf_wgrad_launch(z_traj, xs, ys, n_rows, dp, hp)
     outs = (d_obs_mean, d_obs_std, d_glb_mean, d_glb_std)
     if dp != d:
         outs = tuple(o[..., :d].contiguous() for o in outs)
@@ -868,26 +959,29 @@ def bfvi_scan_bwd_cuda(res, cots, min_std, bf16=False, *, pack=None):
 
 
 bfvi_scan_bwd_cuda.launches = bfvi_scan_bwd_cuda.launches_bf16 = 0
-# A list to which each launch (of either variant) appends the xs rows it
-# wrote, at the real widths (their h1 and hn hold the kernel's ReLU masks,
-# for bfvi_scan_bwd_ref_on_masks), or None.
+bfvi_scan_bwd_cuda.launches_bf16_tiled = 0
+# A list to which each launch (of any route) appends the xs rows it wrote
+# (the float32 kernel's, the bf16 routes' bfloat16 rows as float32), at the
+# real widths, or None: their h1 and hn hold the kernel's ReLU masks, for
+# bfvi_scan_bwd_ref_on_masks (a positive float32 value stays positive in
+# bfloat16, which has float32's exponent range).
 bfvi_scan_bwd_cuda.rows = None
 
 
-
-# The weight-gradient kernel's CTAs: its output tiles (128 x 64, the
-# LargePromoted shape of csrc/tf32x3.cuh) times the row ranges it splits
-# the rows into, each with its own partial. 528 CTAs are two full waves of
-# two CTAs on each of the H100's 132 SMs: at D = H = 256 the 48 tiles
-# times 11 ranges; at the spirals widths (D = 8 padded, H = 20) 4 tiles
-# times 132 ranges, where 11 ranges left most SMs idle while each CTA
+# The float32 weight-gradient kernel's CTAs: its output tiles (128 x 64,
+# the LargePromoted shape of csrc/tf32x3.cuh) times the row ranges it
+# splits the rows into, each with its own partial. 528 CTAs are two full
+# waves of two CTAs on each of the H100's 132 SMs: at D = H = 256 the 48
+# tiles times 11 ranges; at the spirals widths (D = 8 padded, H = 20) 4
+# tiles times 132 ranges, where 11 ranges left most SMs idle while each CTA
 # summed 67,500 rows.
 WGRAD_CTAS = 528
 WGRAD_TILE = (128, 64)
 
 
 def wgrad_splits(d, h):
-    """The row ranges of the weight-gradient kernel at widths (D, H)."""
+    """The row ranges of the float32 weight-gradient kernel at widths
+    (D, H)."""
     la = 2 * h + d
     tiles = sum(-(-m // WGRAD_TILE[0]) * -(-n // WGRAD_TILE[1])
                 for m, n in ((d, la), (h, d), (h, d), (d, d)))
@@ -899,6 +993,17 @@ def _wgrad_dims(z_traj, xs):
     return (t_max - 1) * k * b_dim, d, (xs.shape[1] - d) // 2
 
 
+def _wgrad_grads(dw1, db1, dwg2, dbg2, dwn2, dbn2, dws, dbs, h):
+    return {
+        "gate_1": {"w": dw1[:h], "b": db1[:h]},
+        "nonlin_1": {"w": dw1[h:2 * h], "b": db1[h:2 * h]},
+        "z_lin": {"w": dw1[2 * h:], "b": db1[2 * h:]},
+        "gate_2": {"w": dwg2, "b": dbg2},
+        "nonlin_2": {"w": dwn2, "b": dbn2},
+        "z_to_std": {"w": dws, "b": dbs},
+    }
+
+
 def gtf_wgrad_ref(z_traj, xs, ys, bf16=False):
     """Plain version of ``gtf_wgrad_cuda``: the GTF weight gradients, in
     PyTorch layout, as products over the backward's rows. Row
@@ -907,45 +1012,54 @@ def gtf_wgrad_ref(z_traj, xs, ys, bf16=False):
     column b at step t >= 1, whose input z_traj[t-1, k, b] is the same
     row of z_traj. ``bf16``: the weight gradients are products of the
     bfloat16-rounded rows (summed in float32); the bias gradients sum the
-    float32 cotangents."""
+    float32 cotangents (``gtf_wgrad_bf16_ref`` takes the same rows in the
+    bf16 kernel's form)."""
     n_rows, d, h = _wgrad_dims(z_traj, xs)
     z = z_traj.reshape(-1, d)[:n_rows]
     y1, d_a2, d_znon, d_sraw = torch.split(ys, [2 * h + d, d, d, d], dim=1)
     h1, hn, z_non = torch.split(xs, [h, h, d], dim=1)
     r = _rb if bf16 else (lambda x: x)
-    dw1, db1 = r(y1).t() @ r(z), y1.sum(0)
-    return {
-        "gate_1": {"w": dw1[:h], "b": db1[:h]},
-        "nonlin_1": {"w": dw1[h:2 * h], "b": db1[h:2 * h]},
-        "z_lin": {"w": dw1[2 * h:], "b": db1[2 * h:]},
-        "gate_2": {"w": r(d_a2).t() @ r(h1), "b": d_a2.sum(0)},
-        "nonlin_2": {"w": r(d_znon).t() @ r(hn), "b": d_znon.sum(0)},
-        "z_to_std": {"w": r(d_sraw).t() @ r(z_non), "b": d_sraw.sum(0)},
-    }
+    return _wgrad_grads(r(y1).t() @ r(z), y1.sum(0),
+                        r(d_a2).t() @ r(h1), d_a2.sum(0),
+                        r(d_znon).t() @ r(hn), d_znon.sum(0),
+                        r(d_sraw).t() @ r(z_non), d_sraw.sum(0), h)
 
 
-def _gtf_wgrad_launch(z_traj, xs, ys, n_rows, d, h, bf16):
-    """Launch the weight-gradient kernel (its bfloat16 variant with
-    ``bf16``) on rows at widths (D, H) that are multiples of 4 and sum its
-    partials in a fixed order."""
+def gtf_wgrad_bf16_ref(zs, xs, ys, bias_part):
+    """Plain version of ``gtf_wgrad_bf16_cuda``: ``gtf_wgrad_ref(...,
+    bf16=True)`` on the rows in the form that the bf16 backward scans write
+    them. zs (R, D), xs (R, 2H + D) and ys (R, 2H + 4D) in bfloat16, the
+    rounded rows; ``bias_part`` (P, 2H + 4D) float32, P partials of the
+    float32 cotangents' sums, which the bias gradients add in order. The
+    products are those of ``gtf_wgrad_ref`` on the same values."""
+    d = zs.shape[1]
+    h = (xs.shape[1] - d) // 2
+    f = lambda x: x.to(torch.float32)  # noqa: E731
+    y1, d_a2, d_znon, d_sraw = (f(b) for b in torch.split(
+        ys, [2 * h + d, d, d, d], dim=1))
+    h1, hn, z_non = (f(b) for b in torch.split(xs, [h, h, d], dim=1))
+    db1, dbg2, dbn2, dbs = torch.split(bias_part.sum(0),
+                                       [2 * h + d, d, d, d])
+    return _wgrad_grads(y1.t() @ f(zs), db1, d_a2.t() @ h1, dbg2,
+                        d_znon.t() @ hn, dbn2, d_sraw.t() @ z_non, dbs, h)
+
+
+def _gtf_wgrad_launch(z_traj, xs, ys, n_rows, d, h):
+    """Launch the float32 weight-gradient kernel on rows at widths (D, H)
+    that are multiples of 4 and sum its partials in a fixed order."""
     splits = wgrad_splits(d, h)
     partial = torch.empty((splits, partial_size(d, h)), dtype=torch.float32,
                           device=xs.device)
-    stream = torch.cuda.current_stream(xs.device).cuda_stream
-    rc = _lib(bf16).gtf_wgrad(_ptr(z_traj), _ptr(xs), _ptr(ys),
-                              _ptr(partial), splits, n_rows, d, h,
-                              ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError("gtf_wgrad%s kernel launch failed: CUDA error %d"
-                           % ("_bf16" if bf16 else "", rc))
-    _count(gtf_wgrad_cuda, bf16)
+    rc = _lib().gtf_wgrad(_ptr(z_traj), _ptr(xs), _ptr(ys), _ptr(partial),
+                          splits, n_rows, d, h, _stream(xs))
+    _raise_on(rc, "gtf_wgrad")
+    _count(gtf_wgrad_cuda, "f32")
     return unpack_partial(partial.sum(0), d, h)
 
 
-def gtf_wgrad_cuda(z_traj, xs, ys, bf16=False):
-    """Launch the weight-gradient kernel (its bfloat16 variant with
-    ``bf16``) on the current stream, at widths padded to multiples of 4;
-    same outputs as ``gtf_wgrad_ref``."""
+def gtf_wgrad_cuda(z_traj, xs, ys):
+    """Launch the float32 weight-gradient kernel on the current stream, at
+    widths padded to multiples of 4; same outputs as ``gtf_wgrad_ref``."""
     n_rows, d, h = _wgrad_dims(z_traj, xs)
     _check_tensor("z_traj", z_traj, tuple(z_traj.shape))
     _check_tensor("xs", xs, (n_rows, 2 * h + d))
@@ -954,11 +1068,11 @@ def gtf_wgrad_cuda(z_traj, xs, ys, bf16=False):
     grads = _gtf_wgrad_launch(
         _pad_last(z_traj, dp), _pad_blocks(xs, (h, h, d), (hp, hp, dp)),
         _pad_blocks(ys, (h, h) + (d,) * 4, (hp, hp) + (dp,) * 4), n_rows,
-        dp, hp, bf16)
+        dp, hp)
     return grads if (dp, hp) == (d, h) else _unpad_gtf(grads, d, h)
 
 
-gtf_wgrad_cuda.launches = gtf_wgrad_cuda.launches_bf16 = 0
+gtf_wgrad_cuda.launches = 0
 
 
 def unpack_partial(tot, d, h):
@@ -966,15 +1080,63 @@ def unpack_partial(tot, d, h):
     la = 2 * h + d
     sizes = [d * la, la, h * d, d, h * d, d, d * d, d]
     dw1, db1, dwg2, dbg2, dwn2, dbn2, dws, dbs = torch.split(tot, sizes)
-    dw1 = dw1.reshape(d, la).t()
-    return {
-        "gate_1": {"w": dw1[:h], "b": db1[:h]},
-        "nonlin_1": {"w": dw1[h:2 * h], "b": db1[h:2 * h]},
-        "z_lin": {"w": dw1[2 * h:], "b": db1[2 * h:]},
-        "gate_2": {"w": dwg2.reshape(h, d).t(), "b": dbg2},
-        "nonlin_2": {"w": dwn2.reshape(h, d).t(), "b": dbn2},
-        "z_to_std": {"w": dws.reshape(d, d).t(), "b": dbs},
-    }
+    return _wgrad_grads(dw1.reshape(d, la).t(), db1, dwg2.reshape(h, d).t(),
+                        dbg2, dwn2.reshape(h, d).t(), dbn2,
+                        dws.reshape(d, d).t(), dbs, h)
+
+
+def _gtf_wgrad_bf16_launch(zs, xs, ys, bias_part, d, h):
+    """Launch the bf16 weight-gradient kernel and its reduction on bf16
+    rows at widths (D, H) that are multiples of 16."""
+    n_rows = zs.shape[0]
+    la = 2 * h + d
+    n_w = la * d + 2 * d * h + d * d
+    lib = _lib(True)
+    opts = dict(dtype=torch.float32, device=zs.device)
+    # The kernel's row splits (its choice) and their partials.
+    partial = torch.empty(lib.gtf_wgrad_bf16_partial_floats(n_rows, d, h),
+                          **opts)
+    out = torch.empty(n_w + la + 3 * d, **opts)
+    rc = lib.gtf_wgrad_bf16(
+        _ptr(zs), _ptr(xs), _ptr(ys), _ptr(bias_part), bias_part.shape[0],
+        _ptr(partial), _ptr(out), n_rows, d, h, _stream(zs))
+    _raise_on(rc, "gtf_wgrad_bf16")
+    gtf_wgrad_bf16_cuda.launches += 1
+    dw1, dwg2, dwn2, dws, db1, dbg2, dbn2, dbs = torch.split(
+        out, [la * d, d * h, d * h, d * d, la, d, d, d])
+    return _wgrad_grads(dw1.view(la, d), db1, dwg2.view(d, h), dbg2,
+                        dwn2.view(d, h), dbn2, dws.view(d, d), dbs, h)
+
+
+def _check_bf16_rows(name, x, shape):
+    if not x.is_cuda:
+        raise ValueError("%s must be a CUDA tensor" % name)
+    if x.dtype != torch.bfloat16:
+        raise ValueError("%s must be bfloat16, got %s" % (name, x.dtype))
+    if tuple(x.shape) != tuple(shape) or not x.is_contiguous():
+        raise ValueError("%s must be contiguous of shape %s, got %s"
+                         % (name, tuple(shape), tuple(x.shape)))
+
+
+def gtf_wgrad_bf16_cuda(zs, xs, ys, bias_part):
+    """Launch the bf16 weight-gradient kernel (``gtf_wgrad_bf16_kernel``)
+    on the current stream, on rows in the form of ``gtf_wgrad_bf16_ref``,
+    at widths padded to multiples of 16; same outputs."""
+    n_rows, d = zs.shape
+    h = (xs.shape[1] - d) // 2
+    _check_bf16_rows("zs", zs, (n_rows, d))
+    _check_bf16_rows("xs", xs, (n_rows, 2 * h + d))
+    _check_bf16_rows("ys", ys, (n_rows, 2 * h + 4 * d))
+    _check_tensor("bias_part", bias_part, (bias_part.shape[0], 2 * h + 4 * d))
+    dp, hp = _padded(d, 16), _padded(h, 16)
+    y_blocks = ((h, h) + (d,) * 4, (hp, hp) + (dp,) * 4)
+    grads = _gtf_wgrad_bf16_launch(
+        _pad_last(zs, dp), _pad_blocks(xs, (h, h, d), (hp, hp, dp)),
+        _pad_blocks(ys, *y_blocks), _pad_blocks(bias_part, *y_blocks), dp, hp)
+    return grads if (dp, hp) == (d, h) else _unpad_gtf(grads, d, h)
+
+
+gtf_wgrad_bf16_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -996,11 +1158,13 @@ class _BfviScan(torch.autograd.Function):
         ctx.pack = None
         if kernel:
             kw = {}
-            if bf16:  # one pack of the weights for the forward and backward
+            if bf16:  # the cluster route: one pack for forward and backward
                 d, h = obs_mean.shape[-1], gtf["gate_1"]["w"].shape[0]
-                dp, hp = _check_sizes(eps.shape[1], d, h, True)
-                ctx.pack = kw["pack"] = Bf16Pack(_pad_gtf(gtf, dp, hp), dp,
-                                                 hp)
+                k, b_dim = eps.shape[1], obs_mean.shape[2]
+                dp, hp = _check_sizes(k, d, h, True)
+                if bf16_scan_plan(k, b_dim, dp, hp)["route"] == "cluster":
+                    ctx.pack = kw["pack"] = Bf16Pack(_pad_gtf(gtf, dp, hp),
+                                                     dp, hp)
             outs = bfvi_scan_fwd_cuda(obs_mean, obs_std, obs_mask, glb_mean,
                                       glb_std, gtf, eps, min_std, bf16, **kw)
         else:

@@ -73,7 +73,7 @@ def timed_library():
     (work / "bf16_scan_timed.cuh").write_text(text)
     cu = work / "bf16_scan_timed.cu"
     cu.write_text('#define BFVI_SCAN_BF16 1\n#include "bfvi_scan.cuh"\n'
-                  '#include "bf16_scan_timed.cuh"\n')
+                  '#include "bf16_scan_timed.cuh"\n#include "wgrad_bf16.cuh"\n')
     so = work / "libbf16_scan_timed.so"
     subprocess.run([_build._nvcc()] + _build._flags("bfvi_scan_bf16")
                    + ["-I", str(_build.CSRC_DIR), "-o", str(so), str(cu)],
@@ -87,7 +87,9 @@ def main():
         return 2
     lib, src = timed_library()
     real = scan._lib(True)
-    for name in ("bfvi_scan_fwd", "bfvi_scan_bwd", "gtf_wgrad"):
+    for name in ("bfvi_scan_fwd", "bfvi_scan_bwd", "bfvi_scan_fwd_tiled",
+                 "bfvi_scan_bwd_tiled", "gtf_wgrad_bf16",
+                 "gtf_wgrad_bf16_partial_floats", "bfvi_scan_bf16_max_clusters"):
         getattr(lib, name).argtypes = getattr(real, name).argtypes
         getattr(lib, name).restype = getattr(real, name).restype
     lib._bfvi_typed = True

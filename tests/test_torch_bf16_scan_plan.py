@@ -112,10 +112,20 @@ def test_plan_routes():
 
 
 def test_plan_refuses_what_fits_nowhere():
-    with pytest.raises(ValueError, match="shared memory"):
-        tscan._check_sizes(25, 1024, 1024, bf16=True)
-    with pytest.raises(ValueError, match="particles"):
-        tscan._check_sizes(tscan.MAX_K + 1, 256, 256, bf16=True)
+    """What no cluster holds, a column's K = 25 particles at D = H = 1,024
+    or K = 65 particles (more than one 64-row wgmma tile), takes the tiled
+    route in both directions instead of raising; K = 0 and K past MAX_K
+    still raise."""
+    assert tscan._check_sizes(25, 1024, 1024, bf16=True) == (1024, 1024)
+    for backward in (False, True):
+        for k, d in ((25, 1024), (65, 256)):
+            assert tscan.bf16_scan_plan(k, 100, d, d, backward)["route"] \
+                == "tiled"
+        assert tscan.bf16_scan_plan(25, 100, 256, 256, backward)["route"] \
+            == "cluster"
+    for k in (0, tscan.MAX_K + 1):
+        with pytest.raises(ValueError, match="particles"):
+            tscan._check_sizes(k, 256, 256, bf16=True)
     # The float32 route keeps its multiples of 4.
     assert tscan._check_sizes(25, 5, 20) == (8, 20)
     assert tscan._check_sizes(25, 5, 20, bf16=True) == (16, 32)

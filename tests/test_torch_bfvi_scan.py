@@ -205,11 +205,17 @@ def test_kernel_wrappers_refuse_cpu_tensors(case):
 
 
 def test_kernel_size_limits_stated():
-    """The kernels keep activations in device memory, so only K limits
-    them; the 16-byte rows of their tile loads want widths that are
-    multiples of 4, which the wrapper pads other widths to."""
-    with pytest.raises(ValueError, match="particles"):
-        tscan._check_sizes(tscan.MAX_K + 1, 256, 256)
+    """The kernels keep activations in device memory and walk a column's
+    particles in chunks, so neither K nor the widths are bound by shared
+    memory: the wrapper takes 1 <= K <= MAX_K (at least 256) at any width;
+    the 16-byte rows of their tile loads want widths that are multiples of
+    4, which the wrapper pads other widths to. K = 0 and K past MAX_K
+    raise."""
+    assert tscan.MAX_K >= 256
+    for k in (0, tscan.MAX_K + 1):
+        with pytest.raises(ValueError, match="particles"):
+            tscan._check_sizes(k, 256, 256)
     assert tscan._check_sizes(4, 30, 24) == (32, 24)
     assert tscan._check_sizes(4, 5, 20) == (8, 20)
     assert tscan._check_sizes(tscan.MAX_K, 512, 512) == (512, 512)
+    assert tscan._check_sizes(33, 1024, 1021) == (1024, 1024)

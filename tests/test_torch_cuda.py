@@ -19,6 +19,12 @@ from multimodal_dmm_tpu_torch.ops.cuda import poe_cell as tcell
 pytestmark = pytest.mark.cuda
 
 MIN_STD = 1e-3
+# chip_smoke.py's BF16_GTF_RFRO and BF16_GTF_SEPARATION: each output of a
+# bf16 scan within these of its bf16 plain version in relative Frobenius
+# norm, and the float32 kernel's at least SEPARATION times farther from
+# it, so that a kernel that skipped the bf16 rounding fails.
+BF16_RFRO = {"fwd": 1e-3, "bwd": 3e-3}
+BF16_SEPARATION = 3.0
 
 
 @pytest.fixture
@@ -62,6 +68,15 @@ def _assert_grads(got, exp, err):
 @pytest.mark.parametrize("k", [1, 4, 25, 32])
 def test_kernels_match_plain_versions(dev, k, b_dim):
     _check_against_plain(*_inputs(dev, k=k, b_dim=b_dim))
+
+
+# Past 32 particles: nothing in the float32 kernels is sized by K (they walk
+# a column's particles in chunks of 8 on two lanes).
+@pytest.mark.parametrize("k", [33, 50, 100, 256])
+def test_kernels_match_plain_versions_past_32_particles(dev, k):
+    before = tscan.bfvi_scan_bwd_cuda.launches
+    _check_against_plain(*_inputs(dev, t_max=4, b_dim=9, k=k))
+    assert tscan.bfvi_scan_bwd_cuda.launches == before + 1
 
 
 def test_kernels_match_plain_versions_at_weizmann_width(dev):
@@ -174,12 +189,63 @@ def _check_against_plain(x, gtf, eps, cots):
     (10, 45, 5, 20, 25), (6, 45, 12, 20, 25), (6, 45, 12, 20, 1),
     (5, 13, 48, 40, 25), (3, 9, 512, 512, 25), (3, 70, 512, 512, 1)])
 def test_bf16_kernels_match_plain_versions(dev, t_max, b_dim, d, h, k):
-    x, gtf, eps, cots = _inputs(dev, t_max=t_max, b_dim=b_dim, d=d, h=h, k=k)
+    _check_bf16_against_plain(
+        *_inputs(dev, t_max=t_max, b_dim=b_dim, d=d, h=h, k=k))
+
+
+# Each bf16 route at the shapes that need it: widths whose operands no
+# cluster holds (464 and 592 split into clusters of two CTAs; 768), and K
+# past one 64-row wgmma tile, on the tiled route; K = 50 on the cluster
+# route (one column a cluster). The plan chooses the route; each route
+# counts its own launches.
+@pytest.mark.parametrize("b_dim,d,h,k,route", [
+    (9, 464, 256, 25, "tiled"), (9, 592, 592, 25, "tiled"),
+    (9, 768, 768, 25, "tiled"), (20, 256, 256, 50, "cluster"),
+    (20, 256, 256, 100, "tiled"), (13, 5, 20, 65, "tiled")])
+def test_bf16_routes_match_plain_versions(dev, b_dim, d, h, k, route):
+    dp, hp = tscan._check_sizes(k, d, h, bf16=True)
+    assert tscan.bf16_scan_plan(k, b_dim, dp, hp)["route"] == route
+    name = "launches_bf16" if route == "cluster" else "launches_bf16_tiled"
+    before = [getattr(f, name) for f in (tscan.bfvi_scan_fwd_cuda,
+                                         tscan.bfvi_scan_bwd_cuda)]
+    _check_bf16_against_plain(
+        *_inputs(dev, t_max=4, b_dim=b_dim, d=d, h=h, k=k), tight=True)
+    after = [getattr(f, name) for f in (tscan.bfvi_scan_fwd_cuda,
+                                        tscan.bfvi_scan_bwd_cuda)]
+    assert after == [before[0] + 1, before[1] + 2]
+
+
+def _rel_fro(got, exp):
+    return ((got - exp).norm() / (exp.norm() + 1e-30)).item()
+
+
+def _hold_bf16(direction, got, ctrl, exp):
+    """Each bf16 output of ``got`` within BF16_RFRO[direction] of ``exp``
+    (the bf16 plain version's) in relative Frobenius norm, and the float32
+    kernel's (``ctrl``) at least BF16_SEPARATION times farther."""
+    for i, (g, c, e) in enumerate(zip(got, ctrl, exp)):
+        err = _rel_fro(g, e)
+        assert err <= BF16_RFRO[direction], (direction, i, err)
+        assert _rel_fro(c, e) >= BF16_SEPARATION * max(err, 1e-7), (
+            direction, i, err, _rel_fro(c, e))
+
+
+def _check_bf16_against_plain(x, gtf, eps, cots, tight=False):
+    """The bf16 variants against the bf16 plain versions: the forward at
+    BF16_TOL, the backward (on its own ReLU masks, each flip within the
+    rounding bound) within BF16_GRAD_RTOL in relative Frobenius norm and
+    equal to a second run bit for bit. With ``tight``, every output also
+    within BF16_RFRO, with the float32 kernels as the control
+    (``_hold_bf16``)."""
+    d = x[0].shape[-1]
     got = tscan.bfvi_scan_fwd_cuda(*x, gtf, eps, MIN_STD, bf16=True)
     exp = tscan.bfvi_scan_fwd_ref(*x, gtf, eps, MIN_STD, bf16=True)
     for i, (g, e) in enumerate(zip(got, exp)):
         np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(),
                                    rtol=5e-2, atol=5e-2, err_msg=str(i))
+    if tight:
+        _hold_bf16("fwd", got, tscan.bfvi_scan_fwd_cuda(*x, gtf, eps,
+                                                        MIN_STD), exp)
     res = tuple(x) + (gtf, eps, exp[5], exp[0], exp[1])
     tscan.bfvi_scan_bwd_cuda.rows = rows = []
     try:
@@ -198,15 +264,60 @@ def test_bf16_kernels_match_plain_versions(dev, t_max, b_dim, d, h, k):
     for g, e, g2 in pairs:
         assert torch.equal(g, g2)
         assert ((g - e).norm() / e.norm()).item() <= 0.25
+    if tight:
+        ctrl = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD)
+        ctrl = list(ctrl[:4]) + [ctrl[4][n][kk] for n in tscan.GTF_LAYERS
+                                 for kk in ("w", "b")]
+        _hold_bf16("bwd", [g for g, _, _ in pairs], ctrl,
+                   [e for _, e, _ in pairs])
+
+
+def _bf16_rows(dev, n_rows, d, h, n_parts=3, seed=0):
+    """Rows as the bf16 backward writes them (bfloat16 images of float32
+    rows; xs >= 0 as after the ReLUs) and ``n_parts`` partials of the
+    float32 cotangents' sums."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    zs, xs, ys = (torch.randn((n_rows, w), generator=gen, device=dev)
+                  for w in (d, 2 * h + d, 2 * h + 4 * d))
+    parts = torch.stack([c.sum(0) for c in ys.chunk(n_parts)])
+    bf = lambda v: v.to(torch.bfloat16)  # noqa: E731
+    return bf(zs), bf(xs.abs()), bf(ys), parts
+
+
+# The bf16 weight-gradient kernel (TMA, wgmma) at the training step's
+# launches: Weizmann (T = 25, 100 columns: K = 25 and K = 1), VidTIMIT (T
+# = 80, 75 columns, K = 25), the spirals shapes (T = 100, 300 columns, D =
+# 5, H = 20 run as 16 and 32); and unaligned widths and row counts.
+@pytest.mark.parametrize("n_rows,d,h", [
+    (24 * 25 * 100, 256, 256), (24 * 100, 256, 256), (79 * 25 * 75, 256, 256),
+    (99 * 25 * 300, 5, 20), (1000, 7, 13), (333, 48, 40), (150, 464, 256),
+    (64, 768, 768)])
+def test_bf16_weight_gradient_kernel(dev, n_rows, d, h):
+    """Against ``gtf_wgrad_bf16_ref`` within 1e-5 in relative Frobenius norm
+    (weights: the same exact products in another f32 order; biases: the
+    same partials added in order), and two calls bit for bit."""
+    rows = _bf16_rows(dev, n_rows, d, h)
+    before = tscan.gtf_wgrad_bf16_cuda.launches
+    got = tscan.gtf_wgrad_bf16_cuda(*rows)
+    again = tscan.gtf_wgrad_bf16_cuda(*rows)
+    assert tscan.gtf_wgrad_bf16_cuda.launches == before + 2
+    exp = tscan.gtf_wgrad_bf16_ref(*rows)
+    for name in tscan.GTF_LAYERS:
+        for kk in ("w", "b"):
+            g, e = got[name][kk], exp[name][kk]
+            assert g.shape == e.shape
+            assert torch.equal(g, again[name][kk]), (name, kk)
+            assert ((g - e).norm() / e.norm()).item() <= 1e-5, (name, kk)
 
 
 @pytest.mark.parametrize("d,h,k", [(32, 24, 25), (256, 256, 25),
-                                   (5, 20, 1), (512, 512, 25)])
+                                   (5, 20, 1), (512, 512, 25),
+                                   (768, 768, 25), (32, 24, 100)])
 def test_bf16_recompute_equals_forward(dev, d, h, k):
     """The bf16 backward's recomputed transition (its xs rows: h1, hn,
-    z_nonlin) equals the forward kernel's own, bit for bit: one product
-    routine and one K-order for both, so no ReLU or gate can flip between
-    them."""
+    z_nonlin, in bfloat16) equals the forward kernel's own rounded alike,
+    bit for bit, on either route: one product routine and one K-order for
+    both, so no ReLU or gate can flip between them."""
     x, gtf, eps, cots = _inputs(dev, t_max=5, b_dim=9, d=d, h=h, k=k)
     tscan.bfvi_scan_fwd_cuda.rows = fwd_rows = []
     tscan.bfvi_scan_bwd_cuda.rows = bwd_rows = []
