@@ -168,7 +168,25 @@ imports nothing of JAX or of the JAX package. Phases:
    masks); (c) one ``bf16_gtf`` step at z = h = 768 (its K = 25 scan on the
    tiled route); the launches of each of the three steps' kernel runs by
    route, counted from 0 just before the run and read just after it,
-   every kernel of the slice launched.
+   every kernel of those steps launched;
+17. results export and evaluation across ranks: (a) ``apps.weizmann``'s
+   command line (``Trainer.main`` of a ``WeizmannTrainer`` that keeps each
+   set's results) with ``--load last.pth --evaluate --visualize`` on phase
+   8's fixture and checkpoint, the default save_args: the collect path's
+   launches (the forward scan once a batch, the cell at each of its
+   steps), then, where cv2 is installed, each set's AVI read back (a frame
+   for each step, 3 x 64 wide, the reconstruction's luma within
+   AVI_LUMA_TOL off the label rows: fourcc 0 stores YUV 4:2:0), and where
+   matplotlib is, each set's PDF; a renderer that is not installed is
+   printed as such and its output not checked; (b) the evaluation of phase
+   6's ten sequences on phase 8's checkpoint (the 200-particle filter and
+   MAP smoothing) on the device path and the collect path, with a batch of
+   25 columns (replicated: 2 does not divide it) and of 10 (split), and a
+   MAP evaluation (the forward scan alone) on the device path, on 2 and
+   2x2 gloo ranks sharing the card against this process: every
+   per-sequence and summed metric and summary within STEP_LOSS_RTOL
+   (accuracies: at most EVAL_LABEL_FLIPS decisions), every rank's launches
+   those of the single process.
 
 Any failed check raises, so the script exits non-zero before its last
 line. The line before the last is a JSON object with one entry per
@@ -193,8 +211,8 @@ counts the launches of the row's command-line run (phase 8, 10 or 12),
 and ``launches_by_phase`` those of the runs of phases 4 (the training
 steps), 6 (one evaluation), 7 (the timed bench-configuration steps), 8,
 10, 12, 13 (the Weizmann grid), 14 (summed over the ranks) and 16 (b)'s
-float32 step at K = 50; the last is
-``{"ok": true, "device": {...}}``.
+float32 step at K = 50, and 17 ((a), and (b) summed over the ranks); the
+last is ``{"ok": true, "device": {...}}``.
 """
 
 import argparse
@@ -1473,80 +1491,85 @@ def check_bench_step(scan, seed, targets, card, profile_path=None):
     return bench_launches, ms
 
 
-def run_cli(seed, card):
-    """Phase 8: the command line in a temporary working and save
-    directory. Returns (the training run's launches, its history)."""
+def cli_flags(tmp, seed):
+    """Phase 8's fixture, save directory and model flags in ``tmp``."""
+    return ["--data_dir", os.path.join(tmp, "data"), "--save_dir",
+            os.path.join(tmp, "save"), "--method", "bfvi", "--model_args",
+            "{bf16: true}", "--seed", str(seed)]
+
+
+def run_cli(seed, card, tmp):
+    """Phase 8: the command line with ``tmp`` as its working directory,
+    fixture and save directory (phase 17 evaluates its checkpoint).
+    Returns (the training run's launches, its history)."""
     from multimodal_dmm_tpu_torch.apps import weizmann
     from multimodal_dmm_tpu_torch.data.weizmann import gen_synthetic
     cwd = os.getcwd()
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        os.chdir(tmp)  # param_hist.tsv is written there
-        try:
-            data, save = os.path.join(tmp, "data"), os.path.join(tmp, "save")
-            t0 = time.perf_counter()
-            gen_synthetic(data)
-            log("  gen_synthetic: 90 sequences in %.1f s"
-                % (time.perf_counter() - t0))
-            flags = ["--data_dir", data, "--save_dir", save, "--method",
-                     "bfvi", "--model_args", "{bf16: true}", "--seed",
-                     str(seed)]
-            argv = flags + ["--epochs", str(CLI_EPOCHS), "--eval_freq", "1",
-                            "--save_freq", "1", "--train_args",
-                            "{ragged_mode_scans: true}"]
-            log("  main(%s)" % " ".join(argv[4:]))
-            wrappers = kernel_wrappers()
-            for fn in wrappers.values():
-                fn.launches = 0
-            t0 = time.perf_counter()
-            hist = weizmann.main(argv)
-            wall = time.perf_counter() - t0
-            launches = {n: fn.launches for n, fn in wrappers.items()}
-            names = sorted(os.listdir(save))
-            check(len(hist["epoch_loss"]) == CLI_EPOCHS
-                  and all(np.isfinite(hist["epoch_loss"])),
-                  "epoch losses %s" % hist["epoch_loss"])
-            check(all(np.isfinite(e["rec_loss"]) for e in hist["eval"]),
-                  "non-finite evaluation")
-            want = ["best.pth", "last.pth"] + ["epoch_%d.pth" % (e + 1)
-                                               for e in range(CLI_EPOCHS)]
-            check(sorted(want) == names, "checkpoints %s" % names)
-            n_bwd = launches["bfvi_scan_bwd"]
-            check(n_bwd > 0 and n_bwd % 3 == 0
-                  and launches["gtf_wgrad"] == n_bwd
-                  and launches["bfvi_scan_fwd"] == n_bwd + CLI_EPOCHS
-                  and launches["poe_sample_cell"] > 0,
-                  "command-line run launches %s: expected 3 of each scan "
-                  "kernel per step, one forward scan and the cell per "
-                  "evaluation" % launches)
-            log("  %d epochs of %d steps in %.1f s of command: losses %s, "
-                "seconds per epoch %s, evaluation seconds %s, eval rec_loss "
-                "%s [%s]" % (CLI_EPOCHS, n_bwd // 3 // CLI_EPOCHS, wall,
-                             ["%.1f" % v for v in hist["epoch_loss"]],
-                             ["%.2f" % v for v in hist["epoch_s"]],
-                             ["%.3f" % v for v in hist["eval_s"]],
-                             ["%.1f" % e["rec_loss"] for e in hist["eval"]],
-                             card))
-            log("  launches: %s; checkpoints %s" % (launches, names))
+    os.chdir(tmp)  # param_hist.tsv is written there
+    try:
+        data, save = os.path.join(tmp, "data"), os.path.join(tmp, "save")
+        t0 = time.perf_counter()
+        gen_synthetic(data)
+        log("  gen_synthetic: 90 sequences in %.1f s"
+            % (time.perf_counter() - t0))
+        flags = cli_flags(tmp, seed)
+        argv = flags + ["--epochs", str(CLI_EPOCHS), "--eval_freq", "1",
+                        "--save_freq", "1", "--train_args",
+                        "{ragged_mode_scans: true}"]
+        log("  main(%s)" % " ".join(argv[4:]))
+        wrappers = kernel_wrappers()
+        for fn in wrappers.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        hist = weizmann.main(argv)
+        wall = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in wrappers.items()}
+        names = sorted(os.listdir(save))
+        check(len(hist["epoch_loss"]) == CLI_EPOCHS
+              and all(np.isfinite(hist["epoch_loss"])),
+              "epoch losses %s" % hist["epoch_loss"])
+        check(all(np.isfinite(e["rec_loss"]) for e in hist["eval"]),
+              "non-finite evaluation")
+        want = ["best.pth", "last.pth"] + ["epoch_%d.pth" % (e + 1)
+                                           for e in range(CLI_EPOCHS)]
+        check(sorted(want) == names, "checkpoints %s" % names)
+        n_bwd = launches["bfvi_scan_bwd"]
+        check(n_bwd > 0 and n_bwd % 3 == 0
+              and launches["gtf_wgrad"] == n_bwd
+              and launches["bfvi_scan_fwd"] == n_bwd + CLI_EPOCHS
+              and launches["poe_sample_cell"] > 0,
+              "command-line run launches %s: expected 3 of each scan "
+              "kernel per step, one forward scan and the cell per "
+              "evaluation" % launches)
+        log("  %d epochs of %d steps in %.1f s of command: losses %s, "
+            "seconds per epoch %s, evaluation seconds %s, eval rec_loss "
+            "%s [%s]" % (CLI_EPOCHS, n_bwd // 3 // CLI_EPOCHS, wall,
+                         ["%.1f" % v for v in hist["epoch_loss"]],
+                         ["%.2f" % v for v in hist["epoch_s"]],
+                         ["%.3f" % v for v in hist["eval_s"]],
+                         ["%.1f" % e["rec_loss"] for e in hist["eval"]],
+                         card))
+        log("  launches: %s; checkpoints %s" % (launches, names))
 
-            torch.backends.cudnn.deterministic = True
-            evals = [weizmann.main(flags + [
-                "--load", os.path.join(save, "last.pth"), "--evaluate",
-                "--save_args", "{skip: true}"]) for _ in range(2)]
-            torch.backends.cudnn.deterministic = False
-            for i, name in enumerate(("train", "test")):
-                a, b = dict(evals[0][i]), dict(evals[1][i])
-                check(a.keys() == b.keys() and all(
-                    a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k]))
-                    for k in a), "--load --evaluate on the %s set: two runs "
-                    "differ: %s vs %s" % (name, a, b))
-                check(np.isfinite(a["rec_loss"]) and 0 <= a["ssim"] <= 1,
-                      "--load --evaluate %s metrics %s" % (name, a))
-                log("  --load last.pth --evaluate, %s set, twice: identical;"
-                    " rec_loss %.2f, kld %.2f, mse %.4f, ssim %.4f"
-                    % (name, a["rec_loss"], a["kld_loss"], a["mse"],
-                       a["ssim"]))
-        finally:
-            os.chdir(cwd)
+        torch.backends.cudnn.deterministic = True
+        evals = [weizmann.main(flags + [
+            "--load", os.path.join(save, "last.pth"), "--evaluate",
+            "--save_args", "{skip: true}"]) for _ in range(2)]
+        torch.backends.cudnn.deterministic = False
+        for i, name in enumerate(("train", "test")):
+            a, b = dict(evals[0][i]), dict(evals[1][i])
+            check(a.keys() == b.keys() and all(
+                a[k] == b[k] or (np.isnan(a[k]) and np.isnan(b[k]))
+                for k in a), "--load --evaluate on the %s set: two runs "
+                "differ: %s vs %s" % (name, a, b))
+            check(np.isfinite(a["rec_loss"]) and 0 <= a["ssim"] <= 1,
+                  "--load --evaluate %s metrics %s" % (name, a))
+            log("  --load last.pth --evaluate, %s set, twice: identical;"
+                " rec_loss %.2f, kld %.2f, mse %.4f, ssim %.4f"
+                % (name, a["rec_loss"], a["kld_loss"], a["mse"],
+                   a["ssim"]))
+    finally:
+        os.chdir(cwd)
     return launches, hist
 
 
@@ -2938,6 +2961,283 @@ def check_repaired(scan, seed, dev, gtf, card):
     return recs, runs
 
 
+# -- phase 17: results export and evaluation across ranks ------------------
+
+# Rows of a frame that the export's labels cannot reach (text at y = 10
+# and y = 60, scale 0.4), where the luma is compared.
+AVI_ROWS = slice(16, 48)
+# The mean luma levels that a frame's round trip through the AVI moves:
+# fourcc 0 stores raw YUV 4:2:0 through FFmpeg (about 2 levels; another
+# frame lies tens of levels away).
+AVI_LUMA_TOL = 4.0
+# Phase 17 (b): (data path, eval batch size, --method) of each
+# evaluation; 25 columns (10 sequences and 15 ghost columns) the data axis
+# of 2 does not divide, so every rank computes the whole batch; 10 it
+# divides. "bfvi" filters with 200 particles (the cell), None is MAP (the
+# forward scan alone).
+MESH_EVALS = (("device", 25, "bfvi"), ("device", 10, "bfvi"),
+              ("host", 25, "bfvi"), ("host", 10, "bfvi"),
+              ("device", 10, None))
+MESH_EVAL_TIMEOUT = 600
+
+
+def renderers():
+    """{renderer: whether it is installed} (``find_spec``, nothing
+    imported), each missing one printed on a line of its own."""
+    import importlib.util
+    found = {name: importlib.util.find_spec(name) is not None
+             for name in ("matplotlib", "cv2")}
+    for name, what in (("matplotlib", "visualize"), ("cv2",
+                                                     "save_results")):
+        if not found[name]:
+            log("%s: %s not installed on this host" % (what, name))
+    return found
+
+
+def read_avi(path):
+    """The frames of the AVI at ``path`` (BGR uint8)."""
+    import cv2
+    video = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, frame = video.read()
+        if not ok:
+            break
+        frames.append(frame)
+    video.release()
+    return frames
+
+
+def check_avi(path, results):
+    """The AVI of one eval set: a frame for each step of each sequence,
+    3 x 64 wide, each frame's third part the reconstruction after the
+    export's uint8 conversion, compared in luma off the label rows
+    (``AVI_LUMA_TOL``). Returns the largest mean error."""
+    import cv2
+    frames = read_avi(path)
+    recon = np.concatenate([v[:, 0] for v in results["recon"]["video"]])
+    check(len(frames) == len(recon), "%s: %d frames for %d steps"
+          % (path, len(frames), len(recon)))
+    worst = 0.0
+    for i, (frame, rec) in enumerate(zip(frames, recon)):
+        check(frame.shape == (64, 3 * 64, 3), "%s frame %d: shape %s"
+              % (path, i, frame.shape))
+        exp = cv2.cvtColor((np.clip(rec, 0, 1) * 255).astype("uint8")
+                           .transpose(1, 2, 0), cv2.COLOR_RGB2BGR)
+        luma = [cv2.cvtColor(x, cv2.COLOR_BGR2GRAY)[AVI_ROWS].astype(float)
+                for x in (frame[:, 128:], exp)]
+        err = float(np.abs(luma[0] - luma[1]).mean())
+        check(err <= AVI_LUMA_TOL, "%s frame %d: the reconstruction's luma "
+              "is %.2f levels away (tolerance %g)" % (path, i, err,
+                                                      AVI_LUMA_TOL))
+        worst = max(worst, err)
+    return worst
+
+
+def eval_batches_tmax(results, batch_size):
+    """The longest sequence of each eval batch of ``batch_size`` (the
+    loader's batching, in input order) from a collect path's results."""
+    lengths = [len(v) for v in results["targets"]["video"]]
+    return [max(lengths[i:i + batch_size])
+            for i in range(0, len(lengths), batch_size)]
+
+
+def check_results_export(card, save, flags):
+    """Phase 17 (a): ``apps.weizmann``'s command line with ``--load
+    last.pth --evaluate --visualize`` on phase 8's fixture and checkpoint,
+    with the default save_args, through a ``WeizmannTrainer`` that keeps
+    each set's results: the collect path's launches (a forward scan a
+    batch and the cell at each step of it), then what the installed
+    renderers wrote. Returns the launches."""
+    from multimodal_dmm_tpu_torch.apps import weizmann
+    found = renderers()
+
+    class Kept(weizmann.WeizmannTrainer):
+        """Keeps each set's results; exports them where cv2 is."""
+        results = {}
+
+        def save_results(self, results, args):
+            Kept.results[args.eval_set] = results
+            if found["cv2"]:
+                super().save_results(results, args)
+
+    argv = flags + ["--load", os.path.join(save, "last.pth"), "--evaluate"]
+    if found["matplotlib"]:
+        argv.append("--visualize")
+    wrappers = all_wrappers()
+    for w in wrappers.values():
+        w.launches = 0
+    t0 = time.perf_counter()
+    metrics = Kept.main(argv)
+    secs = time.perf_counter() - t0
+    launches = {n: w.launches for n, w in wrappers.items()}
+    check(sorted(Kept.results) == ["test", "train"],
+          "results of %s" % sorted(Kept.results))
+    t_maxes = []
+    for name, m in zip(("train", "test"), metrics):
+        check(np.isfinite(m["rec_loss"]) and 0 <= m["ssim"] <= 1,
+              "(a) %s metrics %s" % (name, dict(m)))
+        t_maxes += eval_batches_tmax(Kept.results[name], 25)
+    want = {n: 0 for n in wrappers}
+    want["bfvi_scan_fwd"] = len(t_maxes)
+    want["poe_sample_cell"] = sum(t_maxes)
+    check(launches == want, "(a) launches %s, expected the forward scan "
+          "once a batch and the cell at each of its steps: %s"
+          % (launches, want))
+    log("  (a) --load last.pth --evaluate%s: %.1f s of command, %d eval "
+        "batches, launches %s [%s]"
+        % (" --visualize" if found["matplotlib"] else "", secs,
+           len(t_maxes), {n: v for n, v in launches.items() if v}, card))
+    if found["cv2"]:
+        for name in ("train", "test"):
+            path = os.path.join(save, name + ".avi")
+            worst = check_avi(path, Kept.results[name])
+            log("  (a) %s.avi: %d frames, 192 x 64, reconstruction within "
+                "%.2f luma levels (mean, worst frame) [cv2 %s]"
+                % (name, sum(len(v) for v in Kept.results[name]["targets"]
+                             ["video"]), worst, __import__("cv2")
+                   .__version__))
+    if found["matplotlib"]:
+        for name in ("train", "test"):
+            path = os.path.join(save, name + ".pdf")
+            with open(path, "rb") as f:
+                check(f.read(5) == b"%PDF-", "%s is not a PDF" % path)
+            log("  (a) %s.pdf written (%d bytes)" % (name,
+                                                     os.path.getsize(path)))
+    return launches
+
+
+def run_mesh_evals(trainer, seed):
+    """The evaluations of ``MESH_EVALS`` (phase 6's ten sequences, the
+    200-particle filter or MAP, then MAP smoothing), each with the
+    generator and numpy seeded from ``seed``, its launches counted from 0
+    just before it and read just after. Returns, for each, its
+    per-sequence and summed metrics (as handed to ``summarize_metrics``),
+    its summary and launches."""
+    from multimodal_dmm_tpu_torch.apps import weizmann
+    from multimodal_dmm_tpu_torch.training.loader import BatchLoader
+    items = synthetic_eval_set(seed)
+    recorded = []
+    summarize = trainer.summarize_metrics
+
+    def recording(metrics, n_timesteps):
+        recorded.append({k: np.asarray(v, np.float64)
+                         for k, v in metrics.items()})
+        return summarize(metrics, n_timesteps)
+    trainer.summarize_metrics = recording
+    wrappers = all_wrappers()
+    out = []
+    for path, batch, method in MESH_EVALS:
+        args = weizmann.eval_namespace(method)
+        for w in wrappers.values():
+            w.launches = 0
+        np.random.seed(seed)
+        trainer.gen.manual_seed(seed)
+        _, summary = trainer.evaluate(BatchLoader(items, batch), args,
+                                      collect_results=path == "host")
+        out.append({"metrics": recorded[-1],
+                    "summary": {k: float(v) for k, v in summary.items()},
+                    "launches": {n: w.launches for n, w in wrappers.items()}})
+    return out
+
+
+def mesh_eval_trainer(seed, dev, ckpt_path):
+    """Phase 8's model (bf16 codecs) on ``dev`` with its checkpoint."""
+    from multimodal_dmm_tpu_torch.apps import weizmann
+    from multimodal_dmm_tpu_torch.training import checkpoint
+    trainer = weizmann.make_trainer(seed=seed, device=dev,
+                                    model_args={"bf16": True})
+    trainer.restore(checkpoint.load_checkpoint(ckpt_path))
+    return trainer
+
+
+def mesh_eval_rank(mesh_spec, seed, ckpt_path):
+    """One rank of phase 17 (b) (a process of ``parallel.launch`` on the
+    card): the checkpoint's trainer as a rank of ``mesh_spec``, then
+    ``run_mesh_evals``."""
+    from multimodal_dmm_tpu_torch.parallel import (make_mesh, make_mesh_2d,
+                                                   parse_mesh)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = torch.device("cuda", torch.cuda.current_device())
+    trainer = mesh_eval_trainer(seed, dev, ckpt_path)
+    n_data, n_model = parse_mesh(mesh_spec)
+    trainer.set_mesh(make_mesh(n_data, dev) if n_model == 1 else
+                     make_mesh_2d(n_data, n_model, dev,
+                                  timeout=MESH_EVAL_TIMEOUT))
+    return run_mesh_evals(trainer, seed)
+
+
+def check_mesh_eval(seed, dev, card, ckpt_path):
+    """Phase 17 (b): ``run_mesh_evals`` in this process and on the gloo
+    ranks of ``--mesh 2`` and ``2x2`` sharing the card: each rank's
+    per-sequence and summed metrics and summaries within STEP_LOSS_RTOL of
+    the single process's (accuracies: at most EVAL_LABEL_FLIPS decisions),
+    and every rank launching the forward scan and the cell in every
+    evaluation. Returns the launches summed over the ranks."""
+    from multimodal_dmm_tpu_torch.parallel import launch, parse_mesh
+    torch.backends.cudnn.deterministic = True
+    t0 = time.perf_counter()
+    ref = run_mesh_evals(mesh_eval_trainer(seed, dev, ckpt_path), seed)
+    log("  single process: %d evaluations in %.1f s" % (len(ref),
+                                                        time.perf_counter()
+                                                        - t0))
+    lengths = [d["length"] for d in synthetic_eval_set(seed)]
+    label_atol = EVAL_LABEL_FLIPS / min(lengths)
+    total = {}
+    for spec in ("2", "2x2"):
+        n_data, n_model = parse_mesh(spec)
+        t0 = time.perf_counter()
+        outs = launch(mesh_eval_rank, ["cuda:0"] * (n_data * n_model),
+                      "gloo", args=(spec, seed, ckpt_path),
+                      timeout=MESH_EVAL_TIMEOUT)
+        secs = time.perf_counter() - t0
+        worst = 0.0
+        for r, out in enumerate(outs):
+            for (path, batch, method), got, exp in zip(MESH_EVALS, out, ref):
+                what = "--mesh %s rank %d, %s path, batch %d, %s" % (
+                    spec, r, path, batch, method or "MAP")
+                for n in ("bfvi_scan_fwd", "poe_sample_cell")[
+                        :2 if method else 1]:
+                    check(got["launches"][n] > 0, "%s: %s launched no time"
+                          % (what, n))
+                check(got["launches"] == exp["launches"],
+                      "%s: launches %s vs the single process's %s"
+                      % (what, got["launches"], exp["launches"]))
+                for key, e in exp["metrics"].items():
+                    g = got["metrics"][key]
+                    label = key in ("action", "person")
+                    diff = np.abs(g - e)
+                    if label:
+                        ok = diff.max() <= label_atol
+                    else:
+                        ok = np.all(diff <= STEP_LOSS_RTOL * np.abs(e))
+                        worst = max(worst, float(np.max(
+                            diff / np.maximum(np.abs(e), 1e-30))))
+                    check(ok, "%s: %s %s vs %s" % (what, key, g, e))
+                for key, e in exp["summary"].items():
+                    g = got["summary"][key]
+                    if np.isnan(e) and np.isnan(g):
+                        continue  # no mask modality
+                    tol = (label_atol if key.split("_")[0] in
+                           ("action", "person") else STEP_LOSS_RTOL * abs(e))
+                    check(abs(g - e) <= tol, "%s: summary %s %r vs %r"
+                          % (what, key, g, e))
+            for got in out:
+                for n, v in got["launches"].items():
+                    total[n] = total.get(n, 0) + v
+        log("  (b) --mesh %s, %d gloo ranks on cuda:0: %d evaluations each "
+            "(%s) within %.2e relative of the single process on every "
+            "rank; %.1f s with the processes' start; rank 0's launches %s "
+            "[%s]" % (spec, len(outs), len(MESH_EVALS),
+                      ", ".join("%s/%d/%s" % e for e in MESH_EVALS), worst,
+                      secs, [{n: v for n, v in o["launches"].items() if v}
+                             for o in outs[0]], card))
+    torch.backends.cudnn.deterministic = False
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3090,7 +3390,10 @@ def main():
     # -- phase 8: the command line -------------------------------------------
     log_phase("phase 8: the Weizmann command line, bf16 ragged, %d epochs "
               "[%s]" % (CLI_EPOCHS, card))
-    cli_launches, _ = run_cli(args.seed, card)
+    # Phase 17 evaluates this run's checkpoint: the directory lasts until
+    # then.
+    cli_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    cli_launches, _ = run_cli(args.seed, card, cli_dir.name)
 
     profile = os.path.abspath(args.profile) if args.profile else None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3148,6 +3451,26 @@ def main():
     repair_rec, repair_launches = check_repaired(scan, args.seed, dev, gtf,
                                                  card)
 
+    # -- phase 17: results export and evaluation across ranks -------------
+    log_phase("phase 17: results export from the command line on phase 8's "
+              "checkpoint; evaluation on 2 and 2x2 gloo ranks sharing the "
+              "card [%s]" % card)
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    os.chdir(cli_dir.name)  # param_hist.tsv is written there
+    try:
+        export_launches = check_results_export(
+            card, os.path.join(cli_dir.name, "save"),
+            cli_flags(cli_dir.name, args.seed))
+    finally:
+        os.chdir(cwd)
+    mesh_launches = check_mesh_eval(
+        args.seed, dev, card, os.path.join(cli_dir.name, "save", "last.pth"))
+    cli_dir.cleanup()
+    p17 = {n: export_launches[n] + mesh_launches[n] for n in export_launches}
+    log("  phase 17: %.1f s; launches %s" % (
+        time.perf_counter() - t0, {n: v for n, v in p17.items() if v}))
+
     # -- summary --------------------------------------------------------------
     log(card)
     rec["poe_sample_cell"] = cell_rec
@@ -3156,7 +3479,7 @@ def main():
     by_phase = {"4": launches, "6": eval_launches, "7": bench_launches,
                 "8": cli_launches, "10": sp_launches, "12": vt_launches,
                 "13": exp_launches, "14": dp_launches,
-                "16b": repair_launches["16b_f32"]}
+                "16b": repair_launches["16b_f32"], "17": p17}
     kernels = []
     for rows, suffix, main_path in ((rec, "", cli_launches),
                                     (sp_rec, " (spirals)", sp_launches),
@@ -3187,6 +3510,7 @@ def main():
     # launch), launches of phase 16 (c)'s step.
     bf16_launches["16b"] = repair_launches["16b_bf16"]
     bf16_launches["16c"] = repair_launches["16c"]
+    bf16_launches["17"] = p17
     wide = repair_rec[(25, WIDE_ZH, True)]
     for name, f32_name, r, src in (
             [(n, f, bf16_rec[f], WGRAD_BF16_SRC if f == "gtf_wgrad"

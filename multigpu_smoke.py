@@ -15,9 +15,18 @@ rank r on cuda:r under NCCL, as the command line runs on such a host):
 - MAP training (one particle, no prior matching, no burst deletion), one
   epoch: each mesh's epoch loss within LOSS_RTOL of the single process's;
 - the app's default (sampled) training, ``--epochs`` epochs with an
-  evaluation after each: the first epoch's loss within LOSS_RTOL of the
+  evaluation after each (on every rank, each on its columns of the
+  evaluation batch): the first epoch's loss within LOSS_RTOL of the
   single process's (the ranks draw the single process's noise), every
-  epoch loss and metric finite, and the checkpoints written.
+  epoch loss and metric finite, and the checkpoints written;
+- ``--load last.pth --evaluate --eval_sets test`` on the single process's
+  sampled checkpoint (the collect path, its AVI written by rank 0) in one
+  process and under ``--mesh 4`` and ``2x2``: every metric within
+  LOSS_RTOL of the single process's (the accuracies within
+  LABEL_ATOL);
+- a one-epoch trial through ``experiments.tune.run`` under ``mesh: "4"``
+  (in this process): TERMINATED, its two ``progress.csv`` rows finite, the
+  last ``done``.
 
 It prints each run's seconds per epoch and per evaluation (host clock,
 rank 0's), the cards' names and power limits, one JSON line with those
@@ -25,16 +34,22 @@ numbers, and last ``{"ok": true, ...}``. Any failed check raises.
 """
 
 import argparse
+import csv
 import json
 import os
 import subprocess
 import sys
 import tempfile
+import time
 
 import numpy as np
 import torch
 
 LOSS_RTOL = 1e-4    # STEP_LOSS_RTOL of chip_smoke.py
+# An accuracy summary may move by two flipped label decisions among the
+# test set's steps (chip_smoke.py's EVAL_LABEL_FLIPS; 10 sequences of 30
+# steps or more).
+LABEL_ATOL = 2.0 / 300
 MAP_ARGS = "{sample: false, match_mult: 0.0, train_particles: 1}"
 MESHES = ("4", "2x2")
 
@@ -80,6 +95,47 @@ def run(weizmann, data, save, seed, mesh, epochs, map_mode):
     return hist
 
 
+def evaluate(weizmann, data, save, seed, mesh):
+    """``--load last.pth --evaluate --eval_sets test`` of ``save``'s
+    checkpoint under ``mesh`` (the results exported to ``save``/test.avi).
+    Returns (the test set's metrics, the seconds of the command)."""
+    argv = ["--data_dir", data, "--save_dir", save, "--method", "bfvi",
+            "--seed", str(seed), "--batch_size", "24", "--mesh", mesh,
+            "--load", os.path.join(save, "last.pth"), "--evaluate",
+            "--eval_sets", "test"]
+    t0 = time.perf_counter()
+    _, metrics = weizmann.main(argv)
+    secs = time.perf_counter() - t0
+    check(np.isfinite(metrics["rec_loss"]) and os.path.exists(
+        os.path.join(save, "test.avi")), "%s: --evaluate metrics %s"
+        % (mesh, metrics))
+    log("  --mesh %s --evaluate: %.1f s of command, rec_loss %.6g, ssim "
+        "%.6g" % (mesh, secs, metrics["rec_loss"], metrics["ssim"]))
+    return dict(metrics), secs
+
+
+def trial(weizmann, data, root, seed):
+    """A one-epoch Weizmann trial through ``tune.run`` under ``mesh:
+    "4"``. Returns its progress.csv rows and seconds."""
+    from multimodal_dmm_tpu_torch.experiments import tune
+    config = {"data_dir": data, "method": "bfvi", "seed": seed,
+              "batch_size": 24, "epochs": 1, "eval_freq": 1,
+              "save_freq": 1, "mesh": "4"}
+    t0 = time.perf_counter()
+    ck = tune.run(weizmann.WeizmannTrainer.tune, "mesh4", config,
+                  local_dir=root)[0]
+    secs = time.perf_counter() - t0
+    with open(os.path.join(ck["logdir"], "progress.csv")) as f:
+        rows = list(csv.DictReader(f))
+    check(ck["status"] == "TERMINATED" and len(rows) == 2
+          and [r["done"] for r in rows] == ["False", "True"]
+          and all(np.isfinite(float(r["mean_loss"])) for r in rows),
+          "trial under mesh 4: %s, rows %s" % (ck["status"], rows))
+    log("  trial under mesh 4: %.1f s, mean_loss %s" % (
+        secs, [r["mean_loss"] for r in rows]))
+    return rows, secs
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -112,8 +168,27 @@ def main():
                     save = os.path.join(tmp, key.replace(" ", "_"))
                     results[key] = run(weizmann, data, save, args.seed, mesh,
                                        epochs, map_mode)
+            evals = {mesh: evaluate(weizmann, data,
+                                    os.path.join(tmp, "1_sampled"),
+                                    args.seed, mesh)
+                     for mesh in ("1",) + MESHES}
+            rows, trial_s = trial(weizmann, data, os.path.join(tmp, "trials"),
+                                  args.seed)
         finally:
             os.chdir(cwd)
+    for mesh in MESHES:
+        got, exp = evals[mesh][0], evals["1"][0]
+        for key in sorted(exp):
+            g, e = got[key], exp[key]
+            if np.isnan(e) and np.isnan(g):
+                continue  # no mask modality
+            tol = (LABEL_ATOL if key.split("_")[0] in ("action", "person")
+                   else LOSS_RTOL * abs(e))
+            check(abs(g - e) <= tol, "--mesh %s --evaluate: %s %r vs %r in "
+                  "one process" % (mesh, key, g, e))
+        log("  --mesh %s --evaluate: every metric within tolerance of one "
+            "process (rec_loss rel %.2e)" % (mesh, abs(
+                got["rec_loss"] - exp["rec_loss"]) / abs(exp["rec_loss"])))
     for mode in ("map", "sampled"):
         single = results["1 " + mode]["epoch_loss"]
         for mesh in MESHES:
@@ -125,9 +200,14 @@ def main():
             check(abs(got[0] - single[0]) <= LOSS_RTOL * abs(single[0]),
                   "--mesh %s: %s epoch loss %r vs %r" % (mesh, mode, got[0],
                                                          single[0]))
-    print(json.dumps({key: {"epoch_loss": h["epoch_loss"],
-                            "epoch_s": h["epoch_s"], "eval_s": h["eval_s"]}
-                      for key, h in results.items()}))
+    summary = {key: {"epoch_loss": h["epoch_loss"], "epoch_s": h["epoch_s"],
+                     "eval_s": h["eval_s"]} for key, h in results.items()}
+    for mesh, (metrics, secs) in evals.items():
+        summary["%s evaluate" % mesh] = {"command_s": secs,
+                                         "rec_loss": metrics["rec_loss"]}
+    summary["4 trial"] = {"command_s": trial_s, "mean_loss": [
+        float(r["mean_loss"]) for r in rows]}
+    print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

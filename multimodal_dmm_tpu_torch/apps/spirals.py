@@ -12,13 +12,15 @@ squared error of the reconstructed (x, y).
 
 runs on the GPU (``--device cpu`` for the CPU); ``--method b-mask``
 (``f-mask``, ``b-skip``, ``f-skip``) trains a DKS baseline and ``--model
-vrnn`` the VRNN; ``--load S/best.pth --evaluate`` evaluates a checkpoint.
-Visualization comes in a later slice.
+vrnn`` the VRNN; ``--load S/best.pth --evaluate`` evaluates a checkpoint
+(spirals saves no results) and ``--visualize`` draws the best and worst
+four fits to ``S/<set>.pdf`` (matplotlib).
 """
 
 import copy
 import os
 
+import numpy as np
 import torch
 
 from ..data.spirals import SpiralsDataset
@@ -135,6 +137,56 @@ class SpiralsTrainer(Trainer):
                    summary['kld_loss'], summary['rec_loss'],
                    summary['mse'], summary['mse_std']))
         return summary
+
+    def visualize(self, results, metric, args):
+        """The best four and the worst four fits by ``metric``: the true
+        spiral, the observed and the reconstructed points and the 95 %
+        ellipses of the reconstruction, written headless (Agg) to
+        ``save_dir/<eval set>.pdf`` as the JAX app writes them (nothing
+        without an eval set)."""
+        import matplotlib
+        matplotlib.use('Agg')
+        import matplotlib.pyplot as plt
+        from matplotlib.collections import EllipseCollection
+
+        reference = results['targets']
+        observed = results['inputs']
+        predicted = results['recon']
+
+        sel_idx = np.concatenate((np.argsort(metric)[:4],
+                                  np.argsort(metric)[-4:][::-1]))
+        fig, axes = plt.subplots(4, 2, figsize=(4, 8),
+                                 subplot_kw={'aspect': 'equal'})
+        for i, idx in enumerate(sel_idx):
+            axis = axes[(i % 4), (i // 4)]
+            true = reference['metadata'][idx][:, 0:2]
+            data = (reference['spiral-x'][idx], reference['spiral-y'][idx])
+            obsv = (observed['spiral-x'][idx], observed['spiral-y'][idx])
+            pred = (predicted['spiral-x'][idx][:, 0],
+                    predicted['spiral-y'][idx][:, 0])
+            rng_ = (predicted['spiral-x'][idx][:, 1],
+                    predicted['spiral-y'][idx][:, 1])
+            ec = EllipseCollection(
+                1.96 * rng_[0], 1.96 * rng_[1], (0,), units='x',
+                facecolors=('c',), alpha=0.25,
+                offsets=np.column_stack(pred), transOffset=axis.transData)
+            axis.add_collection(ec)
+            axis.plot(true[:, 0], true[:, 1], 'b-', linewidth=1.5)
+            if (np.isnan(obsv[0]) != np.isnan(obsv[1])).any():
+                axis.plot(obsv[0], data[1], '<', markersize=2,
+                          color='#fe46a5')
+                axis.plot(data[0], obsv[1], 'v', markersize=2,
+                          color='#fec615')
+            axis.plot(obsv[0], obsv[1], 'bo', markersize=3)
+            axis.plot(pred[0], pred[1], '-', linewidth=1.5, color='#04d8b2')
+            axis.set_xlim(-4, 4)
+            axis.set_ylim(-4, 4)
+            axis.set_title("Metric = {:0.3f}".format(metric[idx]))
+            axis.set_xlabel("Spiral {:03d}".format(idx))
+        plt.tight_layout()
+        if getattr(args, 'eval_set', None) is not None:
+            plt.savefig(os.path.join(args.save_dir, args.eval_set + '.pdf'))
+        plt.close(fig)
 
     def save_results(self, results, args):
         """Nothing to save (the JAX app saves nothing either)."""

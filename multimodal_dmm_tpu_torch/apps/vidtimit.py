@@ -12,11 +12,14 @@ video MSE and SSIM and audio MSE over time.
         --save_dir S --epochs E --method bfvi
 
 runs on the GPU (``--device cpu`` for the CPU); ``--load S/last.pth
---evaluate --save_args '{skip: true}'`` evaluates a checkpoint. The DKS
+--evaluate`` evaluates a checkpoint and writes each eval set's
+reconstructions as ``S/<set>.avi`` and ``S/<set>.wav`` (``save_results``:
+cv2, and the audio through the inverse STFT and ``scipy.io.wavfile``;
+``--save_args '{skip: true}'``: metrics only), and ``--visualize`` its
+storyboards and spectrograms as ``S/<set>.pdf`` (matplotlib). The DKS
 baselines: ``--method b-mask`` (``f-mask``, ``b-skip``, ``f-skip``), over
 the conv encoders' features. ``data.vidtimit.gen_synthetic(D)`` writes an
-offline fixture; the corpus is not downloaded here. Visualization and
-AVI/WAV export come in a later slice.
+offline fixture; the corpus is not downloaded here.
 """
 
 import copy
@@ -170,6 +173,155 @@ class VidTIMITTrainer(Trainer):
         print("\tAudio\tMSE: {:2.3f} +/- {:2.3f}".format(
             summary["a_mse"], summary["a_mse_std"]))
         return summary
+
+    def visualize(self, results, metric, args):
+        """Storyboards of the best and the worst sequence by ``metric``
+        (original, observed and reconstructed rows of eight video frames)
+        beside their magnitude spectrograms, written headless (Agg) to
+        ``save_dir/<eval set>.pdf`` (``visualize.pdf`` without an eval
+        set) as the JAX app writes them."""
+        import matplotlib
+        matplotlib.use('Agg')
+        import matplotlib.pyplot as plt
+
+        reference = results['targets']
+        observed = results['inputs']
+        predicted = results['recon']
+
+        sel_idx = np.concatenate((np.argsort(metric)[-1:][::-1],
+                                  np.argsort(metric)[:1]))
+        fig, axes = plt.subplots(nrows=3 * len(sel_idx), ncols=2,
+                                 figsize=(12, 4 * len(sel_idx) + 0.5))
+
+        def stitch(video, times):
+            nc = video.shape[1]
+            board = [np.hstack([video[t].transpose(1, 2, 0),
+                                np.ones((64, 1, nc))]) for t in times]
+            return np.squeeze(np.hstack(board))
+
+        def plot_board(axis, board, y_label):
+            axis.set_xticks([])
+            axis.set_yticks([])
+            if board.ndim == 2:
+                axis.imshow(board, cmap='gray')
+            else:
+                axis.imshow(board)
+            axis.set_ylabel(y_label)
+
+        def plot_spectrogram(axis, audio, y_label):
+            audio = audio[:, :audio.shape[1] // 2]
+            spec = audio[:, 2, :].T  # the central window of the 5-stack
+            axis.imshow(spec, aspect='auto', cmap='gray')
+            axis.set_yticks([0, spec.shape[0] // 2, spec.shape[0] - 1])
+            axis.set_ylabel(y_label)
+            axis.tick_params(length=0)
+
+        for i, idx in enumerate(sel_idx):
+            true = reference['video'][idx]
+            obsv = observed['video'][idx]
+            pred = predicted['video'][idx][:, 0]
+            times = np.linspace(0, len(true) - 1, 8, dtype=int)
+            true_b = stitch(true, times)
+            obsv_b = stitch(obsv, times)
+            pred_b = stitch(np.clip(pred, 0, 1), times)
+            obsv_b = np.where(np.isnan(obsv_b), 1.0, obsv_b)
+            plot_board(axes[3 * i, 0], true_b, "Original")
+            plot_board(axes[3 * i + 1, 0], obsv_b, "Observed")
+            plot_board(axes[3 * i + 2, 0], pred_b, "Reconstructed")
+            axes[3 * i, 0].set_title('Metric: {:0.3f}'.format(metric[idx]),
+                                     fontdict={'fontsize': 10}, loc='right')
+
+            t_aud = reference['audio'][idx]
+            o_aud = np.array(observed['audio'][idx], copy=True)
+            p_aud = predicted['audio'][idx][:, 0]
+            o_aud[np.isnan(o_aud)] = 1.0
+            plot_spectrogram(axes[3 * i, 1], t_aud, "Original")
+            plot_spectrogram(axes[3 * i + 1, 1], o_aud, "Observed")
+            plot_spectrogram(axes[3 * i + 2, 1], p_aud, "Reconstructed")
+
+        for ax in axes.ravel():
+            for spine in ax.spines.values():
+                spine.set_visible(False)
+        plt.tight_layout()
+        name = getattr(args, 'eval_set', None) or 'visualize'
+        plt.savefig(os.path.join(args.save_dir, name + '.pdf'))
+        plt.close(fig)
+
+    def save_results(self, results, args):
+        """The reconstructions as AVI (cv2 ``VideoWriter``, fourcc 0:
+        uncompressed) and WAV (the spectrograms through the inverse STFT,
+        ``data.vidtimit.spec_to_wav``, written by ``scipy.io.wavfile``), as
+        the JAX app writes them. ``--save_args``: ``one_file`` (default
+        true: every sequence in ``filename``.avi/.wav, default the eval
+        set's name; else ``{subject}_{sentence}`` each) and
+        ``comparison`` (default true: original, observed and
+        reconstructed side by side, and their audio one after the
+        other)."""
+        import cv2 as cv
+        import scipy.io.wavfile
+        print("Saving results...")
+        seq_ids = results['seq_ids']
+        reference = results['targets']
+        observed = results['inputs']
+        predicted = results['recon']
+
+        save_args = {'one_file': True,
+                     'filename': str(args.eval_set),
+                     'comparison': True}
+        save_args.update(args.save_args)
+
+        shape = reference['video'][0].shape[2:4]
+        if save_args['comparison']:
+            shape = (shape[0] * 3, shape[1])
+        fps = vidtimit.fps
+        audio_rate = vidtimit.audio_rate
+
+        if save_args['one_file']:
+            path = os.path.join(args.save_dir, save_args['filename'])
+            vwriter = cv.VideoWriter(path + '.avi', 0, fps, shape)
+            wav_all = np.empty((0,), float)
+
+        def preprocess(frame):
+            return cv.cvtColor(
+                (np.clip(np.nan_to_num(frame), 0, 1) * 255).astype('uint8'),
+                cv.COLOR_RGB2BGR)
+
+        for i, seq_id in enumerate(seq_ids):
+            r_wav = vidtimit.spec_to_wav(
+                np.nan_to_num(reference['audio'][i]), audio_rate)
+            o_wav = vidtimit.spec_to_wav(
+                np.nan_to_num(observed['audio'][i]), audio_rate)
+            p_wav = vidtimit.spec_to_wav(predicted['audio'][i][:, 0],
+                                         audio_rate)
+            if save_args['comparison']:
+                wav = np.concatenate([r_wav, o_wav, p_wav], axis=0)
+            else:
+                wav = p_wav
+
+            r_vid = reference['video'][i].transpose((0, 2, 3, 1))
+            o_vid = observed['video'][i].transpose((0, 2, 3, 1))
+            p_vid = predicted['video'][i][:, 0].transpose((0, 2, 3, 1))
+
+            if not save_args['one_file']:
+                path = os.path.join(args.save_dir,
+                                    '{}_{}'.format(seq_id[0], seq_id[1]))
+                vwriter = cv.VideoWriter(path + '.avi', 0, fps, shape)
+
+            for t in range(len(p_vid)):
+                frame = preprocess(p_vid[t])
+                if not save_args['comparison']:
+                    vwriter.write(frame)
+                    continue
+                vwriter.write(np.hstack([preprocess(r_vid[t]),
+                                         preprocess(o_vid[t]), frame]))
+            if save_args['one_file']:
+                wav_all = np.append(wav_all, wav, axis=0)
+            else:
+                vwriter.release()
+                scipy.io.wavfile.write(path + '.wav', audio_rate, wav)
+        if save_args['one_file']:
+            vwriter.release()
+            scipy.io.wavfile.write(path + '.wav', audio_rate, wav_all)
 
 
 def make_trainer(seed=1, device="cuda", modalities=None, model_args=None,

@@ -13,10 +13,11 @@ and SSIM, person and action accuracy over time.
         --model_args '{bf16: true}' --train_args '{ragged_mode_scans: true}'
 
 runs on the GPU (``--device cpu`` for the CPU); ``--load S/best.pth
---evaluate --save_args '{skip: true}'`` evaluates a checkpoint. The DKS
-baselines: ``--method b-mask`` (``f-mask``, ``b-skip``, ``f-skip``), over
-the conv encoder's features. Visualization and video export come in a
-later slice.
+--evaluate`` evaluates a checkpoint and writes each eval set's
+reconstructions as ``S/<set>.avi`` (``save_results``, cv2; ``--save_args
+'{skip: true}'``: metrics only), and ``--visualize`` its storyboards as
+``S/<set>.pdf`` (matplotlib). The DKS baselines: ``--method b-mask``
+(``f-mask``, ``b-skip``, ``f-skip``), over the conv encoder's features.
 """
 
 import copy
@@ -185,6 +186,173 @@ class WeizmannTrainer(Trainer):
               "+/- {:2.3f}".format(summary["action"], summary["action_std"],
                                    summary["person"], summary["person_std"]))
         return summary
+
+    def visualize(self, results, metric, args):
+        """Storyboards of the best and the worst sequence by ``metric``:
+        original, observed and reconstructed rows of eight frames of
+        ``--viz_mod`` with their action labels, written headless (Agg) to
+        ``save_dir/<eval set>.pdf`` as the JAX app writes them."""
+        import matplotlib
+        matplotlib.use('Agg')
+        import matplotlib.pyplot as plt
+
+        reference = results['targets']
+        observed = results['inputs']
+        predicted = results['recon']
+        viz_mod = getattr(args, 'viz_mod', 'video')
+
+        sel_idx = np.concatenate((np.argsort(metric)[-1:][::-1],
+                                  np.argsort(metric)[:1]))
+        fig, axes = plt.subplots(
+            nrows=3 * len(sel_idx), ncols=1,
+            figsize=(8, 4 * len(sel_idx) + 0.5),
+            subplot_kw={'aspect': 'equal'})
+
+        def stitch(video, times):
+            nc = video.shape[1]
+            board = [np.hstack([video[t].transpose(1, 2, 0),
+                                np.ones((64, 1, nc))]) for t in times]
+            return np.squeeze(np.hstack(board))
+
+        def plot_board(axis, board, tick_labels, y_label):
+            axis.set_xticks(np.arange(32, 65 * len(tick_labels), 65))
+            axis.set_xticklabels(tick_labels)
+            axis.set_yticks([])
+            if board.ndim == 2:
+                axis.imshow(board, cmap='gray')
+            else:
+                axis.imshow(board)
+            axis.set_ylabel(y_label)
+            axis.tick_params(length=0)
+
+        for i, idx in enumerate(sel_idx):
+            true = reference[viz_mod][idx]
+            obsv = observed[viz_mod][idx]
+            pred = predicted[viz_mod][idx][:, 0]
+            t_act = reference['action'][idx]
+            o_act = observed['action'][idx]
+            p_act = (predicted['action'][idx][:, 0]
+                     if 'action' in predicted else None)
+
+            times = np.linspace(0, len(true) - 1, 8, dtype=int)
+            true_board = stitch(true, times)
+            obsv_board = stitch(obsv, times)
+            pred_board = stitch(np.clip(pred, 0, 1), times)
+            obsv_board = np.where(np.isnan(obsv_board), 1.0, obsv_board)
+
+            t_labels = [weizmann.actions[int(t_act[t, 0])] for t in times]
+            o_labels = ['' if (o_act[t, 0] != o_act[t, 0]) else
+                        weizmann.actions[int(o_act[t, 0])] for t in times]
+            if p_act is not None:
+                pred_probs = p_act.max(axis=1)
+                names = [weizmann.actions[a] for a in p_act.argmax(axis=1)]
+                p_labels = ['{} ({:0.1f})'.format(names[t], pred_probs[t])
+                            for t in times]
+            else:
+                p_labels = [''] * len(times)
+
+            plot_board(axes[3 * i], true_board, t_labels, "Original")
+            plot_board(axes[3 * i + 1], obsv_board, o_labels, "Observed")
+            plot_board(axes[3 * i + 2], pred_board, p_labels,
+                       "Reconstructed")
+            axes[3 * i].set_title('Metric: {:0.3f}'.format(metric[idx]),
+                                  fontdict={'fontsize': 10}, loc='right')
+        for ax in axes:
+            for spine in ax.spines.values():
+                spine.set_visible(False)
+        plt.tight_layout()
+        if getattr(args, 'eval_set', None) is not None:
+            plt.savefig(os.path.join(args.save_dir, args.eval_set + '.pdf'))
+        plt.close(fig)
+
+    def save_results(self, results, args):
+        """The reconstructed videos as AVI (cv2 ``VideoWriter``, fourcc 0:
+        uncompressed), as the JAX app writes them. ``--save_args``:
+        ``one_file`` (default true: all sequences in ``filename``, default
+        ``<eval set>.avi``; else one ``{person}_{action}.avi`` each),
+        ``comparison`` (default true: original, observed and
+        reconstructed side by side) and ``labels`` (default true: the
+        action and person names on each frame, the predicted ones on the
+        reconstruction)."""
+        import cv2 as cv
+        print("Saving results...")
+        reference = results['targets']
+        observed = results['inputs']
+        predicted = results['recon']
+
+        save_args = {'one_file': True,
+                     'filename': str(args.eval_set) + '.avi',
+                     'labels': True,
+                     'comparison': True}
+        save_args.update(args.save_args)
+
+        shape = reference['video'][0].shape[2:4]
+        if save_args['comparison']:
+            shape = (shape[0] * 3, shape[1])
+        fps = weizmann.fps
+
+        if save_args['one_file']:
+            path = os.path.join(args.save_dir, save_args['filename'])
+            vwriter = cv.VideoWriter(path, 0, fps, shape)
+
+        def preprocess(frame):
+            return cv.cvtColor(
+                (np.clip(np.nan_to_num(frame), 0, 1) * 255).astype('uint8'),
+                cv.COLOR_RGB2BGR)
+
+        def add_label(image, text, pos):
+            cv.putText(image, text, pos, cv.FONT_HERSHEY_SIMPLEX, 0.4,
+                       (255, 255, 255), 1, cv.LINE_AA)
+
+        for i in range(len(reference['video'])):
+            r_vid = reference['video'][i].transpose((0, 2, 3, 1))
+            o_vid = observed['video'][i].transpose((0, 2, 3, 1))
+            p_vid = predicted['video'][i][:, 0].transpose((0, 2, 3, 1))
+
+            if not save_args['one_file']:
+                p_id = reference['person'][i][0]
+                a_id = reference['action'][i][0]
+                path = '{}_{}.avi'.format(weizmann.persons[int(p_id[0])],
+                                          weizmann.actions[int(a_id[0])])
+                vwriter = cv.VideoWriter(os.path.join(args.save_dir, path),
+                                         0, fps, shape)
+
+            for t in range(len(p_vid)):
+                frame = preprocess(p_vid[t])
+                if save_args['labels']:
+                    if 'action' in predicted:
+                        probs = predicted['action'][i][t, 0]
+                        add_label(frame,
+                                  weizmann.actions[int(np.argmax(probs))],
+                                  (2, 10))
+                    if 'person' in predicted:
+                        probs = predicted['person'][i][t, 0]
+                        add_label(frame,
+                                  weizmann.persons[int(np.argmax(probs))],
+                                  (2, 60))
+                if not save_args['comparison']:
+                    vwriter.write(frame)
+                    continue
+                r_frame = preprocess(r_vid[t])
+                o_frame = preprocess(o_vid[t])
+                if save_args['labels']:
+                    r_idx = reference['action'][i][t, 0]
+                    o_idx = observed['action'][i][t, 0]
+                    add_label(r_frame, weizmann.actions[int(r_idx)], (2, 10))
+                    if o_idx == o_idx:
+                        add_label(o_frame, weizmann.actions[int(o_idx)],
+                                  (2, 10))
+                    r_idx = reference['person'][i][t, 0]
+                    o_idx = observed['person'][i][t, 0]
+                    add_label(r_frame, weizmann.persons[int(r_idx)], (2, 60))
+                    if o_idx == o_idx:
+                        add_label(o_frame, weizmann.persons[int(o_idx)],
+                                  (2, 60))
+                vwriter.write(np.hstack([r_frame, o_frame, frame]))
+            if not save_args['one_file']:
+                vwriter.release()
+        if save_args['one_file']:
+            vwriter.release()
 
 
 def make_trainer(seed=1, device="cuda", modalities=None, model_args=None,

@@ -98,3 +98,48 @@ def gen_dataset(n_examples=1000, n_train=600, timesteps=100,
             writer.writerow(COLUMNS)
             writer.writerows([repr(float(v)) for v in row]
                              for row in spirals[indices[i]])
+
+
+def test_dataset(data_dir="./spirals", subset="train", stats=False):
+    """Load ``data_dir/subset`` and print a collated batch's shapes, its
+    lengths, any sequence whose modalities differ in length and
+    (``stats``) per-modality statistics, as the JAX module prints them."""
+    from .multiseq import seq_collate
+    print("Loading data...")
+    dataset = SpiralsDataset(["spiral-x", "spiral-y"], data_dir, subset)
+    print("Testing batch collation...")
+    data = seq_collate([dataset[i] for i in range(min(10, len(dataset)))])
+    print("Batch shapes:")
+    for d in data[:-2]:
+        print(d.shape)
+    print("Sequence lengths: ", data[-1])
+    for i in range(len(dataset)):
+        x, y = dataset[i][:2]
+        if len(x) != len(y):
+            print("WARNING: Mismatched sequence lengths at",
+                  dataset.seq_ids[i])
+    if stats:
+        m_mean, m_std = dataset.mean_and_std()
+        m_max, m_min = dataset.max_and_min()
+        for m in dataset.modalities:
+            print("--", m, "--")
+            print("Mean:", m_mean[m], "Std:", m_std[m])
+            print("Max:", m_max[m], "Min:", m_min[m])
+
+
+if __name__ == "__main__":
+    import argparse
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--n_examples", type=int, default=1000)
+    parser.add_argument("--n_train", type=int, default=600)
+    parser.add_argument("--timesteps", type=int, default=100)
+    parser.add_argument("--data_dir", type=str, default="./spirals")
+    parser.add_argument("--test", action="store_true", default=False)
+    parser.add_argument("--subset", type=str, default="train")
+    parser.add_argument("--stats", action="store_true", default=False)
+    args = parser.parse_args()
+    if args.test:
+        test_dataset(args.data_dir, args.subset, args.stats)
+    else:
+        gen_dataset(args.n_examples, args.n_train, args.timesteps,
+                    args.data_dir)

@@ -153,3 +153,50 @@ def gen_synthetic(dest, persons_subset=None, actions_subset=None,
             np.save(os.path.join(dest, f"{person}_{action}.npy"), video)
             np.save(os.path.join(dest, f"{person}_{action}_mask.npy"),
                     mask)
+
+
+def test_dataset(data_dir='./weizmann', stats=False):
+    """Load the set in ``data_dir`` and print its sequence IDs, a
+    collated batch's shapes, any sequence whose modalities differ in
+    length and (``stats``) per-modality statistics, as the JAX module
+    prints them."""
+    from .multiseq import seq_collate
+    print("Loading data...")
+    dataset = WeizmannDataset(data_dir)
+    print("Number of sequences:", len(dataset))
+    print("Sequence ID values:")
+    for s in dataset.seq_id_sets:
+        print(s)
+    print("Testing batch collation...")
+    data = seq_collate([dataset[i]
+                        for i in range(min(10, len(dataset)))])
+    print("Batch shapes:")
+    for d in data[:-2]:
+        print(d.shape)
+    print("Sequence lengths: ", data[-1])
+    for i in range(len(dataset)):
+        video, mask, person, action = dataset[i]
+        if (len(video) != len(person) or len(video) != len(action)
+                or len(video) != len(mask)):
+            print("WARNING: Mismatched sequence lengths at",
+                  dataset.seq_ids[i])
+    if stats:
+        m_mean, m_std = dataset.mean_and_std()
+        m_max, m_min = dataset.max_and_min()
+        for m in ['video', 'person', 'action']:
+            print("--", m, "--")
+            print("Mean:", m_mean[m], "Std:", m_std[m])
+            print("Max:", m_max[m], "Min:", m_min[m])
+
+
+if __name__ == '__main__':
+    import argparse
+    parser = argparse.ArgumentParser()
+    parser.add_argument('--data_dir', type=str, default='./weizmann')
+    parser.add_argument('--stats', action='store_true', default=False)
+    parser.add_argument('--synthetic', action='store_true', default=False,
+                        help='generate the offline synthetic fixture')
+    args = parser.parse_args()
+    if args.synthetic:
+        gen_synthetic(args.data_dir)
+    test_dataset(args.data_dir, args.stats)

@@ -24,6 +24,12 @@ a rank) and under gloo (ranks on the CPU, or sharing one card).
 A 2-D mesh (``make_mesh_2d``, ``--mesh NxM``) also splits the fused
 objective's stacked variant rows over M model ranks
 (``MultiDMM.set_variant_mesh``): rank (d, m) is ``d * M + m``.
+
+Evaluation splits each batch's columns over the data axis where n_data
+divides them (``eval_columns``, the rule of the JAX package's
+``_eval_put``), else every rank computes the whole batch; its noise is
+``ColumnNoise``'s, and ``gather_columns`` puts the ranks' blocks back
+together on every rank.
 """
 
 import datetime
@@ -42,8 +48,8 @@ import torch.multiprocessing as mp
 from ..tree import tree_leaves
 
 # Seconds a collective may wait before it fails (the process group's
-# timeout): long enough for rank 0's evaluation, while the other ranks
-# wait.
+# timeout): long enough for rank 0's checkpoints and results export, while
+# the other ranks wait.
 DEFAULT_TIMEOUT = 1800
 
 
@@ -177,6 +183,38 @@ def shard_batch(mesh, batch, mask):
     cols = slice(mesh.data_index * n, (mesh.data_index + 1) * n)
     return ({m: v[:, cols].contiguous() for m, v in batch.items()},
             mask[:, cols].contiguous())
+
+
+def eval_columns(mesh, b_dim):
+    """The columns of a ``b_dim``-column evaluation batch that this rank
+    computes: its block of ``n_data`` contiguous blocks where ``n_data``
+    divides ``b_dim``, else None (every rank computes the whole batch), as
+    the JAX package's ``_eval_put`` places an evaluation batch. The model
+    ranks of one data index compute the same columns."""
+    if mesh is None or b_dim % mesh.n_data or mesh.n_data == 1:
+        return None
+    n = b_dim // mesh.n_data
+    return slice(mesh.data_index * n, (mesh.data_index + 1) * n)
+
+
+def gather_columns(mesh, x, cols, b_dim, axis=1):
+    """The whole batch of ``x``, which holds this rank's columns ``cols``
+    (``eval_columns``) of ``b_dim`` on ``axis``, on every rank: each block
+    placed in zeros and summed over the data axis's ranks (``all_reduce``,
+    exact: every other term of a sum is 0)."""
+    shape = list(x.shape)
+    shape[axis] = b_dim
+    full = x.new_zeros(shape)
+    full.narrow(axis, cols.start, cols.stop - cols.start).copy_(x)
+    dist.all_reduce(full, group=mesh.data_group)
+    return full
+
+
+def sum_over_data(mesh, x):
+    """The sum of ``x`` over the data axis's ranks, on every rank."""
+    x = x.clone()
+    dist.all_reduce(x, group=mesh.data_group)
+    return x
 
 
 class _AllReduceSum(torch.autograd.Function):

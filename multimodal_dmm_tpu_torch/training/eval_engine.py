@@ -68,11 +68,14 @@ def time_avg_dev(val, mask, lengths):
 
 
 def compose_task(targets, lengths, gen, drop_frac, start_frac, stop_frac,
-                 drop_mods=(), keep_mods=(), modalities=None):
+                 drop_mods=(), keep_mods=(), modalities=None, cols=None):
     """An eval task's inputs from (T, B, ...) device targets (NaN =
     missing) and (B,) float lengths (0 for ghost columns). The random
     deletion takes, per (modality, sequence), the ``int(drop_frac * L)``
-    valid steps with the smallest uniform scores drawn from ``gen``."""
+    valid steps with the smallest uniform scores drawn from ``gen``.
+    ``cols`` (a slice of the B columns, a rank's under a mesh): the
+    scores are drawn for the whole batch and the inputs of those columns
+    alone are returned."""
     mods = list(modalities) if modalities is not None else list(targets)
     t_max, b_dim = targets[mods[0]].shape[:2]
     dev = lengths.device
@@ -94,11 +97,14 @@ def compose_task(targets, lengths, gen, drop_frac, start_frac, stop_frac,
     seg_del = ((t_idx[:, None] < t_start[None, :])
                | (t_idx[:, None] >= t_stop[None, :]))              # (T, B)
 
+    if cols is not None:
+        valid, rand_del, seg_del = valid[:, cols], rand_del[:, :, cols], \
+            seg_del[:, cols]
     inputs = {}
     for mi, m in enumerate(mods):
         if m not in targets:
             continue
-        x = targets[m]
+        x = targets[m] if cols is None else targets[m][:, cols]
         if m in keep_mods:
             inputs[m] = x
             continue

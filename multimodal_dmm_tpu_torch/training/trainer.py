@@ -24,10 +24,11 @@ best (``--find_best``: ``run_find``); ``tune(config, reporter)`` is the
 experiment runner's trainable. ``--method`` picks the model as the JAX
 package does (``bfvi``: ``dmm``; the four DKS baselines: ``dks`` with
 their ``rnn_dir``/``rnn_skip``), and ``--model`` names it in the registry
-(``models.get_model``). Flags whose feature comes in a later slice of the
-port raise ``NotImplementedError``: ``--visualize``, ``--rng_impl``, and
-results export where the app has none (``save_results``; ``--save_args
-'{skip: true}'`` skips it). A device-loader failure raises; the host loader
+(``models.get_model``). ``--visualize`` draws the app's storyboards
+(``visualize``, matplotlib) and ``--evaluate`` exports the results
+(``save_results``, cv2; ``--save_args '{skip: true}'`` skips it).
+``--rng_impl``, which chooses one of JAX's PRNGs, raises
+``NotImplementedError``. A device-loader failure raises; the host loader
 runs only under ``--host_loader``.
 
 ``--mesh N`` trains with data parallelism over N ranks, ``--mesh NxM`` over
@@ -37,11 +38,16 @@ through ``parallel.launch``; rank r on ``cuda:r`` with NCCL, or on the CPU
 with gloo under ``--device cpu``), each with the whole training set,
 shuffled alike, taking its columns of every global batch
 (``parallel.shard_batch``) through ``parallel.make_dp_train_step``, which
-computes the single-device step. Rank 0 alone evaluates (over the whole
-eval set, on its own device), writes checkpoints and ``param_hist.tsv``,
-and prints; the others wait for it. ``--evaluate`` and ``--find_best``
-under a mesh run in one process on one device; ``tune`` under a mesh
-raises ``NotImplementedError``.
+computes the single-device step. Every rank evaluates: each evaluation
+batch's columns split over the data axis where n_data divides them
+(``parallel.eval_columns``), else every rank computes the whole batch; the
+noise is drawn at the global shape and cut to the rank's columns, and the
+per-sequence metrics (and, on the collect path, the model's outputs) are
+gathered to every rank (``parallel.gather_columns``), so that every rank
+takes the same best-checkpoint decision. Rank 0 alone writes checkpoints,
+results and ``param_hist.tsv``, and prints. ``--evaluate`` and
+``--find_best`` under a mesh start the ranks too; ``tune`` under a mesh
+starts them and hands rank 0's reports to the caller's reporter.
 
 ``evaluate(loader, args)`` composes each eval task (random deletion,
 kept segment, dropped and kept modalities), runs the model's forward
@@ -81,9 +87,10 @@ from ..convert import (adam_to_jax, load_adam, optax_adam_moments,
 from ..data import multiseq as mseq
 from ..models import get_model
 from ..ops.schedules import anneal
-from ..parallel.mesh import (launch, make_2d_train_step, make_dp_train_step,
+from ..parallel.mesh import (ColumnNoise, eval_columns, gather_columns,
+                             launch, make_2d_train_step, make_dp_train_step,
                              make_mesh, make_mesh_2d, parse_mesh, replicated,
-                             shard_batch)
+                             shard_batch, sum_over_data)
 from ..tree import tree_leaves, tree_leaves_with_path, tree_map
 from . import checkpoint as ckpt
 from .device_loader import DeviceTrainData
@@ -201,9 +208,7 @@ def _build_parser():
 
 
 def _refuse_later_slices(args):
-    """Raise for flags whose feature comes in a later slice."""
-    if args.visualize:
-        raise not_ported("--visualize", "the apps' visualization")
+    """Raise for ``--rng_impl``, which the port does not take."""
     if args.rng_impl != "threefry2x32":
         raise not_ported("--rng_impl %s" % args.rng_impl, "JAX's PRNG "
                            "implementations (the port draws from "
@@ -238,9 +243,55 @@ def _mesh_devices(device, n, spec):
     return ["cuda:%d" % r for r in range(n)], "nccl"
 
 
+def _plain(x):
+    """``x`` with every dict (a summary's defaultdict, whose factory does
+    not pickle) made a plain dict."""
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_plain(v) for v in x)
+    return x
+
+
 def _main_rank(cls, argv):
     """A rank of ``Trainer.main``, in its process group."""
-    return cls.main(argv)
+    return _plain(cls.main(argv))
+
+
+def _tune_rank(cls, config):
+    """A rank of ``Trainer.tune`` under a mesh, in its process group:
+    the trial's training run, reporting to a ``_MeshReporter``. Returns
+    the reports (rank 0's; the other ranks' are empty)."""
+    from ..experiments.tune import StopTrial
+    args = cls.tune_args(config)
+    trainer = cls.from_args(args)
+    reporter = _MeshReporter(trainer.mesh)
+    try:
+        trainer.run_train(args, reporter)
+    except StopTrial:
+        pass
+    return _plain(reporter.rows)
+
+
+class _MeshReporter:
+    """A trial's reporter on a rank of a mesh: rank 0 keeps each report
+    (``rows``) for the caller's reporter, and each report's ``done`` is
+    rank 0's on every rank (``broadcast``), so that the ranks stop
+    together (``StopTrial``) and none is left in a collective."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.rows = []
+
+    def __call__(self, **kwargs):
+        from ..experiments.tune import StopTrial
+        done = torch.tensor([float(bool(kwargs.get("done")))],
+                            device=self.mesh.device)
+        dist.broadcast(done, src=0, group=self.mesh.group)
+        if self.mesh.rank == 0:
+            self.rows.append(dict(kwargs))
+        if done.item():
+            raise StopTrial()
 
 
 def summarize(metrics, n_timesteps):
@@ -361,7 +412,7 @@ class Trainer:
         if checkpoint is not None:
             trainer.restore(checkpoint, opt=True)
         trainer.post_build_args(args)
-        if n_data * n_model > 1 and not (args.evaluate or args.find_best):
+        if n_data * n_model > 1:
             trainer.set_mesh(make_mesh(n_data, device) if n_model == 1 else
                              make_mesh_2d(n_data, n_model, device))
             print('Mesh: {} ranks ({} data x {} model)'.format(
@@ -390,12 +441,12 @@ class Trainer:
     @classmethod
     def main(cls, argv=None):
         """The command line: parse ``argv``, build the trainer, run it;
-        returns what ``run`` returns. Training under ``--mesh`` above 1
-        first starts the ranks, one process each (``parallel.launch``):
-        rank r on ``cuda:r`` with NCCL (``ValueError`` when fewer cards
-        are visible), or on the CPU with gloo under ``--device cpu``; each
-        builds its trainer and trains, and rank 0's result is returned.
-        ``--evaluate`` and ``--find_best`` run here, on one device."""
+        returns what ``run`` returns. Under ``--mesh`` above 1 it first
+        starts the ranks, one process each (``parallel.launch``): rank r
+        on ``cuda:r`` with NCCL (``ValueError`` when fewer cards are
+        visible), or on the CPU with gloo under ``--device cpu``; each
+        builds its trainer and runs it (training, ``--evaluate`` or
+        ``--find_best``), and rank 0's result is returned."""
         argv = sys.argv[1:] if argv is None else list(argv)
         args = cls.parser.parse_args(argv)
         _refuse_later_slices(args)
@@ -405,11 +456,8 @@ class Trainer:
             devices, backend = _mesh_devices(args.device, n_data * n_model,
                                              args.mesh)
         cls.check_mesh(args)
-        if ranks and not (args.evaluate or args.find_best):
-            return launch(_main_rank, devices, backend, args=(cls, argv))[0]
         if ranks:
-            print('--mesh {}: evaluation runs in this process, on one '
-                  'device'.format(args.mesh))
+            return launch(_main_rank, devices, backend, args=(cls, argv))[0]
         return cls.from_args(args).run(args)
 
     def set_mesh(self, mesh):
@@ -419,17 +467,12 @@ class Trainer:
         takes this rank's columns (``parallel.shard_batch``) with the
         global batch's ``n_data``, and ``train`` cuts each batch so."""
         self.mesh = mesh
+        gen_state = self.gen.get_state()
         replicated(mesh, [self.params, self.state,
-                          list(self._adam_states().values())])
-        self._sync_gen()
+                          list(self._adam_states().values()), gen_state])
+        self.gen.set_state(gen_state)
         make = make_2d_train_step if mesh.n_model > 1 else make_dp_train_step
         self.mesh_step = make(self, mesh)
-
-    def _sync_gen(self):
-        """Rank 0's generator state on every rank of the mesh."""
-        state = self.gen.get_state()
-        replicated(self.mesh, state)
-        self.gen.set_state(state)
 
     def apply_gradients(self):
         """One optimizer update from the leaves' ``.grad``; returns False
@@ -550,10 +593,23 @@ class Trainer:
                 rec_mults[m] *= float(m in args.eval_mods)
         return rec_mults, dict({"sample": False}, **args.eval_args)
 
+    def _eval_split(self, b_dim):
+        """(this rank's columns of a ``b_dim``-column evaluation batch or
+        None for all of them, the generator its forward draws from): under
+        a mesh whose data axis divides ``b_dim``, a ``ColumnNoise`` that
+        draws at the batch's shape and keeps those columns."""
+        cols = eval_columns(self.mesh, b_dim)
+        if cols is None:
+            return None, self.gen
+        return cols, ColumnNoise(self.gen, self.mesh, cols.stop - cols.start)
+
     def evaluate(self, loader, args, collect_results=True):
         """Run the eval task over ``loader``. Returns (results, summary):
         per-sequence targets, inputs and reconstructions in input order
-        when ``collect_results``, and ``summarize_metrics``' summary."""
+        when ``collect_results``, and ``summarize_metrics``' summary.
+        Under a mesh each rank runs the forward on its columns of each
+        batch (``_eval_split``), and every rank gets the whole batch's
+        outputs and metrics; ``--visualize`` draws on rank 0 alone."""
         collect_results = collect_results or args.visualize
         if (not collect_results
                 and getattr(self, "compute_metrics_device", None)
@@ -570,10 +626,21 @@ class Trainer:
                 inputs[m][:] = float("nan")
             for m in args.keep_mods:
                 inputs[m] = np.array(targets[m], copy=True)
+            b_dim = mask.shape[1]
+            cols, gen = self._eval_split(b_dim)
             with torch.no_grad():
                 (infer, prior, recon), _ = self.model.forward(
-                    self.params, self.state, self._to_device(inputs),
-                    gen=self.gen, **eval_args)
+                    self.params, self.state, self._to_device(
+                        inputs if cols is None else
+                        {m: v[:, cols] for m, v in inputs.items()}),
+                    gen=gen, **eval_args)
+            if cols is not None:
+                gather = lambda x: gather_columns(  # noqa: E731
+                    self.mesh, x, cols, b_dim)
+                infer, prior = (tuple(gather(x) for x in xs)
+                                for xs in (infer, prior))
+                recon = {m: tuple(gather(r) for r in rs)
+                         for m, rs in recon.items()}
             n_timesteps += sum(lengths)
             b_metrics = self.compute_metrics(
                 self.model, infer, prior, recon, targets, mask, lengths,
@@ -593,7 +660,7 @@ class Trainer:
                 results[k] = {m: [seq for batch in results[k]
                                   for seq in batch[m]]
                               for m in results[k][0]}
-            if args.visualize:
+            if args.visualize and self.is_root:
                 self.visualize(results, metrics[args.viz_metric], args)
         return results, self.summarize_metrics(metrics, n_timesteps)
 
@@ -601,7 +668,11 @@ class Trainer:
         """The metrics-only evaluation on the device: the eval set is
         uploaded once per (dataset, batching); per batch the task, the
         forward and the per-sequence metrics run on the device; the
-        metrics of all batches come to the host together at the end."""
+        metrics of all batches come to the host together at the end.
+        Under a mesh each rank composes the task and runs the forward and
+        the metrics on its columns (``_eval_split``), then the
+        per-sequence metrics are gathered and the summed ones summed over
+        the data axis."""
         key = (id(loader.dataset), loader.batch_size,
                getattr(loader, "len_bucket", 0))
         cached = self._eval_dev_cache.get(key)
@@ -619,16 +690,28 @@ class Trainer:
         outs, n_timesteps = [], 0
         with torch.no_grad():
             for b in data.batches:
+                b_dim = b.mask.shape[1]
+                cols, gen = self._eval_split(b_dim)
                 inputs = compose_task(
                     b.targets, b.lengths_dev, self.gen, args.drop_frac,
                     args.start_frac, args.stop_frac, tuple(args.drop_mods),
-                    tuple(args.keep_mods), modalities=self.model.modalities)
+                    tuple(args.keep_mods), modalities=self.model.modalities,
+                    cols=cols)
+                targets, mask, lengths = b.targets, b.mask, b.lengths_dev
+                if cols is not None:
+                    targets = {m: v[:, cols] for m, v in targets.items()}
+                    mask, lengths = mask[:, cols], lengths[cols]
                 (infer, prior, recon), _ = self.model.forward(
-                    self.params, self.state, inputs, gen=self.gen,
-                    **eval_args)
-                outs.append(self.compute_metrics_device(
-                    self.model, infer, prior, recon, b.targets, b.mask,
-                    b.lengths_dev, rec_mults))
+                    self.params, self.state, inputs, gen=gen, **eval_args)
+                out = self.compute_metrics_device(
+                    self.model, infer, prior, recon, targets, mask, lengths,
+                    rec_mults)
+                if cols is not None:
+                    out = {k: sum_over_data(self.mesh, v) if v.dim() == 0
+                           else gather_columns(self.mesh, v, cols, b_dim,
+                                               axis=0)
+                           for k, v in out.items()}
+                outs.append(out)
                 n_timesteps += sum(b.lengths)
         outs = [{k: v.cpu().numpy() for k, v in out.items()} for out in outs]
         metrics = None
@@ -646,9 +729,9 @@ class Trainer:
 
     def run_eval(self, args):
         """Evaluate on the ``--eval_sets`` (train, test) and hand each
-        set's results to the app's ``save_results``; returns (train
-        metrics, test metrics). ``--save_args '{skip: true}'``: metrics
-        only, nothing saved."""
+        set's results to the app's ``save_results`` (rank 0's alone under
+        a mesh); returns (train metrics, test metrics). ``--save_args
+        '{skip: true}'``: metrics only, nothing saved."""
         skip_save = (isinstance(args.save_args, dict)
                      and bool(args.save_args.get('skip')))
         metrics = {}
@@ -663,9 +746,10 @@ class Trainer:
             args.eval_set = name
             results, metrics[name] = self.evaluate(
                 loader, args, collect_results=not skip_save)
-            if not skip_save:
+            if not skip_save and self.is_root:
                 self.save_results(results, args)
-        self.save_params(args)
+        if self.is_root:
+            self.save_params(args)
         return metrics.get('train'), metrics.get('test')
 
     def run_train(self, args, reporter=None):
@@ -676,9 +760,9 @@ class Trainer:
         so far) and ``epoch_N.pth`` every ``--save_freq`` epochs and
         ``last.pth`` at the end. Returns {"epoch_loss": [...], "epoch_s":
         [...] (training, on the host's clock), "eval": [metrics, ...],
-        "eval_s": [...], "best_loss": x}. Under a mesh, rank 0 alone
-        evaluates and writes (the other ranks' "eval" is empty), then
-        hands its generator's state to the others."""
+        "eval_s": [...], "best_loss": x}. Under a mesh every rank
+        evaluates (``evaluate``) and reports to ``reporter``; rank 0 alone
+        writes."""
         train_data, test_data = self.train_data, self.test_data
         if 'uniform' in args.corrupt:
             train_data = train_data.corrupt(args.corrupt['uniform'])
@@ -744,7 +828,7 @@ class Trainer:
                     history["epoch_loss"].append(
                         self.train(train_loader, epoch, args))
                 history["epoch_s"].append(time.perf_counter() - t0)
-                if epoch % args.eval_freq == 0 and self.is_root:
+                if epoch % args.eval_freq == 0:
                     t0 = time.perf_counter()
                     _, metrics = self.evaluate(test_loader, args,
                                                collect_results=False)
@@ -755,14 +839,12 @@ class Trainer:
                         best_loss = loss
                         # Written every save_freq epochs, not at each
                         # improvement.
-                        best_snapshot = self._snapshot()
+                        if self.is_root:
+                            best_snapshot = self._snapshot()
                     if reporter is not None:
                         reporter(mean_loss=loss, best_loss=best_loss,
                                  training_iteration=epoch,
                                  done=bool(np.isnan(loss)), **metrics)
-                if epoch % args.eval_freq == 0 and self.mesh is not None:
-                    # Rank 0's evaluation drew from its generator.
-                    self._sync_gen()
                 if epoch % args.save_freq == 0 and self.is_root:
                     if best_snapshot is not None:
                         self._write(os.path.join(args.save_dir, "best.pth"),
@@ -799,7 +881,8 @@ class Trainer:
         up to ``--epochs``) for the best model: each restored without
         Adam's state and evaluated on the test set, ``best.pth`` rewritten
         at each new best ``--eval_metric``; then the best evaluated once
-        more. Returns (best epoch, its metrics)."""
+        more. Under a mesh every rank evaluates and rank 0 alone writes.
+        Returns (best epoch, its metrics)."""
         test_loader = BatchLoader(self.test_data,
                                   batch_size=args.batch_sz_eval,
                                   len_bucket=args.len_bucket)
@@ -816,13 +899,17 @@ class Trainer:
             loss = metrics[args.eval_metric]
             if loss < best_loss:
                 best_loss, best_epoch = loss, epoch
-                self.save_checkpoint(args.modalities,
-                                     os.path.join(args.save_dir, "best.pth"))
+                if self.is_root:
+                    self.save_checkpoint(args.modalities, os.path.join(
+                        args.save_dir, "best.pth"))
+        if self.mesh is not None:  # best.pth is written
+            dist.barrier(group=self.mesh.group)
         print('=== Best Epoch : {} ==='.format(best_epoch))
         self.restore(ckpt.load_checkpoint(os.path.join(args.save_dir,
                                                        "best.pth")))
         _, metrics = self.evaluate(test_loader, args)
-        self.save_params(args)
+        if self.is_root:
+            self.save_params(args)
         return best_epoch, metrics
 
     def run(self, args):
@@ -835,17 +922,36 @@ class Trainer:
         return self.run_train(args)
 
     @classmethod
-    def tune(cls, config, reporter):
-        """The experiment runner's trainable: the parser's defaults
-        updated from ``config`` (a trial's config), a trainer built from
-        them, and its training run reporting to ``reporter`` after each
-        evaluation and at the end (numbers only: the metrics are numpy or
-        Python floats)."""
+    def tune_args(cls, config):
+        """The parser's defaults updated from ``config`` (a trial's)."""
         args = cls.parser.parse_args([])
         vars(args).update(config)
-        if parse_mesh(args.mesh) != (1, 1):
-            raise not_ported("Trainer.tune under --mesh %s" % args.mesh,
-                             "data-parallel trials")
+        return args
+
+    @classmethod
+    def tune(cls, config, reporter):
+        """The experiment runner's trainable: a trainer built from
+        ``tune_args(config)`` and its training run, reporting to
+        ``reporter`` after each evaluation and at the end (numbers only:
+        the metrics are numpy or Python floats). Under a ``mesh`` above 1
+        it starts the ranks (``parallel.launch``, as ``main`` does), each
+        of which trains, evaluates and stops with the others
+        (``_MeshReporter``); then it hands rank 0's reports to
+        ``reporter`` in their order, so that ``reporter`` writes the
+        rows and raises at ``done`` as it does for one process. A rank's
+        exception ends the trial: the others are stopped and it is raised
+        here."""
+        args = cls.tune_args(config)
+        n_data, n_model = parse_mesh(args.mesh)
+        if n_data * n_model > 1 and not dist.is_initialized():
+            devices, backend = _mesh_devices(args.device, n_data * n_model,
+                                             args.mesh)
+            cls.check_mesh(args)
+            rows = launch(_tune_rank, devices, backend,
+                          args=(cls, config))[0]
+            for row in rows:
+                reporter(**row)
+            return
         cls.from_args(args).run_train(args, reporter)
 
     # -- persistence ----------------------------------------------------------
@@ -866,6 +972,10 @@ class Trainer:
             if header:
                 w.writerow([''] + cols + ['h_dim', 'z_dim'])
             w.writerow([0] + row)
+
+    def load_checkpoint(self, path, device=None):
+        """The checkpoint at ``path`` (``checkpoint.load_checkpoint``)."""
+        return ckpt.load_checkpoint(path)
 
     def _adam_states(self):
         """{leaf path: Adam's state} for the leaves that have one."""
@@ -1006,9 +1116,7 @@ class Trainer:
         raise NotImplementedError
 
     def visualize(self, results, metric, args):
-        raise not_ported("visualize", "the apps' visualization")
+        raise NotImplementedError
 
     def save_results(self, results, args):
-        raise not_ported(
-            "saving evaluation results (save_results; pass --save_args "
-            "'{skip: true}' for metrics only)", "the apps' visualization")
+        raise NotImplementedError

@@ -29,8 +29,9 @@ mesh path against it, on the same numpy inputs and the JAX weights
   BatchNorm state as above.
 - The command line: one MAP epoch of ``apps.spirals --device cpu --mesh
   2`` (and ``2x2``) gives the single-process epoch loss at rtol 2e-5, and
-  rank 0 alone evaluates and writes the checkpoints and param_hist.tsv.
-- The refusals of the JAX trainer, and ``Trainer.tune`` under a mesh.
+  rank 0 alone writes the checkpoints and param_hist.tsv.
+- The refusals of the JAX trainer, and a trial (``Trainer.tune``) under a
+  mesh.
 
 Every process group has a timeout (``torch_parallel_ranks.TIMEOUT``), so
 that a hung collective fails the test.
@@ -330,11 +331,19 @@ def test_mesh_refusals(corpus, tmp_path, monkeypatch, flags, match):
         ts.main(argv)
 
 
-def test_tune_under_a_mesh_is_not_ported(corpus, tmp_path):
-    with pytest.raises(NotImplementedError, match="--mesh 2"):
-        ts.SpiralsTrainer.tune({"device": "cpu", "data_dir": corpus,
-                                "save_dir": str(tmp_path), "mesh": "2"},
-                               lambda **kw: None)
+def test_tune_under_a_mesh_runs_the_trial(corpus, tmp_path, monkeypatch):
+    """The trial's ranks train and evaluate; rank 0's reports reach the
+    caller's reporter, the last one ``done``
+    (tests/test_torch_mesh_eval.py holds them to one process)."""
+    monkeypatch.chdir(tmp_path)
+    rows = []
+    ts.SpiralsTrainer.tune({"device": "cpu", "data_dir": corpus,
+                            "save_dir": str(tmp_path / "save"), "mesh": "2",
+                            "epochs": 1, "eval_freq": 1, "batch_size": 8},
+                           lambda **kw: rows.append(kw))
+    assert [r["done"] for r in rows] == [False, True]
+    assert all(np.isfinite(r["mean_loss"]) for r in rows)
+    assert (tmp_path / "save" / "last.pth").exists()
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Structure of the PyTorch port: it imports nothing of JAX, of the JAX
 package or of pandas, nor at module level a package that the GPU machine
-lacks, and its experiment layer not PyYAML at all; its entry points default to the GPU and refuse to fall back to the
+lacks (nor the renderers, matplotlib and cv2), and its experiment layer not
+PyYAML at all; its entry points default to the GPU and refuse to fall back to the
 CPU; and ``params_from_jax`` covers every leaf of the apps' model trees
 (the Weizmann and VidTIMIT BFVI and DKS models, the spirals DMM, DKS and
 VRNN)."""
@@ -113,6 +114,21 @@ def test_port_imports_scipy_inside_functions_only():
             path.relative_to(ROOT), bad)
     path = ROOT / "multimodal_dmm_tpu_torch" / "data" / "vidtimit.py"
     assert "scipy" in set(_imported_roots(path))
+
+
+def test_renderers_are_imported_inside_functions_only():
+    """matplotlib (not on the GPU machine) and cv2 are imported by the
+    apps' ``visualize`` and ``save_results`` alone, never when a module is
+    imported."""
+    for path in _port_files():
+        bad = set(_module_level_roots(path)) & {"matplotlib", "cv2"}
+        assert not bad, "%s imports %s at module level" % (
+            path.relative_to(ROOT), bad)
+    apps = ROOT / "multimodal_dmm_tpu_torch" / "apps"
+    for name, renderers in (("spirals", {"matplotlib"}),
+                            ("weizmann", {"matplotlib", "cv2"}),
+                            ("vidtimit", {"matplotlib", "cv2"})):
+        assert renderers <= set(_imported_roots(apps / (name + ".py")))
 
 
 _ITEM = {"video": np.zeros((3, 3, 64, 64), np.float32),

@@ -3,8 +3,9 @@ training/trainer.py): a few-sequence fixture with 'shahar' held out,
 narrow latent widths (the DKS baseline at the app's z = h = 256), 2
 epochs. Training leaves best.pth, epoch_N.pth and
 last.pth; ``--load ... --evaluate`` runs and repeats under one seed;
-``--resume_trial`` reproduces the uninterrupted run bit for bit; flags of
-later slices raise; the flag surface is the JAX app's."""
+``--resume_trial`` reproduces the uninterrupted run bit for bit;
+``--visualize`` and the results export run (``--rng_impl`` raises); the
+flag surface is the JAX app's."""
 
 import numpy as np
 import pytest
@@ -114,21 +115,47 @@ def _leaves(tree):
     return [np.asarray(tree)]
 
 
-# ``--find_best`` runs now (tests/test_torch_suites.py), and ``--mesh``
-# (tests/test_torch_parallel.py); with --visualize, which comes in a later
-# slice, each is refused, under a mesh before any rank starts.
-@pytest.mark.parametrize("flags", [
-    ["--mesh", "2", "--visualize"], ["--visualize"],
-    ["--find_best", "--visualize"],
-    ["--rng_impl", "rbg"],
-    ["--evaluate", "--save_args", "{}"]], ids=lambda f: f[0].strip("-"))
+# --rng_impl chooses one of JAX's PRNGs, which the port does not take.
+@pytest.mark.parametrize("flags", [["--rng_impl", "rbg"]],
+                         ids=lambda f: f[0].strip("-"))
 def test_later_slice_flags_raise(data_dir, tmp_path, flags):
-    if flags[0] == "--evaluate":
-        _run(data_dir, tmp_path / "save", *TRAIN["merge"], epochs=1)
-        flags = flags + ["--model_args", "{z_dim: 8, h_dim: 8}"]
     argv = _argv(data_dir, tmp_path / "save", *flags)
     with pytest.raises(NotImplementedError, match="later slice"):
         tw.main(argv)
+
+
+# During training and --find_best the evaluation has no eval set, so
+# --visualize draws without writing a PDF, as in the JAX app; --evaluate
+# writes each set's AVI (and its PDF with --visualize).
+@pytest.mark.parametrize("flags,written", [
+    (["--mesh", "2", "--visualize"], []),
+    (["--visualize"], []),
+    (["--find_best", "--visualize"], []),
+    (["--evaluate", "--save_args", "{}"], ["test.avi", "train.avi"]),
+    (["--evaluate", "--visualize"],
+     ["test.avi", "test.pdf", "train.avi", "train.pdf"])],
+    ids=["mesh", "visualize", "find_best", "evaluate", "evaluate_visualize"])
+def test_visualize_and_results_export_run(data_dir, tmp_path, flags,
+                                          written):
+    save = tmp_path / "save"
+    ckpts = ["best.pth", "epoch_1.pth", "last.pth"]
+    if flags[0] in ("--evaluate", "--find_best"):
+        _run(data_dir, save, *TRAIN["merge"], epochs=1)
+        flags = flags + ["--model_args", "{z_dim: 8, h_dim: 8}"]
+    else:
+        flags = flags + TRAIN["merge"]
+    out = tw.main(_argv(data_dir, save, *flags, epochs=1))
+    assert sorted(p.name for p in save.iterdir()) == sorted(ckpts + written)
+    if flags[0] == "--evaluate":
+        assert all(np.isfinite(m["rec_loss"]) for m in out)
+        import cv2
+        video = cv2.VideoCapture(str(save / "test.avi"))
+        assert video.get(cv2.CAP_PROP_FRAME_WIDTH) == 3 * 64
+        video.release()
+    elif flags[0] == "--find_best":
+        assert out[0] == 1 and np.isfinite(out[1]["rec_loss"])
+    else:
+        assert np.isfinite(out["eval"][0]["rec_loss"])
 
 
 def test_bf16_gtf_trains_and_reloads(data_dir, tmp_path):
