@@ -386,11 +386,21 @@ struct Lanes {
     kg = threadIdx.x / EPB;
     el = threadIdx.x % EPB;
   }
-  // The particle of chunk c, slot i, of this thread.
-  __device__ int particle(int c, int i) const { return kg + (c * kChunk + i) * KG; }
+  // The particle of chunk c, slot i, of this thread (chunks of CH: the
+  // same particles in the same order for every CH).
+  template <int CH = kChunk>
+  __device__ int particle(int c, int i) const { return kg + (c * CH + i) * KG; }
   // The chunks that hold particles for K of them.
-  __device__ int chunks(int K) const { return (K + KG * kChunk - 1) / (KG * kChunk); }
+  template <int CH = kChunk>
+  __device__ int chunks(int K) const { return (K + KG * CH - 1) / (KG * CH); }
 };
+
+// The barrier of the NT threads that run the elementwise phases: all of
+// a tiled kernel's, the consumer warps of f32_scan.cuh's wgmma kernels
+// (whose producer warp takes no part in these phases).
+__device__ __forceinline__ void lanes_sync() {
+  asm volatile("bar.sync 8, %0;\n" ::"n"(NT) : "memory");
+}
 
 template <int NV>
 __device__ __forceinline__ void group_sum(float (&v)[NV], float* red,
@@ -398,16 +408,19 @@ __device__ __forceinline__ void group_sum(float (&v)[NV], float* red,
   if (ln.KG == 1) return;
 #pragma unroll
   for (int i = 0; i < NV; ++i) red[(i * ln.KG + ln.kg) * ln.EPB + ln.el] = v[i];
-  __syncthreads();
+  lanes_sync();
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     float sum = 0.f;
     for (int g = 0; g < ln.KG; ++g) sum += red[(i * ln.KG + g) * ln.EPB + ln.el];
     v[i] = sum;
   }
-  __syncthreads();
+  lanes_sync();
 }
 
+// CH: the particles whose loads a thread has in flight at once (fewer
+// registers at fewer; the sums are the same bit for bit).
+template <int CH = kChunk>
 __device__ void fwd_elementwise(const FwdArgs& a, int t, float* red) {
   const Dims& s = a.s;
   const int D = s.D, H = s.H, K = s.K, M = s.M, B = s.B;
@@ -431,11 +444,11 @@ __device__ void fwd_elementwise(const FwdArgs& a, int t, float* red) {
       // mixture over the K particles.
       const float p1 = 1.f / (gs * gs + kEps);
       float m3[3] = {0.f, 0.f, 0.f};
-      for (int c = 0; c < ln.chunks(K); ++c) {
-        float a2[kChunk], zl[kChunk], zn[kChunk], sr[kChunk];
+      for (int c = 0; c < ln.template chunks<CH>(K); ++c) {
+        float a2[CH], zl[CH], zn[CH], sr[CH];
 #pragma unroll
-        for (int i = 0; i < kChunk; ++i) {
-          const int r = ln.particle(c, i);
+        for (int i = 0; i < CH; ++i) {
+          const int r = ln.template particle<CH>(c, i);
           if (live && r < K) {
             const float* row = A + ((size_t)r * B + b) * lw;
             a2[i] = __ldcg(row + la + d);
@@ -445,8 +458,8 @@ __device__ void fwd_elementwise(const FwdArgs& a, int t, float* red) {
           }
         }
 #pragma unroll
-        for (int i = 0; i < kChunk; ++i) {
-          if (live && ln.particle(c, i) < K) {
+        for (int i = 0; i < CH; ++i) {
+          if (live && ln.template particle<CH>(c, i) < K) {
             float ppm, pps;
             poe2(gm, p1, a2[i], zl[i], zn[i], sr[i], s.min_std, ppm, pps);
             m3[0] += ppm;
@@ -476,17 +489,17 @@ __device__ void fwd_elementwise(const FwdArgs& a, int t, float* red) {
       a.infer_std[tbd] = is;
     }
     float zs[1] = {0.f};
-    for (int c = 0; c < ln.chunks(K); ++c) {
-      float ep[kChunk];
+    for (int c = 0; c < ln.template chunks<CH>(K); ++c) {
+      float ep[CH];
 #pragma unroll
-      for (int i = 0; i < kChunk; ++i) {
-        const int r = ln.particle(c, i);
+      for (int i = 0; i < CH; ++i) {
+        const int r = ln.template particle<CH>(c, i);
         if (live && r < K)
           ep[i] = __ldg(a.eps + (((size_t)t * K + r) * B + b) * D + d);
       }
 #pragma unroll
-      for (int i = 0; i < kChunk; ++i) {
-        const int r = ln.particle(c, i);
+      for (int i = 0; i < CH; ++i) {
+        const int r = ln.template particle<CH>(c, i);
         if (live && r < K) {
           const float z = im + ep[i] * is;
           a.z_traj[(((size_t)t * K + r) * B + b) * D + d] = z;
@@ -576,7 +589,7 @@ struct BwdArgs {
   int nch;
 };
 
-template <bool BF16>
+template <bool BF16, int CH = kChunk>  // CH as fwd_elementwise's
 __device__ void bwd_elementwise(const BwdArgs& a, int t, float* red) {
   const Dims& s = a.s;
   const int D = s.D, H = s.H, K = s.K, M = s.M, B = s.B;
@@ -609,11 +622,11 @@ __device__ void bwd_elementwise(const BwdArgs& a, int t, float* red) {
     // order).
     const float gsm = g_smp / (float)K;
     float gg[2] = {0.f, 0.f};  // sum of gz, sum of gz * eps
-    for (int c = 0; c < ln.chunks(K); ++c) {
-      float gzs[kChunk], ep[kChunk];
+    for (int c = 0; c < ln.template chunks<CH>(K); ++c) {
+      float gzs[CH], ep[CH];
 #pragma unroll
-      for (int i = 0; i < kChunk; ++i) {
-        const int r = ln.particle(c, i);
+      for (int i = 0; i < CH; ++i) {
+        const int r = ln.template particle<CH>(c, i);
         if (live && r < K) {
           const size_t o = ((size_t)r * B + b) * D + d;
           gzs[i] = __ldcg(a.gz + o) + __ldcg(a.gz + RD + o) +
@@ -623,8 +636,8 @@ __device__ void bwd_elementwise(const BwdArgs& a, int t, float* red) {
         }
       }
 #pragma unroll
-      for (int i = 0; i < kChunk; ++i) {
-        if (live && ln.particle(c, i) < K) {
+      for (int i = 0; i < CH; ++i) {
+        if (live && ln.template particle<CH>(c, i) < K) {
           const float gz = gzs[i] + gsm;
           gg[0] += gz;
           gg[1] += gz * ep[i];
@@ -672,11 +685,11 @@ __device__ void bwd_elementwise(const BwdArgs& a, int t, float* red) {
     // barrier of the mixture's sums.
     const float p1 = 1.f / (gs * gs + kEps);
     float m3[3] = {0.f, 0.f, 0.f};
-    float a2v[kChunk], zlv[kChunk], znv[kChunk], srv[kChunk];
+    float a2v[CH], zlv[CH], znv[CH], srv[CH];
     auto load_chunk = [&](int c) {
 #pragma unroll
-      for (int i = 0; i < kChunk; ++i) {
-        const int r = ln.particle(c, i);
+      for (int i = 0; i < CH; ++i) {
+        const int r = ln.template particle<CH>(c, i);
         if (live && r < K) {
           const size_t row = (size_t)r * B + b;
           const float* y = Y + row * ly;
@@ -687,11 +700,11 @@ __device__ void bwd_elementwise(const BwdArgs& a, int t, float* red) {
         }
       }
     };
-    for (int c = 0; c < ln.chunks(K); ++c) {
+    for (int c = 0; c < ln.template chunks<CH>(K); ++c) {
       load_chunk(c);
 #pragma unroll
-      for (int i = 0; i < kChunk; ++i) {
-        if (live && ln.particle(c, i) < K) {
+      for (int i = 0; i < CH; ++i) {
+        if (live && ln.template particle<CH>(c, i) < K) {
           float ppm, pps;
           poe2(gm, p1, a2v[i], zlv[i], znv[i], srv[i], s.min_std, ppm, pps);
           m3[0] += ppm;
@@ -706,11 +719,11 @@ __device__ void bwd_elementwise(const BwdArgs& a, int t, float* red) {
     const float ps_val = sqrtf(fmaxf(var, kEps));  // floored at _EPS, as on the TPU
     const float d_var = (var > 0.f) ? d_prior_s / (2.f * ps_val) : 0.f;
     float dg[2] = {0.f, 0.f};  // d_glb_mean, d_p1
-    for (int c = 0; c < ln.chunks(K); ++c) {
+    for (int c = 0; c < ln.template chunks<CH>(K); ++c) {
       load_chunk(c);
 #pragma unroll
-      for (int i = 0; i < kChunk; ++i) {
-        const int r = ln.particle(c, i);
+      for (int i = 0; i < CH; ++i) {
+        const int r = ln.template particle<CH>(c, i);
         if (!live || r >= K) continue;
         float* y = Y + ((size_t)r * B + b) * ly;
         const float gate = sigmoid_(a2v[i]);
@@ -916,6 +929,10 @@ __device__ __forceinline__ void wgrad(const WgradArgs& a) {
 // The kernels of one route, and their launches
 // ---------------------------------------------------------------------------
 
+// f32_scan.cu defines BFVI_SCAN_HELPERS_ONLY: it takes the helpers above
+// and builds no kernel of this file.
+#if !BFVI_SCAN_HELPERS_ONLY
+
 // The includer defines BFVI_SCAN_BF16 as 1 for the bf16 library
 // (bfvi_scan_bf16.cu: the tiled bf16 scans, with the C entry points
 // bfvi_scan_fwd_tiled and bfvi_scan_bwd_tiled) and leaves it undefined for
@@ -987,8 +1004,11 @@ Weights make_weights(const float* w1, const float* b1, const float* wg2,
   return Weights{w1, b1, wg2, bg2, wn2, bn2, ws, bs};
 }
 
+#endif  // !BFVI_SCAN_HELPERS_ONLY
+
 }  // namespace
 
+#if !BFVI_SCAN_HELPERS_ONLY
 extern "C" {
 
 // The forward scan. bfvi_scan_fwd_tiled (the bf16 library) also takes
@@ -1121,3 +1141,5 @@ int gtf_wgrad(const float* z_traj, const float* xs, const float* ys,
 #endif
 
 }  // extern "C"
+
+#endif  // !BFVI_SCAN_HELPERS_ONLY

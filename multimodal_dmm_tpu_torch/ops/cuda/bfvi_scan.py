@@ -21,13 +21,22 @@ plus the particle trajectory z_traj (T, K, B, D) that the backward reads.
   floors it at 0. ``bfvi_scan_bwd_ref_on_masks`` runs the plain backward
   on the ReLU masks that the backward kernel found in the GTF's first
   layers, to hold the kernel to it element by element.
-- ``bfvi_scan_fwd_cuda`` / ``bfvi_scan_bwd_cuda``: launch the kernels of
-  ``csrc/bfvi_scan.cu`` (cooperative launches whose products run on the
-  tensor cores in 3xTF32, ``csrc/tf32x3.cuh``); the backward writes, for
-  every particle row of every step, the activations and cotangents that
-  the weight gradients are products of, and ``gtf_wgrad_cuda`` (plain
-  version ``gtf_wgrad_ref``) forms those products. Each wrapper counts
-  its launches in ``.launches``. With ``bf16=True`` the scan wrappers
+- ``bfvi_scan_fwd_cuda`` / ``bfvi_scan_bwd_cuda``: launch the float32
+  scan kernels on the route that ``f32_scan_plan`` chooses by shape before
+  any launch: the column route (``csrc/f32_scan.cuh``: one CTA owns whole
+  batch columns for the whole time loop, weights in shared memory, f32
+  FMA, no grid barrier) for narrow transitions, counted in
+  ``.launches_column``; the wgmma route (``csrc/f32_scan.cuh``: a
+  cooperative grid, products on wgmma in 3xTF32 with the weights' TF32
+  images of ``f32_pack`` fed by TMA) for every other shape,
+  ``.launches_wgmma``. The tiled kernels (``csrc/bfvi_scan.cu``, products on
+  the tile engine of ``csrc/tf32x3.cuh``), the route "tiled", run only
+  where a caller names it (``route="tiled"``, ``f32_route``): the
+  reference the new routes are timed against, ``.launches_tiled``;
+  ``.launches`` counts all three. The backward writes, for every particle row
+  of every step, the activations and cotangents that the weight gradients are
+  products of, and ``gtf_wgrad_cuda`` (plain version ``gtf_wgrad_ref``) forms
+  those products. With ``bf16=True`` the scan wrappers
   launch the kernels' bfloat16 variants instead (``csrc/bfvi_scan_bf16.cu``)
   on the route that ``bf16_scan_plan`` chooses by shape before any launch:
   the cluster route, the two scans of ``csrc/bf16_scan.cuh`` (one thread
@@ -66,6 +75,7 @@ the steps in bfloat16 (ROADMAP.md, Queue C); the bias gradients sum the
 float32 cotangents, as JAX's do.
 """
 
+import contextlib
 import ctypes
 
 import torch
@@ -369,6 +379,7 @@ def bfvi_scan_bwd_ref_on_masks(res, cots, min_std, xs, bf16=False):
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 
 
 def _lib(bf16=False):
@@ -408,6 +419,25 @@ def _lib(bf16=False):
         else:
             lib.gtf_wgrad.argtypes = [_P] * 4 + [_I] * 4 + [_P]
             lib.gtf_wgrad.restype = _I
+        lib._bfvi_typed = True
+    return lib
+
+
+def _f32_lib():
+    """The float32 scans' column and wgmma routes (``csrc/f32_scan.cu``):
+    the C entry points of ``csrc/bfvi_scan.cu``'s scans with their routes'
+    arguments after them."""
+    lib = _build.load("f32_scan")
+    if not getattr(lib, "_bfvi_typed", False):
+        fwd, bwd = [_P] * 22 + [_I] * 6, [_P] * 30 + [_I] * 6
+        tail = [ctypes.c_float, _P]
+        lib.bfvi_scan_fwd_wgmma.argtypes = fwd + tail + [_P, _P, _LL]
+        lib.bfvi_scan_bwd_wgmma.argtypes = bwd + tail + [_P, _LL, _P, _LL]
+        lib.bfvi_scan_fwd_column.argtypes = fwd + tail + [_P, _I]
+        lib.bfvi_scan_bwd_column.argtypes = bwd + tail + [_I]
+        for fn in (lib.bfvi_scan_fwd_wgmma, lib.bfvi_scan_bwd_wgmma,
+                   lib.bfvi_scan_fwd_column, lib.bfvi_scan_bwd_column):
+            fn.restype = _I
         lib._bfvi_typed = True
     return lib
 
@@ -642,6 +672,245 @@ class Bf16Pack:
         return self.images[backward]
 
 
+# ---------------------------------------------------------------------------
+# The float32 scans' launch plan and weight images (csrc/f32_scan.cuh)
+# ---------------------------------------------------------------------------
+
+F32_SMS = 132            # the H100's SMs, for the plan's estimate of waves
+F32_SMEM_LIMIT = 232448  # dynamic shared memory a CTA may use on the H100
+F32_SM_SMEM = 233472     # shared memory of an SM, 1 KB of it kept per CTA
+# The column route (csrc/f32_scan.cuh, kColThreads and its launch bounds):
+# 128 threads a CTA, at most 4 CTAs an SM by registers; widths up to
+# COLUMN_MAX_WIDTH. Its products are FMA chains, one thread an output, so
+# a step's time grows with D H: on the H100 it is 3-4x faster than the
+# tiled route at the spirals widths (D = 8, H = 20), level with the wgmma
+# route at D = H = 32 and 2x slower at D = H = 64 (PERF.md, section 6;
+# chip_smoke.py phase 16 (a') times the routes there and at D = 32, H =
+# 256). The wgmma route beat the tiled one at every such shape.
+COLUMN_THREADS = 128
+COLUMN_CTAS_PER_SM = 4
+COLUMN_MAX_WIDTH = 32
+# The wgmma route (kWgThreads, kStages, kMaxBN, kImgRows): two consumer
+# warpgroups and a producer warp, a ring of 8 stages of 64 weight rows hi
+# and lo, and the elementwise phases' 3 KB; one CTA an SM.
+WGMMA_THREADS = 288
+WGMMA_STAGES = 8
+IMG_ROWS = 64    # image rows are padded to the widest tile
+WGMMA_SMEM = WGMMA_STAGES * 2 * IMG_ROWS * 128 + 3 * 2 * 128 * 4 + 1024
+SLAB = 32        # depth of one 128-byte swizzled row
+
+
+def column_smem(backward, rows, d, h):
+    """A column CTA's dynamic shared-memory bytes for ``rows`` particle
+    rows at padded widths (D, H) (``col_smem_bytes`` of the kernels): the
+    GTF weights and biases, then per row the forward's z and work rows, or
+    the backward walk's xs, ys and z cotangent."""
+    la = 2 * h + d
+    lw = la + 3 * d
+    weights = la * d + la + 2 * (d * h + d) + d * d + d
+    per_row = max(d + lw, la + lw + d) if backward else d + lw
+    return 4 * (weights + rows * per_row)
+
+
+def _column_plan(k, b_dim, d, h, backward, max_width=COLUMN_MAX_WIDTH):
+    """The column route in one direction: the fewest columns a CTA that
+    put every column in one wave of the card (or, where none does, the
+    fewest waves), or None where the widths exceed ``max_width`` (None:
+    no cap, for a named route) or not even one column fits a CTA's shared
+    memory."""
+    if max_width is not None and max(d, h) > max_width:
+        return None
+    best = None
+    for cols in range(1, b_dim + 1):
+        smem = column_smem(backward, cols * k, d, h)
+        if smem > F32_SMEM_LIMIT:
+            break
+        per_sm = min(COLUMN_CTAS_PER_SM, F32_SM_SMEM // (smem + 1024))
+        ctas = -(-b_dim // cols)
+        plan = {"route": "column", "cols": cols, "rows": cols * k,
+                "ctas": ctas, "threads": COLUMN_THREADS, "smem": smem,
+                "waves": -(-ctas // (F32_SMS * per_sm))}
+        if best is None or plan["waves"] < best["waves"]:
+            best = plan
+        if plan["waves"] == 1:
+            break
+    return best
+
+
+def _wgmma_plan():
+    return {"route": "wgmma", "ctas": F32_SMS, "threads": WGMMA_THREADS,
+            "smem": WGMMA_SMEM, "stages": WGMMA_STAGES, "waves": 1}
+
+
+def _tiled_plan():
+    return {"route": "tiled", "waves": 1}
+
+
+def f32_scan_plan(k, b_dim, d, h, backward=False):
+    """The route and launch of a float32 scan kernel at K particles,
+    ``b_dim`` batch columns and padded widths (D, H), chosen by shape
+    before any launch.
+
+    ``route`` "column" (``csrc/f32_scan.cuh``): CTAs of 128 threads, each
+    owning ``cols`` whole columns (``rows`` = cols K particle rows) for the
+    whole time loop, weights and activations in ``smem`` bytes of shared
+    memory, no grid barrier; ``ctas`` CTAs in ``waves`` rounds of the card
+    (at most 4 CTAs an SM). Taken where D and H are at most
+    COLUMN_MAX_WIDTH (32) and both directions have such a plan, so that
+    the backward's recompute runs the forward's products.
+
+    ``route`` "wgmma" (``csrc/f32_scan.cuh``): a cooperative grid of one
+    CTA on each of the card's SMs (``ctas``, an estimate: the launch takes
+    the card's own count), ``threads`` (two consumer warpgroups and a TMA
+    producer warp), a ring of ``stages`` weight stages in ``smem`` bytes;
+    one wave by construction. Taken for every other shape: any D, H and
+    K.
+
+    The plan never gives the route "tiled" (the tile engine's kernels):
+    it runs where a caller names it (``_f32_plan``'s ``route``)."""
+    plans = [_column_plan(k, b_dim, d, h, bw) for bw in (False, True)]
+    if None not in plans:
+        return plans[int(bool(backward))]
+    return _wgmma_plan()
+
+
+_FORCED_ROUTE = []
+
+
+@contextlib.contextmanager
+def f32_route(route):
+    """For tests and chip_smoke.py: within the block, every float32 scan
+    that ``bfvi_scan`` (the autograd entry) starts takes ``route``
+    ("column", "wgmma" or "tiled") instead of the plan's, forward and
+    backward alike (the backward takes the route its forward took, inside
+    the block or not). The wrappers themselves take a route only as their
+    ``route`` argument."""
+    if route not in ("column", "wgmma", "tiled"):
+        raise ValueError("no float32 scan route %r" % (route,))
+    _FORCED_ROUTE.append(route)
+    try:
+        yield
+    finally:
+        _FORCED_ROUTE.pop()
+
+
+def _f32_plan(k, b_dim, d, h, backward, route=None):
+    """``f32_scan_plan``'s plan, or with ``route`` that route's plan at
+    this shape: a launch whose shape ``route`` does not take raises (the
+    column route, at any width, where no CTA holds a column; the others
+    take every shape)."""
+    if route is None:
+        return f32_scan_plan(k, b_dim, d, h, backward)
+    if route == "column":
+        plan = _column_plan(k, b_dim, d, h, backward, max_width=None)
+        if plan is None:
+            raise ValueError("the column route takes no column at K = %d, "
+                             "D = %d, H = %d" % (k, d, h))
+        return plan
+    if route == "wgmma":
+        return _wgmma_plan()
+    if route == "tiled":
+        return _tiled_plan()
+    raise ValueError("no float32 scan route %r" % (route,))
+
+
+def tf32_round(x):
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32`` rounds it."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _f32_mats(w, backward):
+    """The (N, K) matrices of one direction's image, from the six weights
+    ``w`` (values or their indices) in PyTorch layout, in the kernels'
+    order (f32scan::W1 ... ZL_T): the forward's products read w1 = [gate_1;
+    nonlin_1; z_lin], gate_2, nonlin_2 and z_to_std as they are, the
+    backward's the transposes of z_to_std, gate_2, nonlin_2, gate_1,
+    nonlin_1 and z_lin."""
+    if backward:
+        return [w[n].t() for n in ("z_to_std", "gate_2", "nonlin_2",
+                                   "gate_1", "nonlin_1", "z_lin")]
+    return [torch.cat([w["gate_1"], w["nonlin_1"], w["z_lin"]]),
+            w["gate_2"], w["nonlin_2"], w["z_to_std"]]
+
+
+def _slab_order():
+    """Position L of a 32-deep slab's row holds depth j(L): the wgmma step
+    i = L // 8 reads column p = L % 8 of its 8-deep step, and the thread
+    that holds column p and p + 4 of A loads 8 consecutive values of a row,
+    so j = 8 (p % 4) + 2 i + p // 4."""
+    pos = torch.arange(SLAB)
+    i, p = pos // 8, pos % 8
+    return 8 * (p % 4) + 2 * i + p // 4
+
+
+def _f32_mat_image(m, fill):
+    """One (N, K) matrix (or its indices) as its image: ceil(K / 32) slabs
+    of N rows padded to IMG_ROWS, each row's 32 values in ``_slab_order``
+    and its 16-byte chunks in the 128-byte swizzle (chunk c of row n at
+    c ^ (n % 8)); ``fill`` past N and K."""
+    n, k = m.shape
+    ns, npad = -(-k // SLAB), -(-n // IMG_ROWS) * IMG_ROWS
+    full = m.new_full((npad, ns * SLAB), fill)
+    full[:n, :k] = m
+    kk = (SLAB * torch.arange(ns)[:, None] + _slab_order()[None, :]).to(
+        m.device)
+    src = full[:, kk].permute(1, 0, 2)  # (slab, row, L)
+    rows = torch.arange(npad, device=m.device)[:, None]
+    phys = torch.arange(SLAB, device=m.device)[None, :]
+    logical = ((phys // 4) ^ (rows % 8)) * 4 + phys % 4  # the swizzle's inverse
+    return torch.gather(src, 2, logical[None].expand(ns, npad, SLAB)).reshape(-1)
+
+
+_F32_INDEX = {}
+
+
+def _f32_index(d, h, backward, device):
+    """For each float of one direction's image half, its index in the six
+    weights flattened in GTF_LAYERS order, or one past them (a zero);
+    cached."""
+    key = (d, h, bool(backward), str(device))
+    if key not in _F32_INDEX:
+        shapes, w, n = _gtf_shapes(d, h), {}, 0
+        for name in GTF_LAYERS:
+            rows, cols = shapes[name]
+            w[name] = torch.arange(n, n + rows * cols).reshape(rows, cols)
+            n += rows * cols
+        _F32_INDEX[key] = torch.cat(
+            [_f32_mat_image(m, n) for m in _f32_mats(w, backward)]).to(device)
+    return _F32_INDEX[key]
+
+
+def f32_pack(gtf, d, h, backward=False):
+    """The wgmma route's weight image of one direction at padded widths
+    (D, H), float32: the TF32 high
+    parts of every matrix of ``_f32_mats``, then their low parts, hi =
+    tf32(w) and lo = tf32(w - hi), each matrix laid out by
+    ``_f32_mat_image``. One gather through a cached index."""
+    w = [gtf[n]["w"].detach().reshape(-1) for n in GTF_LAYERS]
+    flat = torch.cat(w + [w[0].new_zeros(1)])
+    vals = flat[_f32_index(d, h, backward, flat.device)]
+    hi = tf32_round(vals)
+    return torch.cat([hi, tf32_round(vals - hi)])
+
+
+class F32Pack:
+    """The wgmma route's images of one set of GTF weights at padded widths,
+    the forward's made at once, the backward's at first use, so that an
+    autograd call packs once and its backward reuses the pack."""
+
+    def __init__(self, gtf, d, h):
+        self.gtf, self.d, self.h = gtf, d, h
+        self.images = {False: f32_pack(gtf, d, h)}
+
+    def image(self, backward):
+        if backward not in self.images:
+            self.images[backward] = f32_pack(self.gtf, self.d, self.h,
+                                             backward)
+        return self.images[backward]
+
+
 # Zero-padding to the kernels' widths. A padded input dim meets only zero
 # weights, so the real dims never see the padded ones; the padded dims
 # carry mean 0, std 1 (global prior, experts, the recomputed prior std)
@@ -749,14 +1018,17 @@ def _plan_args(plan):
                               int(plan["resident"]), plan["smem"])
 
 
-def _images(pack, gtf, d, h):
-    """``pack`` (a ``Bf16Pack`` of ``gtf`` at widths (D, H)), or one made
-    here."""
+def _images(pack, gtf, d, h, cls=None):
+    """``pack`` (a ``Bf16Pack``, or ``cls``, of ``gtf`` at widths (D, H)),
+    or one made here."""
+    cls = Bf16Pack if cls is None else cls
     if pack is None:
-        return Bf16Pack(gtf, d, h)
-    if (pack.d, pack.h) != (d, h):
-        raise ValueError("the bf16 pack is at widths (%d, %d), the launch "
-                         "at (%d, %d)" % (pack.d, pack.h, d, h))
+        return cls(gtf, d, h)
+    if not isinstance(pack, cls) or (pack.d, pack.h) != (d, h):
+        raise ValueError("the pack is a %s at widths (%d, %d), the launch "
+                         "needs a %s at (%d, %d)" % (type(pack).__name__,
+                                                     pack.d, pack.h,
+                                                     cls.__name__, d, h))
     return pack
 
 
@@ -784,23 +1056,33 @@ def _check_inputs(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
     return t_max, n_exp, b_dim, k, d, h
 
 
-# A wrapper's launch counter by route: the float32 kernel, the bf16
-# cluster route, the bf16 tiled route.
-_COUNTERS = {"f32": "launches", "cluster": "launches_bf16",
-             "tiled": "launches_bf16_tiled"}
+# A scan wrapper's launch counter by (bf16, route): the float32 scan's
+# three routes (``f32_scan_plan``) and the bf16 scan's two
+# (``bf16_scan_plan``). ``.launches`` counts the float32 scan on any route.
+_COUNTERS = {(False, "column"): "launches_column",
+             (False, "wgmma"): "launches_wgmma",
+             (False, "tiled"): "launches_tiled",
+             (True, "cluster"): "launches_bf16",
+             (True, "tiled"): "launches_bf16_tiled"}
 
 
-def _count(wrapper, route):
-    """One launch of ``wrapper``'s kernel, on its route's counter."""
-    name = _COUNTERS[route]
+def _count(wrapper, bf16, route):
+    """One launch of ``wrapper``'s kernel, on its route's counter (and on
+    ``.launches`` for the float32 routes)."""
+    name = _COUNTERS[(bool(bf16), route)]
     setattr(wrapper, name, getattr(wrapper, name) + 1)
-
-
-def _route(k, b_dim, dp, hp, bf16, backward):
-    """(route, plan) of a scan launch: "f32", or the bf16 plan's route."""
     if not bf16:
-        return "f32", None
-    plan = bf16_scan_plan(k, b_dim, dp, hp, backward)
+        wrapper.launches += 1
+
+
+def _route(k, b_dim, dp, hp, bf16, backward, route=None):
+    """(route, plan) of a scan launch: the bf16 plan's, or the float32
+    plan's (``route``: the float32 route named by the caller)."""
+    if bf16 and route is not None:
+        raise ValueError("route names a float32 route; the bf16 scans "
+                         "take bf16_scan_plan's")
+    plan = (bf16_scan_plan(k, b_dim, dp, hp, backward) if bf16
+            else _f32_plan(k, b_dim, dp, hp, backward, route))
     return plan["route"], plan
 
 
@@ -815,16 +1097,20 @@ def _raise_on(rc, what):
 
 
 def bfvi_scan_fwd_cuda(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
-                       eps, min_std, bf16=False, *, pack=None):
-    """Launch the forward kernel (with ``bf16`` its bfloat16 variant on the
-    route of ``bf16_scan_plan``) on the current stream, at widths padded to
-    multiples of 4 (16 with ``bf16``, ``_check_sizes``); same outputs as
-    ``bfvi_scan_fwd_ref``. ``pack``: the ``Bf16Pack`` of ``gtf`` at the
-    padded widths for the cluster route, made here if None."""
+                       eps, min_std, bf16=False, *, pack=None, route=None):
+    """Launch the forward kernel on the route of ``f32_scan_plan`` (with
+    ``bf16`` its bfloat16 variant on the route of ``bf16_scan_plan``) on
+    the current stream, at widths padded to multiples of 4 (16 with
+    ``bf16``, ``_check_sizes``); same outputs as ``bfvi_scan_fwd_ref``.
+    ``pack``: the weight images of ``gtf`` at the padded widths, a
+    ``Bf16Pack`` for the bf16 cluster route or an ``F32Pack`` for the
+    wgmma route, made here if None. ``route``: a float32 route in place
+    of the plan's ("column", "wgmma" or "tiled"), to time or test one
+    route beside another."""
     t_max, n_exp, b_dim, k, d, h = _check_inputs(
         obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps)
     dp, hp = _check_sizes(k, d, h, bf16)
-    route, plan = _route(k, b_dim, dp, hp, bf16, False)
+    route, plan = _route(k, b_dim, dp, hp, bf16, False, route)
     opts = dict(dtype=torch.float32, device=obs_mean.device)
     outs = [torch.empty((t_max, b_dim, dp), **opts) for _ in range(5)]
     outs.append(torch.empty((t_max, k, b_dim, dp), **opts))
@@ -834,40 +1120,52 @@ def bfvi_scan_fwd_cuda(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
     dims = (t_max, n_exp, b_dim, k, dp, hp, float(min_std),
             _stream(obs_mean))
     # (getattr: a caller may stand a recording wrapper in for this one)
-    keep = getattr(bfvi_scan_fwd_cuda, "rows", None) if bf16 else None
+    keep = getattr(bfvi_scan_fwd_cuda, "rows", None)
+    if not bf16 and route == "tiled":
+        keep = None  # the float32 tiled kernel writes no rows
     rows = None
     if keep is not None:
         rows = torch.empty(((t_max - 1) * k * b_dim, 2 * hp + dp), **opts)
-    if route == "cluster":
+    work = None
+    if route in ("tiled", "wgmma"):
+        work = [torch.empty((k * b_dim, 2 * hp + 4 * dp), **opts),
+                _barrier(obs_mean.device)]
+    if bf16 and route == "cluster":
         pack = _images(pack, gtf, dp, hp)
         rc = _lib(True).bfvi_scan_fwd(
             *[_ptr(v) for v in args + [rows, None]], *dims,
             *_image_args(pack, False), _plan_args(plan))
-    elif route == "tiled":
-        work = torch.empty((k * b_dim, 2 * hp + 4 * dp), **opts)
+    elif bf16:
         rc = _lib(True).bfvi_scan_fwd_tiled(
-            *[_ptr(v) for v in args + [work, _barrier(obs_mean.device)]],
-            *dims, _ptr(rows))
+            *[_ptr(v) for v in args + work], *dims, _ptr(rows))
+    elif route == "wgmma":
+        img = _images(pack, gtf, dp, hp, F32Pack).image(False)
+        rc = _f32_lib().bfvi_scan_fwd_wgmma(
+            *[_ptr(v) for v in args + work], *dims, _ptr(rows), _ptr(img),
+            img.numel())
+    elif route == "column":
+        rc = _f32_lib().bfvi_scan_fwd_column(
+            *[_ptr(v) for v in args + [None, None]], *dims, _ptr(rows),
+            plan["cols"])
     else:
-        work = torch.empty((k * b_dim, 2 * hp + 4 * dp), **opts)
-        rc = _lib().bfvi_scan_fwd(
-            *[_ptr(v) for v in args + [work, _barrier(obs_mean.device)]],
-            *dims)
-    _raise_on(rc, "bfvi_scan_fwd (%s)" % route)
-    _count(bfvi_scan_fwd_cuda, route)
+        rc = _lib().bfvi_scan_fwd(*[_ptr(v) for v in args + work], *dims)
+    _raise_on(rc, "bfvi_scan_fwd (%s%s)" % ("bf16 " if bf16 else "", route))
+    _count(bfvi_scan_fwd_cuda, bf16, route)
     if rows is not None:
-        keep.append(_rb(_unpad_blocks(rows, (h, h, d), (hp, hp, dp))))
+        rows = _unpad_blocks(rows, (h, h, d), (hp, hp, dp))
+        keep.append(_rb(rows) if bf16 else rows)
     if dp != d:
         outs = [o[..., :d].contiguous() for o in outs]
     return tuple(outs)
 
 
-bfvi_scan_fwd_cuda.launches = bfvi_scan_fwd_cuda.launches_bf16 = 0
-bfvi_scan_fwd_cuda.launches_bf16_tiled = 0
-# A list to which each bf16 launch (either route) appends the rows [h1 |
-# hn | z_nonlin] of its own transition rounded to bfloat16 (laid out as the
-# backward's xs, at the real widths), or None: the backward's recompute
-# must give the same rows bit for bit.
+for _name in ("launches",) + tuple(_COUNTERS.values()):
+    setattr(bfvi_scan_fwd_cuda, _name, 0)
+# A list to which each launch on the bf16 routes and the float32 column and
+# wgmma routes appends the rows [h1 | hn | z_nonlin] of its own transition
+# (laid out as the backward's xs, at the real widths; on the bf16 routes
+# rounded to bfloat16), or None: the backward's recompute must give the
+# same rows bit for bit.
 bfvi_scan_fwd_cuda.rows = None
 
 
@@ -878,20 +1176,22 @@ def partial_size(d, h):
     return d * la + la + 2 * (h * d + d) + d * d + d
 
 
-def bfvi_scan_bwd_cuda(res, cots, min_std, bf16=False, *, pack=None):
-    """Launch the backward scan kernel on the current stream, then the
-    weight-gradient kernel on the rows it wrote (with ``bf16`` the
+def bfvi_scan_bwd_cuda(res, cots, min_std, bf16=False, *, pack=None,
+                       route=None):
+    """Launch the backward scan kernel on the route of ``f32_scan_plan`` on
+    the current stream, then the weight-gradient kernel on the rows it
+    wrote (with ``bf16`` the
     bfloat16 variants: the scan on the route of ``bf16_scan_plan``, which
     writes its rows in bfloat16 and the bias gradients' f32 sums, and
     ``gtf_wgrad_bf16_cuda``'s kernel), at widths padded to multiples of 4
-    (16 with ``bf16``); same outputs as ``bfvi_scan_bwd_ref``. ``pack`` as
-    in ``bfvi_scan_fwd_cuda``."""
+    (16 with ``bf16``); same outputs as ``bfvi_scan_bwd_ref``. ``pack`` and
+    ``route`` as in ``bfvi_scan_fwd_cuda``."""
     (obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps, z_traj,
      prior_mean, prior_std) = res
     t_max, n_exp, b_dim, k, d, h = _check_inputs(
         obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps)
     dp, hp = _check_sizes(k, d, h, bf16)
-    route, plan = _route(k, b_dim, dp, hp, bf16, True)
+    route, plan = _route(k, b_dim, dp, hp, bf16, True, route)
     _check_tensor("z_traj", z_traj, (t_max, k, b_dim, d))
     for name, x in zip(("prior_mean", "prior_std", "g_prior_mean",
                         "g_prior_std", "g_infer_mean", "g_infer_std",
@@ -920,7 +1220,7 @@ def bfvi_scan_bwd_cuda(res, cots, min_std, bf16=False, *, pack=None):
         rows = [torch.empty((n_rows, w), **bfo) for w in (dp, lx, ly)]
         n_bp = plan["groups"] if route == "cluster" else plan["bias_chunks"]
         bias_part = torch.zeros((n_bp, ly), **opts)
-    if route == "cluster":
+    if bf16 and route == "cluster":
         pack = _images(pack, res[5], dp, hp)
         ds, hs = dp // plan["cluster"], hp // plan["cluster"]
         bacc = torch.empty((plan["ctas"], plan["rows"] * (2 * hs + ds)
@@ -930,18 +1230,27 @@ def bfvi_scan_bwd_cuda(res, cots, min_std, bf16=False, *, pack=None):
             *_image_args(pack, True), *_image_args(pack, False),
             _plan_args(plan), *[_ptr(v) for v in (rows[1], rows[2], rows[0],
                                                   bacc, bias_part)])
+    elif route == "column":
+        rc = _f32_lib().bfvi_scan_bwd_column(
+            *[_ptr(v) for v in args + [None, None]], *dims, plan["cols"])
     else:
         gz = torch.zeros((3, k * b_dim, dp), **opts)
         tail = []
-        if route == "tiled":
+        if bf16:
             tail = [_ptr(v) for v in (rows[1], rows[2], rows[0], bias_part)]
             tail.append(n_bp)
-        lib = _lib(bf16)
-        fn = lib.bfvi_scan_bwd_tiled if bf16 else lib.bfvi_scan_bwd
+            fn = _lib(True).bfvi_scan_bwd_tiled
+        elif route == "wgmma":
+            pack = _images(pack, res[5], dp, hp, F32Pack)
+            tail = [_ptr(pack.image(False)), pack.image(False).numel(),
+                    _ptr(pack.image(True)), pack.image(True).numel()]
+            fn = _f32_lib().bfvi_scan_bwd_wgmma
+        else:
+            fn = _lib().bfvi_scan_bwd
         rc = fn(*[_ptr(v) for v in args + [gz, _barrier(dev)]], *dims,
                 *tail)
-    _raise_on(rc, "bfvi_scan_bwd (%s)" % route)
-    _count(bfvi_scan_bwd_cuda, route)
+    _raise_on(rc, "bfvi_scan_bwd (%s%s)" % ("bf16 " if bf16 else "", route))
+    _count(bfvi_scan_bwd_cuda, bf16, route)
     if bfvi_scan_bwd_cuda.rows is not None:
         bfvi_scan_bwd_cuda.rows.append(_unpad_blocks(
             rows[1].to(torch.float32) if bf16 else xs, (h, h, d),
@@ -958,8 +1267,8 @@ def bfvi_scan_bwd_cuda(res, cots, min_std, bf16=False, *, pack=None):
     return outs + (d_gtf,)
 
 
-bfvi_scan_bwd_cuda.launches = bfvi_scan_bwd_cuda.launches_bf16 = 0
-bfvi_scan_bwd_cuda.launches_bf16_tiled = 0
+for _name in ("launches",) + tuple(_COUNTERS.values()):
+    setattr(bfvi_scan_bwd_cuda, _name, 0)
 # A list to which each launch (of any route) appends the xs rows it wrote
 # (the float32 kernel's, the bf16 routes' bfloat16 rows as float32), at the
 # real widths, or None: their h1 and hn hold the kernel's ReLU masks, for
@@ -1053,7 +1362,7 @@ def _gtf_wgrad_launch(z_traj, xs, ys, n_rows, d, h):
     rc = _lib().gtf_wgrad(_ptr(z_traj), _ptr(xs), _ptr(ys), _ptr(partial),
                           splits, n_rows, d, h, _stream(xs))
     _raise_on(rc, "gtf_wgrad")
-    _count(gtf_wgrad_cuda, "f32")
+    gtf_wgrad_cuda.launches += 1
     return unpack_partial(partial.sum(0), d, h)
 
 
@@ -1155,16 +1464,22 @@ class _BfviScan(torch.autograd.Function):
                 glb_mean, glb_std, eps, *wb):
         gtf = _gtf_from_flat(wb)
         kernel = obs_mean.is_cuda and plain is not True
-        ctx.pack = None
+        ctx.pack = ctx.route = None
         if kernel:
+            # The float32 route, named once for the forward and the
+            # backward (f32_route's, else the plan's), and the cluster and
+            # wgmma routes' weight images: one pack for both.
             kw = {}
-            if bf16:  # the cluster route: one pack for forward and backward
-                d, h = obs_mean.shape[-1], gtf["gate_1"]["w"].shape[0]
-                k, b_dim = eps.shape[1], obs_mean.shape[2]
-                dp, hp = _check_sizes(k, d, h, True)
-                if bf16_scan_plan(k, b_dim, dp, hp)["route"] == "cluster":
-                    ctx.pack = kw["pack"] = Bf16Pack(_pad_gtf(gtf, dp, hp),
-                                                     dp, hp)
+            if not bf16 and _FORCED_ROUTE:
+                ctx.route = kw["route"] = _FORCED_ROUTE[-1]
+            d, h = obs_mean.shape[-1], gtf["gate_1"]["w"].shape[0]
+            k, b_dim = eps.shape[1], obs_mean.shape[2]
+            dp, hp = _check_sizes(k, d, h, bf16)
+            route = _route(k, b_dim, dp, hp, bf16, False, ctx.route)[0]
+            cls = {(True, "cluster"): Bf16Pack,
+                   (False, "wgmma"): F32Pack}.get((bf16, route))
+            if cls is not None:
+                ctx.pack = kw["pack"] = cls(_pad_gtf(gtf, dp, hp), dp, hp)
             outs = bfvi_scan_fwd_cuda(obs_mean, obs_std, obs_mask, glb_mean,
                                       glb_std, gtf, eps, min_std, bf16, **kw)
         else:
@@ -1186,7 +1501,7 @@ class _BfviScan(torch.autograd.Function):
         res = (obs_mean, obs_std, obs_mask, glb_mean, glb_std,
                _gtf_from_flat(wb), eps, z_traj, prior_mean, prior_std)
         if ctx.kernel:
-            kw = {"pack": ctx.pack} if ctx.bf16 else {}
+            kw = {"pack": ctx.pack, "route": ctx.route}
             d_om, d_os, d_gm, d_gs, d_gtf = bfvi_scan_bwd_cuda(
                 res, cots, ctx.min_std, ctx.bf16, **kw)
         else:

@@ -149,12 +149,113 @@ def test_backward_is_deterministic(dev):
             assert torch.equal(first[4][name][kk], second[4][name][kk]), name
 
 
-def _check_against_plain(x, gtf, eps, cots):
+# Each float32 route at the widths that the plan gives it (the column route
+# at the spirals model's D = 5, H = 20 and at D = 12, H = 20, both padded to
+# multiples of 4; the wgmma route at the Weizmann width, at D = 464, whose
+# depth ends inside a 32-deep slab, at a narrow D beside a wide H and at
+# D = 44, H = 36, between the column route's widths and 64), at K = 1, 4,
+# 25 and 50, against the plain versions at the unchanged tolerances; each
+# route counts its own launches.
+@pytest.mark.parametrize("k", [1, 4, 25, 50])
+@pytest.mark.parametrize("d,h,route", [(5, 20, "column"), (12, 20, "column"),
+                                       (256, 256, "wgmma"),
+                                       (464, 256, "wgmma"),
+                                       (32, 256, "wgmma"),
+                                       (44, 36, "wgmma")])
+def test_f32_routes_match_plain_versions(dev, d, h, route, k):
+    x, gtf, eps, cots = _inputs(dev, t_max=4, b_dim=9, d=d, h=h, k=k)
+    dp, hp = tscan._check_sizes(k, d, h)
+    for backward in (False, True):
+        assert tscan.f32_scan_plan(k, 9, dp, hp, backward)["route"] == route
+    wrappers = (tscan.bfvi_scan_fwd_cuda, tscan.bfvi_scan_bwd_cuda)
+    name = "launches_" + route
+    before = [getattr(f, name) for f in wrappers]
+    _check_against_plain(x, gtf, eps, cots)
+    assert [getattr(f, name) for f in wrappers] == [before[0] + 1,
+                                                    before[1] + 1]
+
+
+@pytest.mark.parametrize("d,h,k", [(5, 20, 25), (12, 20, 4), (256, 256, 25),
+                                   (256, 256, 50), (464, 256, 1)])
+def test_f32_recompute_equals_forward_and_runs_agree(dev, d, h, k):
+    """On the column and wgmma routes the backward's recomputed transition
+    (its xs rows h1, hn, z_nonlin) equals the forward kernel's own bit for
+    bit (one product routine and one order of depth for both), and two
+    backward runs agree bit for bit (no float atomics)."""
+    x, gtf, eps, cots = _inputs(dev, t_max=5, b_dim=9, d=d, h=h, k=k)
+    tscan.bfvi_scan_fwd_cuda.rows = fwd_rows = []
+    tscan.bfvi_scan_bwd_cuda.rows = bwd_rows = []
+    try:
+        got = tscan.bfvi_scan_fwd_cuda(*x, gtf, eps, MIN_STD)
+        res = tuple(x) + (gtf, eps, got[5], got[0], got[1])
+        first = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD)
+    finally:
+        tscan.bfvi_scan_fwd_cuda.rows = tscan.bfvi_scan_bwd_cuda.rows = None
+    second = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD)
+    assert fwd_rows[0].shape == bwd_rows[0].shape == (4 * k * 9, 2 * h + d)
+    assert torch.equal(fwd_rows[0], bwd_rows[0])
+    for i in range(4):
+        assert torch.equal(first[i], second[i]), i
+    for name in tscan.GTF_LAYERS:
+        for kk in ("w", "b"):
+            assert torch.equal(first[4][name][kk], second[4][name][kk]), name
+
+
+# The tiled kernels, the route "tiled" (the tile engine's, which the plan no
+# longer gives: the reference that the new routes are timed against), named
+# by the caller at shapes of both new routes: D = 32 beside H = 256, K = 256
+# columns that no column CTA holds, the spirals widths and the Weizmann
+# width.
+@pytest.mark.parametrize("d,h,k,planned", [(32, 256, 4, "wgmma"),
+                                           (32, 24, 256, "wgmma"),
+                                           (5, 20, 25, "column"),
+                                           (256, 256, 25, "wgmma")])
+def test_tiled_route_matches_plain_versions(dev, d, h, k, planned):
+    x, gtf, eps, cots = _inputs(dev, t_max=4, b_dim=9, d=d, h=h, k=k)
+    dp, hp = tscan._check_sizes(k, d, h)
+    assert tscan.f32_scan_plan(k, 9, dp, hp)["route"] == planned
+    wrappers = (tscan.bfvi_scan_fwd_cuda, tscan.bfvi_scan_bwd_cuda)
+    before = [f.launches_tiled for f in wrappers]
+    _check_against_plain(x, gtf, eps, cots, route="tiled")
+    assert [f.launches_tiled for f in wrappers] == [before[0] + 1,
+                                                    before[1] + 1]
+
+
+def test_autograd_backward_takes_the_forward_route(dev):
+    """``f32_route`` names the route for the scans that ``bfvi_scan``
+    starts in its block; the backward runs on the route its forward took,
+    though it runs after the block, and gives the gradients of the plan's
+    route within BWD_TOL."""
+    x, gtf, eps, _ = _inputs(dev, t_max=4, b_dim=9, d=5, h=20, k=4)
+    wrappers = (tscan.bfvi_scan_fwd_cuda, tscan.bfvi_scan_bwd_cuda)
+
+    def grads(route):
+        leaves = [v.clone().requires_grad_(True) for v in (x[0], x[1])]
+        if route is None:
+            outs = tscan.bfvi_scan(*leaves, *x[2:], gtf, eps, MIN_STD)
+        else:
+            with tscan.f32_route(route):
+                outs = tscan.bfvi_scan(*leaves, *x[2:], gtf, eps, MIN_STD)
+        sum(o.sum() for o in outs).backward()
+        return [v.grad for v in leaves]
+
+    before = [(f.launches_tiled, f.launches_column) for f in wrappers]
+    forced = grads("tiled")
+    after = [(f.launches_tiled, f.launches_column) for f in wrappers]
+    assert after == [(b[0] + 1, b[1]) for b in before]
+    planned = grads(None)
+    assert [f.launches_column for f in wrappers] == [a[1] + 1 for a in after]
+    for g, e in zip(forced, planned):
+        _assert_grads(g, e, "tiled against column")
+
+
+def _check_against_plain(x, gtf, eps, cots, route=None):
     """The forward kernel against the plain forward; the backward kernel
     against the plain backward on the kernel's ReLU masks in the GTF's
     first layers, each unit where those differ from the plain masks
-    within rounding of 0 (as chip_smoke.py's phase 3)."""
-    got = tscan.bfvi_scan_fwd_cuda(*x, gtf, eps, MIN_STD)
+    within rounding of 0 (as chip_smoke.py's phase 3); ``route``: the
+    float32 route in place of the plan's."""
+    got = tscan.bfvi_scan_fwd_cuda(*x, gtf, eps, MIN_STD, route=route)
     exp = tscan.bfvi_scan_fwd_ref(*x, gtf, eps, MIN_STD)
     for i, (g, e) in enumerate(zip(got, exp)):
         np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(),
@@ -162,7 +263,7 @@ def _check_against_plain(x, gtf, eps, cots):
     res = tuple(x) + (gtf, eps, exp[5], exp[0], exp[1])
     tscan.bfvi_scan_bwd_cuda.rows = rows = []
     try:
-        got = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD)
+        got = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD, route=route)
     finally:
         tscan.bfvi_scan_bwd_cuda.rows = None
     ref, margins = tscan.bfvi_scan_bwd_ref_on_masks(res, cots, MIN_STD,
