@@ -9,7 +9,9 @@ imports nothing of JAX or of the JAX package. Phases:
 1. the device: name and power limit (``nvidia-smi``), TF32 off;
 2. the build: the CUDA kernels of ``multimodal_dmm_tpu_torch/csrc`` with
    nvcc for sm_90a, each kernel's ptxas lines; the float32 scans' column
-   and wgmma kernels (``csrc/f32_scan.cuh``) must spill 0 bytes;
+   and wgmma kernels (``csrc/f32_scan.cuh``) and the float32 weight
+   gradients' narrow and wgmma kernels (``csrc/f32_wgrad.cuh``) must
+   spill 0 bytes;
 3. each kernel against its plain PyTorch version at the main path's
    shapes (T = 25, B = 100 variant columns, D = H = 256, (M, K) = (3, 1),
    (3, 25), (5, 1)), with their times and the card's bound (three TF32
@@ -23,9 +25,13 @@ imports nothing of JAX or of the JAX package. Phases:
    the backward is held to the plain backward run on its own ReLU
    masks in the GTF's first layers, each unit where those differ from the
    plain masks within rounding of 0 (``relu_flip_bound``), and two runs
-   of it must agree bit for bit; the weight-gradient kernel's device time
-   on rows at its padded widths, as the backward launches it, beside its
-   library yardstick (four ``torch.mm`` and the bias sums); the forward
+   of it must agree bit for bit; the weight-gradient kernel on the route
+   of ``f32_wgrad_plan`` (the wgmma route here, the narrow route at the
+   spirals widths; ``log_wgrad_plan`` fails on the tiled one), two runs
+   bit for bit, its device time on rows at its padded widths, as the
+   backward launches it, beside its library yardstick (four ``torch.mm``
+   and the bias sums) and, in turns, beside the tiled kernel (the twin,
+   held to the plain version alike, ``tiled_twin_ms``); the forward
    kernel also at the evaluation's smoothing shape (T = 56, B = 25, (M,
    K) = (5, 1)), a row of its own;
 4. the Weizmann BFVI training step at full width (weights from --seed,
@@ -181,7 +187,9 @@ imports nothing of JAX or of the JAX package. Phases:
    0 just before the run and read just after it, every kernel of those
    steps launched; (a') the float32 routes at D = H = 32 (the column
    route's widest), D = H = 64 and D = 32, H = 256, K = 25, each route
-   that takes the shape against the plain versions, timed in turns;
+   that takes the shape against the plain versions, timed in turns, and
+   the weight gradients' three routes there and at D = 32, H = 16 and D =
+   24, H = 32 alike (``time_wgrad_routes``);
 17. results export and evaluation across ranks: (a) ``apps.weizmann``'s
    command line (``Trainer.main`` of a ``WeizmannTrainer`` that keeps each
    set's results) with ``--load last.pth --evaluate --visualize`` on phase
@@ -204,16 +212,18 @@ imports nothing of JAX or of the JAX package. Phases:
    those of the single process.
 
 Phases 4, 8, 10, 12, 16 (b) and (d) (its planned step) fail if a float32 scan
-launch of their run took the tiled route (``check_f32_routes``, on the route
-counters). Any failed check raises, so the script exits non-zero before its
-last line. The line before the last is a JSON object with one entry per kernel
-and main path: the Weizmann rows (the float32 scans named by the route they
-ran: ``bfvi_scan_fwd_wgmma``, with ``tiled_twin_ms``), and
+or weight-gradient launch of their run took the tiled route
+(``check_f32_routes``, on the route counters). Any failed check raises, so the
+script exits non-zero before its last line. The line before the last is a JSON
+object with one entry per kernel and main path: the Weizmann rows (the float32
+kernels named by the route they ran: ``bfvi_scan_fwd_wgmma``,
+``gtf_wgrad_wgmma``, with ``tiled_twin_ms``), and
 the same kernels at the spirals and VidTIMIT shapes (``... (spirals)``,
-``... (vidtimit)``; the spirals scans ``bfvi_scan_fwd_column``), the tiled
-two scans (``bfvi_scan_fwd``, ``bfvi_scan_bwd``: the tiled twin's times
-and errors at the Weizmann step's shapes, launches of phase 16 (d)'s
-step on the tiled kernels), and
+``... (vidtimit)``; at the spirals widths ``bfvi_scan_fwd_column`` and
+``gtf_wgrad_narrow``), the tiled
+kernels (``bfvi_scan_fwd``, ``bfvi_scan_bwd``, ``gtf_wgrad``: the tiled
+twin's times and errors at the Weizmann step's shapes, launches of phase 16
+(d)'s step on the tiled kernels), and
 the three bf16 variants (``..._bf16``, phase 15: times and bounds at the
 Weizmann step's shapes, ``f32_twin_ms`` the float32 twin's in the same
 call for the two scans, launches of its command line, ``launches_by_phase``
@@ -294,6 +304,14 @@ F32_ROUTES = {"%s_%s" % (scan, route): (scan, route)
               for route in ("column", "wgmma", "tiled")
               for scan in ("bfvi_scan_fwd", "bfvi_scan_bwd")}
 NEW_ROUTES = ("column", "wgmma")
+# The float32 weight gradients' routes (ops/cuda/bfvi_scan.py:
+# f32_wgrad_plan), each counted on gtf_wgrad_cuda in ``.launches_<route>``
+# (``.launches`` counts every route): name -> the route. "narrow" and
+# "wgmma" are csrc/f32_wgrad.cuh's, "tiled" is the tile engine's gtf_wgrad_kernel
+# (csrc/bfvi_scan.cu), the KERNELS row "gtf_wgrad".
+F32_WGRAD_SRC = "multimodal_dmm_tpu_torch/csrc/f32_wgrad.cuh"
+WGRAD_ROUTES = {"gtf_wgrad_" + r: r for r in ("narrow", "wgmma", "tiled")}
+NEW_WGRAD_ROUTES = ("narrow", "wgmma")
 # (M, K, smoothing) at B = 25, D = 256
 CELL_SHAPES = ((3, 200, False), (5, 1, True))
 N_EVAL_SEQS = 10
@@ -395,15 +413,17 @@ def time_ms(fn, reps):
 
 def time_device_ms(fn, reps):
     """Mean device time of ``fn`` over ``reps`` back-to-back calls, by CUDA
-    events, after one warm-up call. A spin kernel of 200,000 cycles a call
-    (about 100 us at 2 GHz, twice what the host takes to enqueue one)
-    keeps the card busy while the host enqueues the calls, so the host's
-    launch overhead between short kernels is not counted."""
+    events, after one warm-up call. A spin kernel of 1,000,000 cycles a
+    call (about 500 us at 2 GHz; the host took 90-150 us to enqueue one
+    weight-gradient call, and 200,000 cycles let a slow host's gaps into a
+    K = 1 launch's time) keeps the card busy while the host enqueues the
+    calls, so the host's launch overhead between short kernels is not
+    counted."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(200_000 * reps)
+    torch.cuda._sleep(1_000_000 * reps)
     start.record()
     for _ in range(reps):
         fn()
@@ -642,6 +662,30 @@ def log_f32_plan(scan, k, b_dim, d, h):
     return routes[0]
 
 
+def log_wgrad_plan(scan, d, h, n_rows):
+    """The float32 weight gradients' launch plan over ``n_rows`` rows at
+    padded widths (D, H); fails if it gives the tiled kernel. Returns the
+    route."""
+    p = scan.f32_wgrad_plan(d, h, n_rows)
+    check(p["route"] in NEW_WGRAD_ROUTES, "gtf_wgrad at %d rows, D = %d, H "
+          "= %d: the plan gives the tiled route" % (n_rows, d, h))
+    if p["route"] == "narrow":
+        log("    plan gtf_wgrad (%d rows, D = %d, H = %d): the narrow route, "
+            "%d CTAs of %d threads (%d chunk(s) of %d blocks, %d groups of "
+            "rows), %d splits of %d-row stages, %d bytes of shared memory "
+            "a CTA: %d wave(s)"
+            % (n_rows, d, h, p["ctas"], p["threads"], p["chunks"],
+               p["per_chunk"], p["groups"], p["splits"], p["rows"],
+               p["smem"], p["waves"]))
+    else:
+        log("    plan gtf_wgrad (%d rows, D = %d, H = %d): the wgmma route, "
+            "%d units x %d splits = %d CTAs of %d threads, %d-row stages, "
+            "%d bytes of shared memory a CTA: %d wave(s)"
+            % (n_rows, d, h, p["units"], p["splits"], p["ctas"],
+               p["threads"], p["rows"], p["smem"], p["waves"]))
+    return p["route"]
+
+
 def ptxas_lines(name):
     """The ``-Xptxas -v`` lines of library ``name``'s kernels: each
     kernel's name, then its stack, spill and register lines."""
@@ -866,6 +910,23 @@ def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
                 check(torch.equal(w_got[n][kk], w_again[n][kk]),
                       "weight-gradient kernel %s.%s: two runs differ at K = "
                       "%d" % (n, kk, k))
+        if not bf16:
+            # The plan's weight-gradient route, and the tiled kernel (the
+            # twin) held to the plain version at the same shape.
+            wr = log_wgrad_plan(scan, dp, hp, n_rows)
+            r = rec["gtf_wgrad"]
+            r.setdefault("route", wr)
+            check(r["route"] == wr, "the step's weight gradients take two "
+                  "routes: %s and %s" % (r["route"], wr))
+            w_tiled = lambda: scan._gtf_wgrad_launch(  # noqa: E731
+                *w_pad, n_rows, dp, hp, "tiled")
+            t_got = scan.gtf_wgrad_cuda(exp[5], xs, ys, route="tiled")
+            for n in scan.GTF_LAYERS:
+                for kk in ("w", "b"):
+                    ok, a = max_norm_err(t_got[n][kk], w_exp[n][kk])
+                    r["tiled_err"] = max(r.get("tiled_err", 0.0), a)
+                    check(ok, "tiled weight-gradient kernel %s.%s disagrees "
+                          "at K = %d: max abs err %.3g" % (n, kk, k, a))
         if bf16:
             # The bias gradients sum float32 cotangents on both routes:
             # only the weights tell them apart.
@@ -925,6 +986,18 @@ def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
         # (the host's enqueue of a call outlasts a K = 1 launch).
         times.insert(4, time_device_ms(w_path, max(reps, 10)))
         lib_ms = time_device_ms(w_lib, max(reps, 10)) if has_lib else None
+        if not bf16:
+            # The weight gradients' route beside the tiled twin, in turns.
+            w_turns = [time_device_ms(fn, max(reps, 10)) for fn in (
+                w_path, w_tiled, w_path, w_tiled)]
+            w_new = (w_turns[0] + w_turns[2]) / 2
+            w_old = (w_turns[1] + w_turns[3]) / 2
+            r = rec["gtf_wgrad"]
+            r["tiled_twin_ms"] = r.get("tiled_twin_ms", 0.0) + w_old
+            log("  gtf_wgrad %s: the %s route %.4f ms against the tiled "
+                "twin's %.4f (%.2fx), in turns; library %s; tiled twin max "
+                "abs err %.3g" % (what, wr, w_new, w_old, w_old / w_new,
+                                  "%.4f ms" % lib_ms, r["tiled_err"]))
         if not bf16:
             # Each scan on its route beside the tiled kernel, in turns.
             def fwd(route=None):
@@ -1218,20 +1291,24 @@ def check_evaluation(trainer, seed, n_evals, bf16=False):
 
 def kernel_wrappers():
     """The float32 kernels' wrappers (the two scans' counts of every route,
-    the weight gradients, the cell) and each float32 scan route's own count
-    (``F32_ROUTES``)."""
+    the weight gradients' of every route, the cell) and each float32 scan
+    route's own count (``F32_ROUTES``) and each weight-gradient route's
+    (``WGRAD_ROUTES``)."""
     from multimodal_dmm_tpu_torch.ops.cuda import bfvi_scan, poe_cell
     out = {name: getattr(bfvi_scan, name + "_cuda") for name in SCAN_KERNELS}
     out["poe_sample_cell"] = poe_cell.poe_sample_cell_cuda
     for name, (f32, route) in F32_ROUTES.items():
         out[name] = RouteCount(out[f32], "launches_" + route)
+    for name, route in WGRAD_ROUTES.items():
+        out[name] = RouteCount(out["gtf_wgrad"], "launches_" + route)
     return out
 
 
 def check_f32_routes(launches, what):
     """Every float32 scan launch of a main-path run (``launches``, by
-    wrapper name) on the column or wgmma route: none on the tiled
-    kernels, each scan's launches those of its two new routes."""
+    wrapper name) on the column or wgmma route, and every float32
+    weight-gradient launch on the narrow or wgmma route: none on the
+    tiled kernels, each kernel's launches those of its two new routes."""
     for f32 in ("bfvi_scan_fwd", "bfvi_scan_bwd"):
         new = sum(launches[f32 + "_" + r] for r in NEW_ROUTES)
         tiled = launches[f32 + "_tiled"]
@@ -1239,6 +1316,12 @@ def check_f32_routes(launches, what):
               "%s: %s launched %d times, %d on the column or wgmma route, "
               "%d on the tiled route" % (what, f32, launches[f32], new,
                                          tiled))
+    new = sum(launches["gtf_wgrad_" + r] for r in NEW_WGRAD_ROUTES)
+    tiled = launches["gtf_wgrad_tiled"]
+    check(tiled == 0 and new == launches["gtf_wgrad"],
+          "%s: gtf_wgrad launched %d times, %d on the narrow or wgmma "
+          "route, %d on the tiled route" % (what, launches["gtf_wgrad"], new,
+                                            tiled))
 
 
 class RouteCount:
@@ -1614,7 +1697,8 @@ def check_bench_step(scan, seed, targets, card, profile_path=None):
     check(all(bool(torch.isfinite(g).all()) for g in g_m.values()),
           "merged branch: non-finite gradient")
     want = {n: 0 for n in wrappers}
-    for n in SCAN_KERNELS + ("bfvi_scan_fwd_wgmma", "bfvi_scan_bwd_wgmma"):
+    for n in SCAN_KERNELS + ("bfvi_scan_fwd_wgmma", "bfvi_scan_bwd_wgmma",
+                             "gtf_wgrad_wgmma"):
         want[n] = 2
     check(merged == want, "merged branch launches %s, expected two of each "
           "scan kernel, the scans on the wgmma route" % merged)
@@ -3093,11 +3177,20 @@ THRESHOLD_SHAPES = ((25, V_MAIN * B_DATA, 32, 32),
                     (25, V_MAIN * B_DATA, 32, 256))
 
 
+# and the weight gradients' routes alone at the two shapes on either side of
+# WGRAD_NARROW_MAX_BLOCKS (D = 32, H = 16: 296 blocks; D = 24, H = 32: 304).
+WGRAD_THRESHOLD_SHAPES = ((25, V_MAIN * B_DATA, 32, 16),
+                          (25, V_MAIN * B_DATA, 24, 32))
+
+
 def time_thresholds(scan, dev, seed):
     """Phase 16 (a'): ``time_routes`` at each of THRESHOLD_SHAPES (T = 25,
-    M = 3)."""
-    return {shape: time_routes(scan, dev, seed, shape)
-            for shape in THRESHOLD_SHAPES}
+    M = 3), ``time_wgrad_routes`` at WGRAD_THRESHOLD_SHAPES."""
+    out = {shape: time_routes(scan, dev, seed, shape)
+           for shape in THRESHOLD_SHAPES}
+    for shape in WGRAD_THRESHOLD_SHAPES:
+        out[shape] = {"gtf_wgrad": time_wgrad_routes(scan, dev, seed, shape)}
+    return out
 
 
 def time_routes(scan, dev, seed, shape):
@@ -3143,6 +3236,47 @@ def time_routes(scan, dev, seed, shape):
     log("  (a') the float32 routes at %s (the plan's: %s), in turns: %s"
         % (what, plan, ", ".join("%s forward %.3f ms, backward %.3f ms"
                                  % (r, f, b) for r, (f, b) in out.items())))
+    out["gtf_wgrad"] = time_wgrad_routes(scan, dev, seed, shape)
+    return out
+
+
+def time_wgrad_routes(scan, dev, seed, shape):
+    """The float32 weight gradients on each route ("narrow", "wgmma" and
+    the tile engine's "tiled") over the (T - 1) K B rows of ``shape`` at
+    T = 25 (random rows from ``seed``), each against the plain version
+    (every leaf within BWD_TOL, ``max_norm_err``), then timed in turns by
+    device time: the measurement behind WGRAD_NARROW_MAX_WIDTH and
+    WGRAD_NARROW_MAX_BLOCKS. Returns {route: ms}."""
+    k, b_dim, d, h = shape
+    n_rows = (T_MAIN - 1) * k * b_dim
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    z_traj = torch.randn((T_MAIN, k, b_dim, d), generator=gen, device=dev)
+    xs = torch.randn((n_rows, 2 * h + d), generator=gen, device=dev)
+    ys = torch.randn((n_rows, 2 * h + 4 * d), generator=gen, device=dev)
+    exp = scan.gtf_wgrad_ref(z_traj, xs, ys)
+    routes = [r for r in WGRAD_ROUTES.values()]
+    for route in routes:
+        got = scan.gtf_wgrad_cuda(z_traj, xs, ys, route=route)
+        for n in scan.GTF_LAYERS:
+            for kk in ("w", "b"):
+                ok, a = max_norm_err(got[n][kk], exp[n][kk])
+                check(ok, "gtf_wgrad on the %s route, %s.%s at K = %d, D = "
+                      "%d, H = %d: max abs err %.3g" % (route, n, kk, k, d,
+                                                        h, a))
+    dp, hp = scan._check_sizes(k, d, h)
+    pad = (scan._pad_last(z_traj, dp),
+           scan._pad_blocks(xs, (h, h, d), (hp, hp, dp)),
+           scan._pad_blocks(ys, (h, h) + (d,) * 4, (hp, hp) + (dp,) * 4))
+    out = {}
+    for route in routes + routes[::-1]:
+        ms = time_device_ms(lambda: scan._gtf_wgrad_launch(
+            *pad, n_rows, dp, hp, route), 10)
+        out[route] = out.get(route, 0.0) + ms / 2
+    log("  (a') gtf_wgrad at K = %d, %d rows, D = %d, H = %d (the plan's: "
+        "%s), in turns: %s" % (k, n_rows, d, h,
+                               scan.f32_wgrad_plan(dp, hp, n_rows)["route"],
+                               ", ".join("%s %.4f ms" % kv
+                                         for kv in out.items())))
     return out
 
 
@@ -3208,6 +3342,7 @@ def check_repaired(scan, seed, dev, gtf, card):
         scan, f32, inputs, targets, mask, seed))}
     want = {n: 3 if n in SCAN_KERNELS else 0 for n in wrappers}
     want["bfvi_scan_fwd_wgmma"] = want["bfvi_scan_bwd_wgmma"] = 3
+    want["gtf_wgrad_wgmma"] = 3
     check(runs["16b_f32"] == want, "the float32 step at K = %d launched %s, "
           "expected %s" % (REPAIR_K, runs["16b_f32"], want))
     check_f32_routes(runs["16b_f32"], "phase 16 (b)'s float32 step")
@@ -3239,7 +3374,7 @@ def check_repaired(scan, seed, dev, gtf, card):
                                             mask, seed)
     runs["16d_tiled"] = counted("(d) float32, z = %d, h = %d, tiled "
                                 "kernels" % NARROW_ZH, on_tiled)
-    for name in ("bfvi_scan_fwd", "bfvi_scan_bwd"):
+    for name in ("bfvi_scan_fwd", "bfvi_scan_bwd", "gtf_wgrad"):
         check(runs["16d"][name + "_wgmma"] == runs["16d"][name] == 3,
               "the float32 step at z = %d, h = %d launched %s" % (
                   NARROW_ZH + (runs["16d"],)))
@@ -3681,16 +3816,26 @@ def main():
     for name in _build.SOURCES:
         for line in ptxas_lines(name):
             log("  ptxas %s:" % name, line)
-    # The column and wgmma routes' four kernels, each with 0 spilled bytes.
-    f32_lines = ptxas_lines("f32_scan")
-    for kern in ("fwd_column", "bwd_column", "fwd_wgmma", "bwd_wgmma"):
-        at = [i for i, ln in enumerate(f32_lines)
-              if ("bfvi_scan_%s_kernel" % kern) in ln]
-        check(len(at) == 1, "ptxas reports no bfvi_scan_%s_kernel" % kern)
-        spills = [ln for ln in f32_lines[at[0] + 1:at[0] + 4] if "spill" in ln]
-        check(spills and all("0 bytes spill stores, 0 bytes spill loads"
-                             in ln for ln in spills),
-              "bfvi_scan_%s_kernel spills: %s" % (kern, spills))
+    # The column and wgmma routes' four scan kernels and the weight
+    # gradients' narrow and wgmma kernels, each with 0 spilled bytes.
+    for lib, kerns in (("f32_scan", ["bfvi_scan_%s_kernel" % k for k in (
+            "fwd_column", "bwd_column", "fwd_wgmma", "bwd_wgmma")]),
+            ("f32_wgrad", ["gtf_wgrad_narrow_kernel",
+                           "gtf_wgrad_wgmma_kernel"])):
+        f32_lines = ptxas_lines(lib)
+        for kern in kerns:
+            at = [i for i, ln in enumerate(f32_lines) if kern in ln]
+            check(len(at) == 1, "ptxas reports no %s" % kern)
+            spills = [ln for ln in f32_lines[at[0] + 1:at[0] + 4]
+                      if "spill" in ln]
+            check(spills and all("0 bytes spill stores, 0 bytes spill loads"
+                                 in ln for ln in spills),
+                  "%s spills: %s" % (kern, spills))
+    # ptxas says where it serializes a kernel's wgmma chain (a cost, not a
+    # fault): none is expected in the weight gradients' wgmma kernel.
+    for line in _build.build_log("f32_wgrad").splitlines():
+        if "wgmma" in line and "serializ" in line:
+            log("  ptxas f32_wgrad:", line.strip())
 
     trainer = weizmann.make_trainer(seed=args.seed, device=dev)
     model = trainer.model
@@ -3903,8 +4048,9 @@ def main():
         for name, (source, replaces) in KERNELS.items():
             r = rows[name]
             kname = name
-            if "route" in r:  # a float32 scan: the route's kernel ran
-                kname, source = name + "_" + r["route"], F32_SRC
+            if "route" in r:  # float32: the route's kernel ran
+                kname = name + "_" + r["route"]
+                source = F32_WGRAD_SRC if name == "gtf_wgrad" else F32_SRC
             if name in SCAN_KERNELS:
                 by_what = max(r["bound_ms"], key=r["bound_ms"].get)
                 bms = sum(r["bound_ms"].values())
@@ -3924,11 +4070,12 @@ def main():
                 kernels[-1]["bound_f32_ms"] = r["bound_f32_ms"]
             if "tiled_twin_ms" in r:
                 kernels[-1]["tiled_twin_ms"] = r["tiled_twin_ms"]
-    # The tiled scans, the route "tiled": times and errors of the tiled twin
-    # at phase 3's shapes (the Weizmann step's three launches), beside the
-    # wgmma route's in the same call; launches of phase 16 (d)'s step on
-    # the tiled kernels (no shape is planned on them).
-    for name in ("bfvi_scan_fwd", "bfvi_scan_bwd"):
+    # The tiled scans and weight gradients, the route "tiled": times and
+    # errors of the tiled twin at phase 3's shapes (the Weizmann step's
+    # three launches), beside the wgmma route's in the same call; launches
+    # of phase 16 (d)'s step on the tiled kernels (no shape is planned on
+    # them).
+    for name in SCAN_KERNELS:
         r, kname = rec[name], name + "_tiled"
         kernels.append({
             "name": name, "route": "cuda", "source": KERNELS[name][0],
@@ -3939,7 +4086,8 @@ def main():
             "plain_ms": r["plain_ms"],
             "bound_ms": sum(r["bound_ms"].values()),
             "bound_by": max(r["bound_ms"], key=r["bound_ms"].get),
-            "library_ms": None, "bound_f32_ms": r["bound_f32_ms"]})
+            "library_ms": r.get("library_ms"),
+            "bound_f32_ms": r["bound_f32_ms"]})
     # The bf16 variants: times and bounds of phase 15 (a) at the Weizmann
     # step's shapes (one bf16 pass a product), launches of its command line
     # (e), of its step (b) and evaluation (c).

@@ -23,7 +23,8 @@ PKG_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = {"bfvi_scan": "bfvi_scan.cu", "bfvi_scan_bf16": "bfvi_scan_bf16.cu",
-           "f32_scan": "f32_scan.cu", "poe_cell": "poe_cell.cu"}
+           "f32_scan": "f32_scan.cu", "f32_wgrad": "f32_wgrad.cu",
+           "poe_cell": "poe_cell.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v"]

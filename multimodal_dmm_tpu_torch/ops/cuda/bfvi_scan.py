@@ -36,7 +36,15 @@ plus the particle trajectory z_traj (T, K, B, D) that the backward reads.
   ``.launches`` counts all three. The backward writes, for every particle row
   of every step, the activations and cotangents that the weight gradients are
   products of, and ``gtf_wgrad_cuda`` (plain version ``gtf_wgrad_ref``) forms
-  those products. With ``bf16=True`` the scan wrappers
+  those products on the route that ``f32_wgrad_plan`` chooses by shape
+  (``csrc/f32_wgrad.cuh``): "narrow" (D and H up to 32, at most
+  ``WGRAD_NARROW_MAX_BLOCKS`` 4 x 4 blocks of outputs: one pass over the
+  rows streamed by 1-D TMA, f32 FMA into 4 x 4 register blocks) or "wgmma"
+  (every other shape: TMA-fed wgmma in 3xTF32, the B operand converted to
+  K-major TF32 images in shared memory), counted in ``.launches_narrow``
+  and ``.launches_wgmma``; the tile engine's kernel, the route "tiled"
+  (``.launches_tiled``), runs where a caller names it (and under the
+  backward scan's tiled route). With ``bf16=True`` the scan wrappers
   launch the kernels' bfloat16 variants instead (``csrc/bfvi_scan_bf16.cu``)
   on the route that ``bf16_scan_plan`` chooses by shape before any launch:
   the cluster route, the two scans of ``csrc/bf16_scan.cuh`` (one thread
@@ -438,6 +446,18 @@ def _f32_lib():
         for fn in (lib.bfvi_scan_fwd_wgmma, lib.bfvi_scan_bwd_wgmma,
                    lib.bfvi_scan_fwd_column, lib.bfvi_scan_bwd_column):
             fn.restype = _I
+        lib._bfvi_typed = True
+    return lib
+
+
+def _wgrad_lib():
+    """The float32 weight gradients' narrow and wgmma routes
+    (``csrc/f32_wgrad.cu``)."""
+    lib = _build.load("f32_wgrad")
+    if not getattr(lib, "_bfvi_typed", False):
+        lib.gtf_wgrad_narrow.argtypes = [_P] * 4 + [_I] * 10 + [_P]
+        lib.gtf_wgrad_wgmma.argtypes = [_P] * 4 + [_I] * 5 + [_P]
+        lib.gtf_wgrad_narrow.restype = lib.gtf_wgrad_wgmma.restype = _I
         lib._bfvi_typed = True
     return lib
 
@@ -1185,7 +1205,9 @@ def bfvi_scan_bwd_cuda(res, cots, min_std, bf16=False, *, pack=None,
     writes its rows in bfloat16 and the bias gradients' f32 sums, and
     ``gtf_wgrad_bf16_cuda``'s kernel), at widths padded to multiples of 4
     (16 with ``bf16``); same outputs as ``bfvi_scan_bwd_ref``. ``pack`` and
-    ``route`` as in ``bfvi_scan_fwd_cuda``."""
+    ``route`` as in ``bfvi_scan_fwd_cuda``; the float32 weight gradients
+    take ``f32_wgrad_plan``'s route, or the tiled kernel with
+    ``route="tiled"``."""
     (obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps, z_traj,
      prior_mean, prior_std) = res
     t_max, n_exp, b_dim, k, d, h = _check_inputs(
@@ -1258,7 +1280,9 @@ def bfvi_scan_bwd_cuda(res, cots, min_std, bf16=False, *, pack=None,
     if bf16:
         d_gtf = _gtf_wgrad_bf16_launch(*rows, bias_part, dp, hp)
     else:
-        d_gtf = _gtf_wgrad_launch(z_traj, xs, ys, n_rows, dp, hp)
+        # the tiled weight-gradient kernel where the tiled scan is named
+        d_gtf = _gtf_wgrad_launch(z_traj, xs, ys, n_rows, dp, hp,
+                                  "tiled" if route == "tiled" else None)
     outs = (d_obs_mean, d_obs_std, d_glb_mean, d_glb_std)
     if dp != d:
         outs = tuple(o[..., :d].contiguous() for o in outs)
@@ -1277,24 +1301,171 @@ for _name in ("launches",) + tuple(_COUNTERS.values()):
 bfvi_scan_bwd_cuda.rows = None
 
 
-# The float32 weight-gradient kernel's CTAs: its output tiles (128 x 64,
-# the LargePromoted shape of csrc/tf32x3.cuh) times the row ranges it
-# splits the rows into, each with its own partial. 528 CTAs are two full
-# waves of two CTAs on each of the H100's 132 SMs: at D = H = 256 the 48
-# tiles times 11 ranges; at the spirals widths (D = 8 padded, H = 20) 4
-# tiles times 132 ranges, where 11 ranges left most SMs idle while each CTA
-# summed 67,500 rows.
+# The float32 weight gradients' routes, chosen by ``f32_wgrad_plan`` from
+# the padded widths before the launch (csrc/f32_wgrad.cuh): "narrow" and
+# "wgmma". The tiled gtf_wgrad_kernel (csrc/bfvi_scan.cu, the tile engine's
+# 128 x 64 tiles on mma.sync), the route "tiled", is planned for no shape:
+# it runs where a caller names it (``route="tiled"``; the backward scan's
+# ``route="tiled"``, and so ``f32_route("tiled")``), the twin that the new
+# routes are timed against. Its CTAs: the output tiles times the row ranges
+# it splits the rows into, each with its own partial; 528 CTAs are two full
+# waves of two CTAs on each of the H100's 132 SMs.
 WGRAD_CTAS = 528
 WGRAD_TILE = (128, 64)
+# The narrow route (kNarrowThreads, kNarrowStages): CTAs of at most 512
+# threads, each thread one 4 x 4 block of outputs (``narrow_blocks``), a
+# ring of three stages of rows of at most 32 KB (and 64 rows), two CTAs an
+# SM. The plan takes it where D and H are at most WGRAD_NARROW_MAX_WIDTH
+# and its blocks number at most WGRAD_NARROW_MAX_BLOCKS: on the H100, at
+# 60,000 rows (K = 25, 100 columns), its time grows with its blocks while
+# the wgmma route's stays at about 0.045 ms, and the two cross between 296
+# blocks (D = 32, H = 16: narrow 9 % ahead) and 304 (D = 24, H = 32: wgmma
+# 3 % ahead); at D = H = 28 and 32 (336 and 432 blocks) wgmma is 7-10 %
+# ahead, at D = 8, H = 32 (96 blocks) narrow 1.7x (PERF.md, chip_smoke.py
+# phase 16 (a')).
+WGRAD_NARROW_MAX_WIDTH = 32
+WGRAD_NARROW_MAX_BLOCKS = 296
+WGRAD_NARROW_THREADS = 512
+WGRAD_NARROW_RING = 3
+WGRAD_NARROW_STAGE_BYTES = 32768
+WGRAD_NARROW_MAX_ROWS = 64
+WGRAD_NARROW_MAX_GROUPS = 8
+WGRAD_NARROW_CTAS_PER_SM = 2
+# The wgmma route (kWgThreads, kWgRows, kWgStages, kWgSmem, kUnitRows): two
+# warpgroups, 32-row stages (one TF32 slab), a ring of four stages of eight
+# 4 KB boxes and two B images of 32 KB (hi and lo), one CTA an SM; units of
+# 128 output rows by a tile of up to 128 columns, times the row splits of
+# at most two waves.
+WGRAD_WGMMA_THREADS = 256
+WGRAD_WGMMA_ROWS = 32
+WGRAD_WGMMA_RING = 4
+WGRAD_WGMMA_SMEM = WGRAD_WGMMA_RING * 8 * 4096 + 4 * 128 * 128 + 1024
+WGRAD_UNIT_ROWS = 128
+WGRAD_MAX_WAVES = 2
+WGRAD_ROUTES = ("narrow", "wgmma", "tiled")
 
 
 def wgrad_splits(d, h):
-    """The row ranges of the float32 weight-gradient kernel at widths
+    """The row ranges of the tiled weight-gradient kernel at widths
     (D, H)."""
     la = 2 * h + d
     tiles = sum(-(-m // WGRAD_TILE[0]) * -(-n // WGRAD_TILE[1])
                 for m, n in ((d, la), (h, d), (h, d), (d, d)))
     return -(-WGRAD_CTAS // tiles)
+
+
+def narrow_blocks(d, h):
+    """The narrow route's blocks at padded widths (D, H): the 4 x 4 blocks
+    of dW1 (D x (2H + D)), dWg2 and dWn2 (H x D) and dWs (D x D), then the
+    2H + 4D bias sums in blocks of 4 (``narrow_blocks`` of the kernel)."""
+    la = 2 * h + d
+    return ((d // 4) * (la // 4) + 2 * (h // 4) * (d // 4) + (d // 4) ** 2
+            + (la + 3 * d) // 4)
+
+
+def _narrow_wgrad_plan(d, h, n_rows):
+    """The narrow route at padded widths (D, H) over ``n_rows`` rows, or
+    None where three stages of one row each exceed a CTA's shared memory."""
+    la = 2 * h + d
+    row_bytes = 4 * (d + la + la + 3 * d)
+    rows = max(1, min(WGRAD_NARROW_MAX_ROWS,
+                      WGRAD_NARROW_STAGE_BYTES // row_bytes))
+    blocks = narrow_blocks(d, h)
+    chunks = -(-blocks // WGRAD_NARROW_THREADS)
+    per_chunk = -(-blocks // chunks)
+    groups = max(1, min(WGRAD_NARROW_MAX_GROUPS,
+                        WGRAD_NARROW_THREADS // per_chunk))
+    threads = 32 * -(-per_chunk * groups // 32)
+    smem = max(WGRAD_NARROW_RING * rows * row_bytes, 64 * threads)
+    if smem > F32_SMEM_LIMIT:
+        return None
+    per_sm = min(WGRAD_NARROW_CTAS_PER_SM, F32_SM_SMEM // (smem + 1024))
+    stages = -(-n_rows // rows)
+    splits = max(1, min(stages, F32_SMS * per_sm // chunks))
+    return {"route": "narrow", "rows": rows, "stages": stages,
+            "splits": splits, "chunks": chunks, "per_chunk": per_chunk,
+            "groups": groups, "threads": threads, "smem": smem,
+            "ctas": chunks * splits,
+            "waves": -(-chunks * splits // (F32_SMS * per_sm))}
+
+
+def _tile_width(n):
+    return 32 if n <= 32 else 64 if n <= 64 else 128
+
+
+def _wgmma_jobs(d, h):
+    """(M, N) of the wgmma route's four products at padded widths (D, H):
+    M the gradient's out side (the cotangent columns), N its in side."""
+    la = 2 * h + d
+    return ((la, d), (d, h), (d, h), (d, d))
+
+
+def _wgmma_wgrad_plan(d, h, n_rows):
+    """The wgmma route at padded widths (D, H) over ``n_rows`` rows: units
+    of 128 output rows by a tile of 32, 64 or 128 columns, times the row
+    splits whose waves (one CTA an SM) leave the fewest SMs idle, at most
+    WGRAD_MAX_WAVES waves (fewest splits on a tie)."""
+    units = sum(-(-m // WGRAD_UNIT_ROWS) * -(-n // _tile_width(n))
+                for m, n in _wgmma_jobs(d, h))
+    stages = -(-n_rows // WGRAD_WGMMA_ROWS)
+    most = max(1, min(max(stages, 1), WGRAD_MAX_WAVES * F32_SMS // units))
+    best = 1
+    for s in range(2, most + 1):
+        # waves / splits, compared without rounding
+        if -(-units * s // F32_SMS) * best < -(-units * best // F32_SMS) * s:
+            best = s
+    return {"route": "wgmma", "units": units, "rows": WGRAD_WGMMA_ROWS,
+            "stages": stages, "splits": best, "ctas": units * best,
+            "threads": WGRAD_WGMMA_THREADS, "smem": WGRAD_WGMMA_SMEM,
+            "waves": -(-units * best // F32_SMS)}
+
+
+def f32_wgrad_plan(d, h, n_rows):
+    """The route and launch of the float32 weight gradients over
+    ``n_rows`` rows at padded widths (D, H), chosen by shape before the
+    launch; ``splits`` partials of ``partial_size(d, h)`` floats, which the
+    wrapper sums in order.
+
+    ``route`` "narrow" (``csrc/f32_wgrad.cuh``): ``ctas`` CTAs of
+    ``threads``, ``chunks`` per row range (one where D, H are narrow)
+    times ``splits`` contiguous ranges of ``stages`` of ``rows`` rows each,
+    in one wave of two CTAs an SM; each thread one 4 x 4 block of outputs,
+    ``groups`` threads a block, each taking every ``groups``-th row of a
+    stage; ``smem`` bytes of shared memory. Taken where D and H are at most
+    WGRAD_NARROW_MAX_WIDTH and ``narrow_blocks`` at most
+    WGRAD_NARROW_MAX_BLOCKS.
+
+    ``route`` "wgmma" (``csrc/f32_wgrad.cuh``): ``units`` (two 64-row
+    wgmma tiles of one product) times ``splits`` row ranges of 32-row
+    stages, one CTA of ``threads`` (two warpgroups) an SM, in ``waves``
+    waves. Taken for every other shape.
+
+    The plan never gives the route "tiled" (the tile engine's kernel): it runs where
+    a caller names it (``_f32_wgrad_plan``'s ``route``)."""
+    if (max(d, h) <= WGRAD_NARROW_MAX_WIDTH
+            and narrow_blocks(d, h) <= WGRAD_NARROW_MAX_BLOCKS):
+        plan = _narrow_wgrad_plan(d, h, n_rows)
+        if plan is not None:
+            return plan
+    return _wgmma_wgrad_plan(d, h, n_rows)
+
+
+def _f32_wgrad_plan(d, h, n_rows, route=None):
+    """``f32_wgrad_plan``'s plan, or with ``route`` that route's plan: the
+    narrow route at a width whose stages no CTA holds raises."""
+    if route is None:
+        return f32_wgrad_plan(d, h, n_rows)
+    if route == "narrow":
+        plan = _narrow_wgrad_plan(d, h, n_rows)
+        if plan is None:
+            raise ValueError("the narrow weight-gradient route takes no "
+                             "stage at D = %d, H = %d" % (d, h))
+        return plan
+    if route == "wgmma":
+        return _wgmma_wgrad_plan(d, h, n_rows)
+    if route == "tiled":
+        return {"route": "tiled", "splits": wgrad_splits(d, h)}
+    raise ValueError("no float32 weight-gradient route %r" % (route,))
 
 
 def _wgrad_dims(z_traj, xs):
@@ -1353,22 +1524,40 @@ def gtf_wgrad_bf16_ref(zs, xs, ys, bias_part):
                         d_znon.t() @ hn, dbn2, d_sraw.t() @ z_non, dbs, h)
 
 
-def _gtf_wgrad_launch(z_traj, xs, ys, n_rows, d, h):
-    """Launch the float32 weight-gradient kernel on rows at widths (D, H)
-    that are multiples of 4 and sum its partials in a fixed order."""
-    splits = wgrad_splits(d, h)
-    partial = torch.empty((splits, partial_size(d, h)), dtype=torch.float32,
-                          device=xs.device)
-    rc = _lib().gtf_wgrad(_ptr(z_traj), _ptr(xs), _ptr(ys), _ptr(partial),
-                          splits, n_rows, d, h, _stream(xs))
-    _raise_on(rc, "gtf_wgrad")
+def _gtf_wgrad_launch(z_traj, xs, ys, n_rows, d, h, route=None):
+    """Launch the float32 weight-gradient kernel of ``route`` (by default
+    ``f32_wgrad_plan``'s) on rows at widths (D, H) that are multiples of 4
+    and sum its partials in a fixed order."""
+    plan = _f32_wgrad_plan(d, h, n_rows, route)
+    route = plan["route"]
+    partial = torch.empty((plan["splits"], partial_size(d, h)),
+                          dtype=torch.float32, device=xs.device)
+    if route == "tiled":
+        rc = _lib().gtf_wgrad(_ptr(z_traj), _ptr(xs), _ptr(ys), _ptr(partial),
+                              plan["splits"], n_rows, d, h, _stream(xs))
+    elif n_rows == 0:  # nothing to launch: the sums are 0
+        return unpack_partial(partial.zero_().sum(0), d, h)
+    elif route == "narrow":
+        rc = _wgrad_lib().gtf_wgrad_narrow(
+            _ptr(z_traj), _ptr(xs), _ptr(ys), _ptr(partial), n_rows, d, h,
+            *[plan[k] for k in ("rows", "splits", "chunks", "per_chunk",
+                                "groups", "threads", "smem")], _stream(xs))
+    else:
+        rc = _wgrad_lib().gtf_wgrad_wgmma(
+            _ptr(z_traj), _ptr(xs), _ptr(ys), _ptr(partial), n_rows, d, h,
+            plan["units"], plan["splits"], _stream(xs))
+    _raise_on(rc, "gtf_wgrad (%s)" % route)
     gtf_wgrad_cuda.launches += 1
+    name = "launches_" + route
+    setattr(gtf_wgrad_cuda, name, getattr(gtf_wgrad_cuda, name) + 1)
     return unpack_partial(partial.sum(0), d, h)
 
 
-def gtf_wgrad_cuda(z_traj, xs, ys):
-    """Launch the float32 weight-gradient kernel on the current stream, at
-    widths padded to multiples of 4; same outputs as ``gtf_wgrad_ref``."""
+def gtf_wgrad_cuda(z_traj, xs, ys, route=None):
+    """Launch the float32 weight-gradient kernel on the current stream, on
+    the route of ``f32_wgrad_plan`` (or ``route``: "narrow", "wgmma" or
+    "tiled"), at widths padded to multiples of 4; same outputs as
+    ``gtf_wgrad_ref``."""
     n_rows, d, h = _wgrad_dims(z_traj, xs)
     _check_tensor("z_traj", z_traj, tuple(z_traj.shape))
     _check_tensor("xs", xs, (n_rows, 2 * h + d))
@@ -1377,11 +1566,14 @@ def gtf_wgrad_cuda(z_traj, xs, ys):
     grads = _gtf_wgrad_launch(
         _pad_last(z_traj, dp), _pad_blocks(xs, (h, h, d), (hp, hp, dp)),
         _pad_blocks(ys, (h, h) + (d,) * 4, (hp, hp) + (dp,) * 4), n_rows,
-        dp, hp)
+        dp, hp, route)
     return grads if (dp, hp) == (d, h) else _unpad_gtf(grads, d, h)
 
 
-gtf_wgrad_cuda.launches = 0
+# ``.launches`` counts the float32 weight gradients on every route, and
+# ``.launches_<route>`` each route's own.
+for _name in ("launches",) + tuple("launches_" + r for r in WGRAD_ROUTES):
+    setattr(gtf_wgrad_cuda, _name, 0)
 
 
 def unpack_partial(tot, d, h):

@@ -118,21 +118,39 @@ def test_kernels_match_plain_versions_at_vidtimit_shapes(dev, n_exp, k):
                                   d=256, h=256, k=k))
 
 
-@pytest.mark.parametrize("d,h", [(5, 20), (7, 13)])
-def test_weight_gradient_kernel_at_unaligned_widths(dev, d, h):
+# The float32 weight gradients on each route (None: the plan's; the narrow
+# and wgmma routes named, whatever the plan gives the shape; the tiled
+# kernel) at unaligned and aligned widths, narrow and wide, at K = 1 (T =
+# 6, 13 columns: 65 rows) and K = 25 (T = 25, 100 columns: 60,000 rows,
+# several stages a CTA on every route): equal to the plain version, two
+# runs bit for bit, one launch on the route's counter.
+@pytest.mark.parametrize("route", [None, "narrow", "wgmma", "tiled"])
+@pytest.mark.parametrize("k,t_max,b_dim", [(1, 6, 13), (25, 25, 100)])
+@pytest.mark.parametrize("d,h", [(5, 20), (7, 13), (8, 20), (32, 32),
+                                 (64, 64), (32, 256), (256, 256)])
+def test_weight_gradient_kernel_at_unaligned_widths(dev, d, h, k, t_max,
+                                                    b_dim, route):
     """``gtf_wgrad_cuda`` alone on rows at the real widths."""
-    x, gtf, eps, _ = _inputs(dev, t_max=6, b_dim=13, d=d, h=h, k=3)
-    z_traj = tscan.bfvi_scan_fwd_ref(*x, gtf, eps, MIN_STD)[5]
-    n_rows = 5 * 3 * 13
-    gen = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(d + h + k)
+    n_rows = (t_max - 1) * k * b_dim
+    z_traj = torch.randn((t_max, k, b_dim, d), generator=gen, device=dev)
     xs = torch.randn((n_rows, 2 * h + d), generator=gen, device=dev)
     ys = torch.randn((n_rows, 2 * h + 4 * d), generator=gen, device=dev)
-    got = tscan.gtf_wgrad_cuda(z_traj, xs, ys)
+    dp, hp = tscan._padded(d), tscan._padded(h)
+    want = route or tscan.f32_wgrad_plan(dp, hp, n_rows)["route"]
+    assert want != "tiled" or route == "tiled"
+    fn = tscan.gtf_wgrad_cuda
+    before = (fn.launches, getattr(fn, "launches_" + want))
+    got = fn(z_traj, xs, ys, route=route)
+    again = fn(z_traj, xs, ys, route=route)
+    assert (fn.launches, getattr(fn, "launches_" + want)) == (
+        before[0] + 2, before[1] + 2)
     exp = tscan.gtf_wgrad_ref(z_traj, xs, ys)
     for name in tscan.GTF_LAYERS:
         for kk in ("w", "b"):
             assert got[name][kk].shape == exp[name][kk].shape
             _assert_grads(got[name][kk], exp[name][kk], name + kk)
+            assert torch.equal(got[name][kk], again[name][kk]), name + kk
 
 
 def test_backward_is_deterministic(dev):
