@@ -9,9 +9,10 @@ imports nothing of JAX or of the JAX package. Phases:
 1. the device: name and power limit (``nvidia-smi``), TF32 off;
 2. the build: the CUDA kernels of ``multimodal_dmm_tpu_torch/csrc`` with
    nvcc for sm_90a, each kernel's ptxas lines; the float32 scans' column
-   and wgmma kernels (``csrc/f32_scan.cuh``) and the float32 weight
-   gradients' narrow and wgmma kernels (``csrc/f32_wgrad.cuh``) must
-   spill 0 bytes;
+   and wgmma kernels and the bf16 scans' wgmma kernels
+   (``csrc/f32_scan.cuh``, their registers and spills printed) and the
+   float32 weight gradients' narrow and wgmma kernels
+   (``csrc/f32_wgrad.cuh``) must spill 0 bytes;
 3. each kernel against its plain PyTorch version at the main path's
    shapes (T = 25, B = 100 variant columns, D = H = 256, (M, K) = (3, 1),
    (3, 25), (5, 1)), with their times and the card's bound (three TF32
@@ -174,16 +175,22 @@ imports nothing of JAX or of the JAX package. Phases:
 16. every width and particle count that the reference takes: (a) phase 3's
    and 15 (a)'s checks at one launch each (T = 25, M = 3): the float32
    kernels at K = 50 (100 columns) and K = 256 (25 columns), the bf16
-   cluster route at K = 50, the bf16 tiled route (``..._bf16_tiled``,
-   where no cluster holds a column's operands) at K = 100 and at z = h =
-   768, K = 25; (b) one Weizmann step with ``train_particles: 50``, float32
-   (phase 4's checks) and ``bf16_gtf`` (phase 15 (b)'s on the kernel's
-   masks); (c) one ``bf16_gtf`` step at z = h = 768 (its K = 25 scan on the
-   tiled route); (d) one float32 step at z = 32, h = 256, a narrow width
-   beside a wide one, on the wgmma route, and the same step with its
-   scans on the tiled kernels (``f32_route("tiled")``: the route no shape
-   is planned on, the reference the new routes are timed against); the
-   launches of each of the five steps' kernel runs by route, counted from
+   cluster route at K = 50, the bf16 wgmma route (``..._bf16_wgmma``,
+   where no cluster holds a column's operands) at K = 100 (25 columns)
+   and at z = h = 768, K = 25, each beside its tiled twin
+   (``..._bf16_tiled``, named, held to the plain versions alike) and the
+   float32 wgmma route, timed in turns; (b) one Weizmann step with
+   ``train_particles: 50``, float32 (phase 4's checks) and ``bf16_gtf``
+   (phase 15 (b)'s on the kernel's masks), and a ``bf16_gtf`` step with
+   ``train_particles: 100`` (its K = 100 scans on the bf16 wgmma route);
+   (c) one ``bf16_gtf`` step at z = h = 768 (its K = 25 scans on the bf16
+   wgmma route), then the same step on the tiled bf16 kernels
+   (``bf16_route("tiled")``); (d) one float32 step at z = 32, h = 256, a
+   narrow width beside a wide one, on the wgmma route, and the same step
+   with its scans on the tiled kernels (``f32_route("tiled")``: the route
+   no shape is planned on, the reference the new routes are timed
+   against); the launches of each of the seven steps' kernel runs by
+   route, counted from
    0 just before the run and read just after it, every kernel of those
    steps launched; (a') the float32 routes at D = H = 32 (the column
    route's widest), D = H = 64 and D = 32, H = 256, K = 25, each route
@@ -227,10 +234,15 @@ twin's times and errors at the Weizmann step's shapes, launches of phase 16
 the three bf16 variants (``..._bf16``, phase 15: times and bounds at the
 Weizmann step's shapes, ``f32_twin_ms`` the float32 twin's in the same
 call for the two scans, launches of its command line, ``launches_by_phase``
-those of its step, evaluation and command line), and the tiled route's two
-scans (``..._bf16_tiled``: phase 16 (a)'s one launch at z = h = 768, K =
-25, launches of phase 16 (c)'s step; ``launches_by_phase`` of the bf16
-rows adds phase 16 (b)'s ``bf16_gtf`` step and (c)'s, each on its own). ``library_ms`` is null for the scans
+those of its step, evaluation and command line), the bf16 wgmma route's
+two scans (``..._bf16_wgmma``: phase 16 (a)'s one launch at z = h = 768, K
+= 25, launches of phase 16 (c)'s step, and ``... (K = 100)`` at D = H =
+256, launches of phase 16 (b)'s K = 100 step; ``tiled_twin_ms`` and
+``f32_wgmma_ms`` timed in turns beside it), and the tiled route's two
+scans (``..._bf16_tiled``: the twin's time and error at z = h = 768,
+launches of phase 16 (c)'s step on the tiled kernels; ``launches_by_phase``
+of the bf16 rows adds phase 16 (b)'s ``bf16_gtf`` steps and (c)'s, each on
+its own). ``library_ms`` is null for the scans
 and the cell (no PyTorch call computes them) and, for the weight
 gradients, the device time of four ``torch.mm`` (float32, or bf16 rows
 with ``out_dtype=torch.float32``) and the bias sums. For
@@ -289,8 +301,14 @@ BF16_KERNELS = {name + "_bf16": name for name in SCAN_KERNELS}
 BF16_SRC = "multimodal_dmm_tpu_torch/csrc/bfvi_scan_bf16.cu"
 BF16_SCAN_SRC = "multimodal_dmm_tpu_torch/csrc/bf16_scan.cuh"
 WGRAD_BF16_SRC = "multimodal_dmm_tpu_torch/csrc/wgrad_bf16.cuh"
+# The bf16 scans' wgmma route (csrc/f32_scan.cuh's bf16 engine, built by
+# csrc/f32_scan.cu), which bf16_scan_plan gives every launch that no
+# cluster holds, counted in ``.launches_bf16_wgmma``: name -> its f32 twin.
+WGMMA_BF16_KERNELS = {"bfvi_scan_fwd_bf16_wgmma": "bfvi_scan_fwd",
+                      "bfvi_scan_bwd_bf16_wgmma": "bfvi_scan_bwd"}
 # The bf16 scans' tiled route (csrc/bfvi_scan.cuh on the tile engine's bf16
-# route), counted in ``.launches_bf16_tiled``: name -> its f32 twin.
+# route), which runs only where named (``route="tiled"``, ``bf16_route``):
+# the wgmma route's twin, counted in ``.launches_bf16_tiled``.
 TILED_KERNELS = {"bfvi_scan_fwd_bf16_tiled": "bfvi_scan_fwd",
                  "bfvi_scan_bwd_bf16_tiled": "bfvi_scan_bwd"}
 TILED_SRC = "multimodal_dmm_tpu_torch/csrc/bfvi_scan.cuh"
@@ -617,10 +635,15 @@ def log_plan(scan, name, k, b_dim, d, h, backward):
     """The bf16 launch plan of ``name`` at one shape, with the clusters
     that the card runs at once (cudaOccupancyMaxActiveClusters)."""
     p = scan.bf16_scan_plan(k, b_dim, d, h, backward)
-    if p["route"] == "tiled":
-        log("    plan %s_bf16 (K = %d, %d columns, D = %d, H = %d): the tiled "
+    check(p["route"] in ("cluster", "wgmma"), "%s_bf16 at K = %d, D = %d, "
+          "H = %d: the plan gives the %s route" % (name, k, d, h, p["route"]))
+    if p["route"] == "wgmma":
+        log("    plan %s_bf16 (K = %d, %d columns, D = %d, H = %d): the wgmma "
             "route (no cluster holds a column's operands), a cooperative "
-            "launch on the tile engine's bf16 route" % (name, k, b_dim, d, h))
+            "grid of one CTA of %d threads a SM, %d bf16 weight stages, %d "
+            "bytes of shared memory a CTA: %d wave"
+            % (name, k, b_dim, d, h, p["threads"], p["stages"], p["smem"],
+               p["waves"]))
         return
     at_once = scan._lib(True).bfvi_scan_bf16_max_clusters(
         int(backward), p["cluster"], p["smem"])
@@ -762,27 +785,35 @@ def wgrad_bf16_bytes(n_rows, d, h, n_parts):
             + 4 * (n_parts * (la + 3 * d) + n_w + la + 3 * d))
 
 
-def check_tiled_twin(scan, x, gtf, eps, cots, res, what):
+def check_tiled_twin(scan, x, gtf, eps, cots, res, what, bf16=False):
     """The tiled kernels (the route "tiled",
-    ``csrc/bfvi_scan.cu``) at a shape that the plan gives
-    the column or wgmma route, held to the plain versions as the new
-    route is (the forward at FWD_TOL, the backward on its own ReLU masks,
-    each flip within ``relu_flip_bound``). Returns the largest absolute
-    errors (forward, backward)."""
+    ``csrc/bfvi_scan.cu``; with ``bf16`` the tiled bf16 scans) at a shape
+    that the plan gives the column or wgmma route, held to the plain
+    versions as the new route is (the forward at FWD_TOL, the backward on
+    its own ReLU masks, each flip within ``relu_flip_bound``; with
+    ``bf16`` phase 15 (a)'s checks). Returns the largest absolute errors
+    (forward, backward)."""
     d = gtf["gate_1"]["w"].shape[1]
     twin = what + ", tiled twin"
-    _, ferr = check_fwd(scan, x, gtf, eps, twin, route="tiled")
+    _, ferr = check_fwd(scan, x, gtf, eps, twin, bf16=bf16, route="tiled")
     g_out, rows = with_kernel_rows(
-        scan, lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3,
+        scan, lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3, bf16,
                                               route="tiled"))
-    e_out, margins = scan.bfvi_scan_bwd_ref_on_masks(res, cots, 1e-3, rows[0])
-    check_flips(scan, margins, d, twin)
+    e_out, margins = scan.bfvi_scan_bwd_ref_on_masks(res, cots, 1e-3,
+                                                     rows[0], bf16)
+    check_flips(scan, margins, d, twin, bf16)
     berr = 0.0
     for name, g, e in bwd_pairs(scan, g_out, e_out):
         ok, a = max_norm_err(g, e)
+        if bf16:
+            ok = rel_fro(g, e) <= BF16_GRAD_RTOL
         berr = max(berr, a)
         check(ok, "tiled backward kernel %s disagrees at %s: max abs err "
               "%.3g" % (name, what, a))
+    if bf16:
+        ctrl = scan.bfvi_scan_bwd_cuda(res, cots, 1e-3)
+        hold_bf16("bfvi_scan_bwd", twin, bwd_pairs(scan, g_out, e_out),
+                  bwd_pairs(scan, ctrl, e_out))
     return ferr, berr
 
 
@@ -960,18 +991,30 @@ def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
                 pack_ms = time_ms(make_pack, reps)
         if bf16:
             check_recompute(scan, x, gtf, eps, cots, what)
-            # The cluster route's weight images, packed once as an autograd
-            # call packs them (timed on their own); the tiled route reads
-            # the weights as they are.
+            # The planned route's weight images (the cluster route's or the
+            # wgmma route's), packed once as an autograd call packs them
+            # (timed on their own); where the plan gives the wgmma route,
+            # the tiled bf16 kernels (its twin, named) held to the plain
+            # versions alike.
             dp, hp = scan._check_sizes(k, d, h, True)
             gtf_p = scan._pad_gtf(gtf, dp, hp)
-            if scan.bf16_scan_plan(k, b_dim, dp, hp)["route"] == "cluster":
-                def make_pack():
-                    pk = scan.Bf16Pack(gtf_p, dp, hp)
-                    pk.image(True)
-                    return pk
-                kw["pack"] = make_pack()
-                pack_ms = time_ms(make_pack, reps)
+            b16r = scan.bf16_scan_plan(k, b_dim, dp, hp)["route"]
+            for name in ("bfvi_scan_fwd", "bfvi_scan_bwd"):
+                rec[name].setdefault("route", b16r)
+                check(rec[name]["route"] == b16r, "the step's bf16 launches "
+                      "take two routes: %s and %s" % (rec[name]["route"],
+                                                       b16r))
+            cls = {"cluster": scan.Bf16Pack, "wgmma": scan.Bf16WgPack}[b16r]
+
+            def make_pack():
+                pk = cls(gtf_p, dp, hp)
+                pk.image(True)
+                return pk
+            kw["pack"] = make_pack()
+            pack_ms = time_ms(make_pack, reps)
+            if b16r == "wgmma":
+                t_ferr, t_berr = check_tiled_twin(scan, x, gtf, eps, cots,
+                                                  res, what, bf16=True)
         times = [time_ms(fn, r) for fn, r in (
             (lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3, bf16, **kw),
              reps),
@@ -1023,25 +1066,50 @@ def check_kernels(scan, gtf, dev, t_max=T_MAIN, b_dim=V_MAIN * B_DATA,
                 r["tiled_twin_ms"] = r.get("tiled_twin_ms", 0.0) + tw
                 r["tiled_err"] = max(r.get("tiled_err", 0.0), te)
         if bf16:
-            # Each bf16 scan beside its float32 twin, in turns.
-            twins = [time_ms(fn, reps) for fn in (
-                lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3),
-                lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3, True,
-                                                **kw),
-                lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3),
-                lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3, True,
-                                                **kw))]
-            twin = {"bfvi_scan_fwd": twins[0], "bfvi_scan_bwd": twins[2]}
-            log("  %s: bf16 forward %.3f ms against the f32 kernel's %.3f "
-                "(%.2fx), bf16 backward %.3f against %.3f (%.2fx), in turns "
-                "after the timed calls; packing the weight images %.3f ms"
-                % (what, twins[1], twins[0], twins[0] / twins[1], twins[3],
-                   twins[2], twins[2] / twins[3], pack_ms))
+            # Each bf16 scan beside its float32 twin (on the float32 plan's
+            # route) and, on the wgmma route, beside the tiled bf16 kernels
+            # (named), in turns: each in order, then in reverse.
+            f32r = scan.f32_scan_plan(k, b_dim, *scan._check_sizes(k, d, h))[
+                "route"]
+            runs = {"bf16": ({}, True), "f32": ({}, False)}
+            if b16r == "wgmma":
+                runs["tiled"] = ({"route": "tiled"}, True)
+            twin = {n: dict.fromkeys(runs, 0.0)
+                    for n in ("bfvi_scan_fwd", "bfvi_scan_bwd")}
+            for r in list(runs) + list(runs)[::-1]:
+                extra, b16 = runs[r]
+                kwr = dict(kw, **extra) if r == "bf16" else extra
+                twin["bfvi_scan_fwd"][r] += time_ms(
+                    lambda: scan.bfvi_scan_fwd_cuda(*x, gtf, eps, 1e-3, b16,
+                                                    **kwr), reps) / 2
+                twin["bfvi_scan_bwd"][r] += time_ms(
+                    lambda: scan.bfvi_scan_bwd_cuda(res, cots, 1e-3, b16,
+                                                    **kwr), reps) / 2
+            for name in twin:
+                t = twin[name]
+                log("  %s %s_bf16: the %s route %.3f ms against the float32 "
+                    "kernel's (%s route) %.3f (%.2fx)%s, in turns after the "
+                    "timed calls; packing the weight images %.3f ms%s"
+                    % (what, name, b16r, t["bf16"], f32r, t["f32"],
+                       t["f32"] / t["bf16"],
+                       ", the tiled twin's %.3f (%.2fx)"
+                       % (t["tiled"], t["tiled"] / t["bf16"])
+                       if "tiled" in t else "", pack_ms,
+                       "; tiled twin max abs err %.3g" % (
+                           t_ferr if name == "bfvi_scan_fwd" else t_berr)
+                       if "tiled" in t else ""))
             for name, backward in (("bfvi_scan_fwd", False),
                                    ("bfvi_scan_bwd", True)):
                 log_plan(scan, name, k, b_dim, dp, hp, backward)
-                rec[name]["f32_twin_ms"] = (rec[name].get("f32_twin_ms", 0.0)
-                                            + twin[name])
+                r, t = rec[name], twin[name]
+                r["f32_twin_ms"] = r.get("f32_twin_ms", 0.0) + t["f32"]
+                if f32r == "wgmma":
+                    r["f32_wgmma_ms"] = r.get("f32_wgmma_ms", 0.0) + t["f32"]
+                if "tiled" in t:
+                    r["tiled_twin_ms"] = (r.get("tiled_twin_ms", 0.0)
+                                          + t["tiled"])
+                    r["tiled_err"] = max(r.get("tiled_err", 0.0),
+                                         t_ferr if not backward else t_berr)
         (ff, fb), (bf, bb), (wf, wb) = scan_work(t_max, n_exp, b_dim, k, d,
                                                  h)
         if bf16:  # the weight gradients read the rows in bfloat16
@@ -1326,9 +1394,10 @@ def check_f32_routes(launches, what):
 
 class RouteCount:
     """A scan wrapper's count of one route's launches (``.launches_bf16``:
-    the bf16 cluster route; ``.launches_bf16_tiled``; the float32 routes'
-    ``.launches_column``, ``.launches_wgmma``, ``.launches_tiled``), read
-    and set as ``.launches`` like the others."""
+    the bf16 cluster route; ``.launches_bf16_wgmma``,
+    ``.launches_bf16_tiled``; the float32 routes' ``.launches_column``,
+    ``.launches_wgmma``, ``.launches_tiled``), read and set as
+    ``.launches`` like the others."""
 
     def __init__(self, wrapper, attr="launches_bf16"):
         self.wrapper, self.attr = wrapper, attr
@@ -1344,12 +1413,15 @@ class RouteCount:
 
 def all_wrappers():
     """``kernel_wrappers()``, the counts of the scan kernels' bfloat16
-    variants on both routes and the bf16 weight-gradient kernel's."""
+    variants on their three routes and the bf16 weight-gradient
+    kernel's."""
     from multimodal_dmm_tpu_torch.ops.cuda import bfvi_scan
     out = kernel_wrappers()
     for name, f32 in BF16_KERNELS.items():
         out[name] = (bfvi_scan.gtf_wgrad_bf16_cuda if f32 == "gtf_wgrad"
                      else RouteCount(out[f32]))
+    for name, f32 in WGMMA_BF16_KERNELS.items():
+        out[name] = RouteCount(out[f32], "launches_bf16_wgmma")
     for name, f32 in TILED_KERNELS.items():
         out[name] = RouteCount(out[f32], "launches_bf16_tiled")
     return out
@@ -2874,34 +2946,39 @@ def scan_kernel_names(fn):
     if not events:
         return None
     names = [n + "_kernel" for n in
-             list(SCAN_KERNELS) + list(BF16_KERNELS) + list(TILED_KERNELS)]
+             list(SCAN_KERNELS) + list(BF16_KERNELS)
+             + list(WGMMA_BF16_KERNELS) + list(TILED_KERNELS)]
     counts = {n: 0 for n in names}
     for e in events:
         for n in names:
             # "bfvi_scan_fwd_kernel" is no substring of a bf16 variant's
-            # name ("..._bf16_kernel", "..._bf16_tiled_kernel"), nor the
-            # reverse; "gtf_wgrad_bf16_kernel" none of its reduction's.
+            # name ("..._bf16_kernel", "..._bf16_wgmma_kernel",
+            # "..._bf16_tiled_kernel"), nor the reverse;
+            # "gtf_wgrad_bf16_kernel" none of its reduction's.
             if n in e.name:
                 counts[n] += 1
     return counts
 
 
-def step_bf16_launches(scan, model, ks):
+def step_bf16_launches(scan, model, ks, route=None):
     """The launches of a ``bf16_gtf`` step whose three scans take K = ``ks``
     particles over V B columns: each scan's route as ``bf16_scan_plan``
-    chooses it, one bf16 weight-gradient launch a backward."""
+    chooses it (or ``route``, named), one bf16 weight-gradient launch a
+    backward."""
     dp, hp = scan._check_sizes(1, model.z_dim, model.h_dim, True)
     want = {n: 0 for n in all_wrappers()}
+    suffix = {"cluster": "_bf16", "wgmma": "_bf16_wgmma",
+              "tiled": "_bf16_tiled"}
     for k in ks:
-        route = scan.bf16_scan_plan(k, V_MAIN * B_DATA, dp, hp)["route"]
+        r = route or scan.bf16_scan_plan(k, V_MAIN * B_DATA, dp, hp)["route"]
         for f32 in ("bfvi_scan_fwd", "bfvi_scan_bwd"):
-            want[f32 + ("_bf16" if route == "cluster" else "_bf16_tiled")] += 1
+            want[f32 + suffix[r]] += 1
         want["gtf_wgrad_bf16"] += 1
     return want
 
 
 def check_bf16_step(scan, trainer, inputs, targets, mask, seed,
-                    ks=(1, 25, 1), control=True):
+                    ks=(1, 25, 1), control=True, route=None, **step_kw):
     """Phase 15 (b) and (d) (and 16): one ``bf16_gtf`` step's loss and
     gradients on the kernels against the same step on the plain versions,
     with the same noise and deterministic cuDNN: the loss within
@@ -2913,15 +2990,17 @@ def check_bf16_step(scan, trainer, inputs, targets, mask, seed,
     farther in every transition weight that has a gradient, and the
     profiler's kernel names agree with the wrappers' counts. Every scan
     launch of the step is a bf16 variant on the route of its plan (the
-    scans' K: ``ks``). Returns the step's launches."""
+    scans' K: ``ks``), or on ``route`` (named, ``bf16_route``);
+    ``step_kw`` go to ``model.step`` (``train_particles``: the K of the
+    middle scan). Returns the step's launches."""
     wrappers = all_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
     torch.backends.cudnn.deterministic = True
     (l_k, g_k), rows = with_kernel_rows(scan, lambda: step_grads(
-        trainer, inputs, targets, mask, False, seed))
+        trainer, inputs, targets, mask, False, seed, **step_kw))
     launches = {n: fn.launches for n, fn in wrappers.items()}
-    want = step_bf16_launches(scan, trainer.model, ks)
+    want = step_bf16_launches(scan, trainer.model, ks, route)
     check(launches == want, "bf16_gtf step launches %s, expected %s"
           % (launches, want))
     margins, launch = [], iter(rows)
@@ -2934,14 +3013,17 @@ def check_bf16_step(scan, trainer, inputs, targets, mask, seed,
         return outs
     bwd_kernel, scan.bfvi_scan_bwd_cuda = scan.bfvi_scan_bwd_cuda, on_masks
     try:
-        l_km, g_km = step_grads(trainer, inputs, targets, mask, False, seed)
+        l_km, g_km = step_grads(trainer, inputs, targets, mask, False, seed,
+                                **step_kw)
     finally:
         scan.bfvi_scan_bwd_cuda = bwd_kernel
-    l_p, g_p = step_grads(trainer, inputs, targets, mask, True, seed)
+    l_p, g_p = step_grads(trainer, inputs, targets, mask, True, seed,
+                          **step_kw)
     if control:
         trainer.model.bf16_gtf = False
         try:
-            l_f, g_f = step_grads(trainer, inputs, targets, mask, False, seed)
+            l_f, g_f = step_grads(trainer, inputs, targets, mask, False, seed,
+                                  **step_kw)
         finally:
             trainer.model.bf16_gtf = True
     torch.backends.cudnn.deterministic = False
@@ -3156,11 +3238,14 @@ def check_bf16_gtf(scan, seed, dev, sp_gtf, card):
 # -- phase 16: every width and particle count the reference takes ------------
 
 REPAIR_K = 50      # train_particles of phase 16's steps
+WGMMA_K = 100      # train_particles of its bf16_gtf step past one wgmma tile
 WIDE_ZH = 768      # z = h of its wide bf16_gtf step
 NARROW_ZH = (32, 256)  # (z, h) of its float32 steps, narrow beside wide
 # (K, columns, D = H, bf16) of phase 16 (a)'s kernel checks at T = 25: the
 # float32 kernels past 32 particles, the bf16 cluster route at K = 50 (one
-# column a cluster) and the tiled route at K = 100 and at D = H = 768.
+# column a cluster) and the bf16 wgmma route (no cluster holds a column)
+# at K = 100 and at D = H = 768, each beside its tiled twin and the float32
+# wgmma route.
 REPAIR_KERNELS = ((REPAIR_K, V_MAIN * B_DATA, Z_DIM, False),
                   (256, B_DATA, Z_DIM, False),
                   (REPAIR_K, V_MAIN * B_DATA, Z_DIM, True),
@@ -3293,15 +3378,18 @@ def check_repaired(scan, seed, dev, gtf, card):
     (a)'s checks, one launch each, M = 3) at REPAIR_KERNELS; (b) one
     Weizmann step at z = h = 256 with ``train_particles: 50`` in float32
     (phase 4's checks, its scans on the wgmma route) and with ``bf16_gtf``
-    (phase 15 (b)'s, on the backward kernel's masks); (c) one ``bf16_gtf``
-    step at z = h = 768, K = 25, on the tiled route, against the plain
-    backward on its masks; (d) one float32 step at z = 32, h = 256 on the
-    wgmma route, then the same step with its scans on the tiled kernels
-    (``f32_route("tiled")``), phase 4's checks each; each route's
-    launches. Returns (the records of (a) by (K, D, bf16), the launches of
-    each step's kernel run, "16b_f32", "16b_bf16", "16c", "16d" and
-    "16d_tiled", each counted from 0 just before that run and read just
-    after it)."""
+    (phase 15 (b)'s, on the backward kernel's masks), and a ``bf16_gtf``
+    step with ``train_particles: 100`` (its K = 100 scans on the bf16
+    wgmma route); (c) one ``bf16_gtf`` step at z = h = 768, K = 25, on the
+    bf16 wgmma route, against the plain backward on its masks, then the
+    same step with its scans on the tiled bf16 kernels
+    (``bf16_route("tiled")``, the twin); (d) one float32 step at z = 32,
+    h = 256 on the wgmma route, then the same step with its scans on the
+    tiled kernels (``f32_route("tiled")``), phase 4's checks each; each
+    route's launches. Returns (the records of (a) by (K, D, bf16), the
+    launches of each step's kernel run, "16b_f32", "16b_bf16",
+    "16b_bf16_k100", "16c", "16c_tiled", "16d" and "16d_tiled", each
+    counted from 0 just before that run and read just after it)."""
     from multimodal_dmm_tpu_torch.apps import weizmann
     t0 = time.perf_counter()
     recs = {}
@@ -3338,8 +3426,10 @@ def check_repaired(scan, seed, dev, gtf, card):
         "versions" % REPAIR_K)
     f32 = weizmann.make_trainer(seed=seed, device=dev,
                                 train_args={"train_particles": REPAIR_K})
+    # (The steps' K goes to model.step as train_particles: step_grads
+    # calls model.step without the trainer's train_args.)
     runs = {"16b_f32": counted("(b) float32", lambda: check_step_against_plain(
-        scan, f32, inputs, targets, mask, seed))}
+        scan, f32, inputs, targets, mask, seed, train_particles=REPAIR_K))}
     want = {n: 3 if n in SCAN_KERNELS else 0 for n in wrappers}
     want["bfvi_scan_fwd_wgmma"] = want["bfvi_scan_bwd_wgmma"] = 3
     want["gtf_wgrad_wgmma"] = 3
@@ -3352,11 +3442,26 @@ def check_repaired(scan, seed, dev, gtf, card):
                                 train_args={"train_particles": REPAIR_K})
     runs["16b_bf16"] = counted("(b) bf16_gtf", lambda: check_bf16_step(
         scan, b16, inputs, targets, mask, seed, ks=(1, REPAIR_K, 1),
-        control=False))
+        control=False, train_particles=REPAIR_K))
+    log("  (b) the bf16_gtf step at K = %d (the bf16 wgmma route)" % WGMMA_K)
+    b16_wg = weizmann.make_trainer(seed=seed, device=dev,
+                                   model_args={"bf16_gtf": True},
+                                   train_args={"train_particles": WGMMA_K})
+    runs["16b_bf16_k100"] = counted(
+        "(b) bf16_gtf, K = %d" % WGMMA_K, lambda: check_bf16_step(
+            scan, b16_wg, inputs, targets, mask, seed, ks=(1, WGMMA_K, 1),
+            control=False, train_particles=WGMMA_K))
     log("  (c) the bf16_gtf step at z = h = %d, K = 25" % WIDE_ZH)
     runs["16c"] = counted("(c) bf16_gtf, z = h = %d" % WIDE_ZH,
                           lambda: check_bf16_step(scan, wide, inputs, targets,
                                                   mask, seed, control=False))
+
+    def on_bf16_tiled():
+        with scan.bf16_route("tiled"):
+            return check_bf16_step(scan, wide, inputs, targets, mask, seed,
+                                   control=False, route="tiled")
+    runs["16c_tiled"] = counted("(c) bf16_gtf, z = h = %d, tiled bf16 "
+                                "kernels" % WIDE_ZH, on_bf16_tiled)
     log("  (d) the float32 step at z = %d, h = %d, K = 25, a narrow width "
         "beside a wide one: on the plan's route (wgmma), then with its "
         "scans on the tiled kernels" % NARROW_ZH)
@@ -3382,12 +3487,20 @@ def check_repaired(scan, seed, dev, gtf, card):
               == runs["16d_tiled"][name] == 3,
               "the float32 step at z = %d, h = %d on the tiled kernels "
               "launched %s" % (NARROW_ZH + (runs["16d_tiled"],)))
-    for name in list(SCAN_KERNELS) + list(BF16_KERNELS) + list(TILED_KERNELS):
+    for name in (list(SCAN_KERNELS) + list(BF16_KERNELS)
+                 + list(WGMMA_BF16_KERNELS) + list(TILED_KERNELS)):
         check(any(r[name] for r in runs.values()),
               "phase 16's steps launched %s no time" % name)
+    for name in WGMMA_BF16_KERNELS:
+        for run in ("16b_bf16_k100", "16c"):
+            check(runs[run][name] > 0, "phase 16's %s step launched %s no "
+                  "time" % (run, name))
     for name in TILED_KERNELS:
-        check(runs["16c"][name] > 0, "the step at z = h = %d launched %s no "
-              "time" % (WIDE_ZH, name))
+        check(runs["16c_tiled"][name] == 3, "the step at z = h = %d on the "
+              "tiled bf16 kernels launched %s %d times"
+              % (WIDE_ZH, name, runs["16c_tiled"][name]))
+        check(not any(runs[r][name] for r in runs if r != "16c_tiled"),
+              "a planned step launched %s (named only)" % name)
     log("  phase 16: launches %s (%.1f s) [%s]"
         % (runs, time.perf_counter() - t0, card))
     return recs, runs
@@ -3816,10 +3929,12 @@ def main():
     for name in _build.SOURCES:
         for line in ptxas_lines(name):
             log("  ptxas %s:" % name, line)
-    # The column and wgmma routes' four scan kernels and the weight
-    # gradients' narrow and wgmma kernels, each with 0 spilled bytes.
+    # The float32 column and wgmma routes' four scan kernels, the bf16
+    # wgmma route's two and the weight gradients' narrow and wgmma
+    # kernels, each with 0 spilled bytes.
     for lib, kerns in (("f32_scan", ["bfvi_scan_%s_kernel" % k for k in (
-            "fwd_column", "bwd_column", "fwd_wgmma", "bwd_wgmma")]),
+            "fwd_column", "bwd_column", "fwd_wgmma", "bwd_wgmma",
+            "fwd_bf16_wgmma", "bwd_bf16_wgmma")]),
             ("f32_wgrad", ["gtf_wgrad_narrow_kernel",
                            "gtf_wgrad_wgmma_kernel"])):
         f32_lines = ptxas_lines(lib)
@@ -3831,11 +3946,16 @@ def main():
             check(spills and all("0 bytes spill stores, 0 bytes spill loads"
                                  in ln for ln in spills),
                   "%s spills: %s" % (kern, spills))
+            if "bf16" in kern:
+                log("  %s: %s" % (kern, "; ".join(
+                    ln.strip() for ln in f32_lines[at[0] + 1:at[0] + 3])))
     # ptxas says where it serializes a kernel's wgmma chain (a cost, not a
-    # fault): none is expected in the weight gradients' wgmma kernel.
-    for line in _build.build_log("f32_wgrad").splitlines():
-        if "wgmma" in line and "serializ" in line:
-            log("  ptxas f32_wgrad:", line.strip())
+    # fault): none is expected in the weight gradients' wgmma kernel or
+    # the scans' wgmma kernels.
+    for lib in ("f32_scan", "f32_wgrad"):
+        for line in _build.build_log(lib).splitlines():
+            if "wgmma" in line and "serializ" in line:
+                log("  ptxas %s:" % lib, line.strip())
 
     trainer = weizmann.make_trainer(seed=args.seed, device=dev)
     model = trainer.model
@@ -4091,22 +4211,35 @@ def main():
     # The bf16 variants: times and bounds of phase 15 (a) at the Weizmann
     # step's shapes (one bf16 pass a product), launches of its command line
     # (e), of its step (b) and evaluation (c).
-    # The tiled route's rows: phase 16 (a) at z = h = 768, K = 25 (one
-    # launch), launches of phase 16 (c)'s step.
+    # The wgmma route's rows: phase 16 (a) at z = h = 768, K = 25 (one
+    # launch; launches of phase 16 (c)'s step) and at K = 100, D = H = 256
+    # (launches of phase 16 (b)'s K = 100 step), each beside the tiled
+    # twin and the float32 wgmma route timed in turns. The tiled route's
+    # rows: the tiled twin at z = h = 768 (phase 16 (a), named), launches
+    # of phase 16 (c)'s step on the tiled kernels.
     bf16_launches["16b"] = repair_launches["16b_bf16"]
+    bf16_launches["16b_k100"] = repair_launches["16b_bf16_k100"]
     bf16_launches["16c"] = repair_launches["16c"]
+    bf16_launches["16c_tiled"] = repair_launches["16c_tiled"]
     bf16_launches["17"] = p17
     wide = repair_rec[(25, WIDE_ZH, True)]
-    for name, f32_name, r, src in (
-            [(n, f, bf16_rec[f], WGRAD_BF16_SRC if f == "gtf_wgrad"
-              else BF16_SCAN_SRC) for n, f in BF16_KERNELS.items()]
-            + [(n, f, wide[f], TILED_SRC) for n, f in TILED_KERNELS.items()]):
-        tiled = name in TILED_KERNELS
+    deep = repair_rec[(WGMMA_K, Z_DIM, True)]
+    rows = ([(n, f, bf16_rec[f], WGRAD_BF16_SRC if f == "gtf_wgrad"
+              else BF16_SCAN_SRC, "15e") for n, f in BF16_KERNELS.items()]
+            + [(n, f, wide[f], F32_SRC, "16c")
+               for n, f in WGMMA_BF16_KERNELS.items()]
+            + [(n + " (K = %d)" % WGMMA_K, f, deep[f], F32_SRC, "16b_k100")
+               for n, f in WGMMA_BF16_KERNELS.items()]
+            + [(n, f, dict(wide[f], ms=wide[f]["tiled_twin_ms"],
+                           err=wide[f]["tiled_err"]), TILED_SRC, "16c_tiled")
+               for n, f in TILED_KERNELS.items()])
+    for name, f32_name, r, src, run in rows:
+        kname = name.split(" ")[0]
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": KERNELS[f32_name][1],
-            "launches": bf16_launches["16c" if tiled else "15e"][name],
-            "launches_by_phase": {k: v[name]
+            "launches": bf16_launches[run][kname],
+            "launches_by_phase": {k: v[kname]
                                   for k, v in bf16_launches.items()},
             "max_abs_err": r["err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"],
@@ -4114,8 +4247,12 @@ def main():
             "bound_by": max(r["bound_ms"], key=r["bound_ms"].get),
             "library_ms": r.get("library_ms"),
             "bound_f32_ms": r["bound_f32_ms"]})
-        if "f32_twin_ms" in r:
-            kernels[-1]["f32_twin_ms"] = r["f32_twin_ms"]
+        keys = (("f32_twin_ms",) if kname in BF16_KERNELS else
+                ("tiled_twin_ms", "f32_wgmma_ms", "f32_twin_ms")
+                if kname in WGMMA_BF16_KERNELS else ("f32_wgmma_ms",))
+        for key in keys:
+            if key in r:
+                kernels[-1][key] = r[key]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

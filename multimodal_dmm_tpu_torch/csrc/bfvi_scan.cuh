@@ -2,8 +2,10 @@
 // bfvi_scan.cu builds the float32 kernels from this file. bfvi_scan_bf16.cu
 // builds from it (BFVI_SCAN_BF16, at the end) the tiled bfloat16 scans,
 // bfvi_scan_fwd_bf16_tiled_kernel and bfvi_scan_bwd_bf16_tiled_kernel,
-// which run every width and particle count the launch plan gives no
-// cluster to (ops/cuda/bfvi_scan.py: bf16_scan_plan); the bfloat16 scans'
+// the route "tiled", which the launch plan (ops/cuda/bfvi_scan.py:
+// bf16_scan_plan) gives no shape: they run where a caller names them, as
+// the twin of the bf16 wgmma route (f32_scan.cuh), which takes every
+// width and particle count that no cluster holds; the bfloat16 scans'
 // cluster route from bf16_scan.cuh, which uses the elementwise helpers
 // below; and the bfloat16 weight gradients from wgrad_bf16.cuh.
 //

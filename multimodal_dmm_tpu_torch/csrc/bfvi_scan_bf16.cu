@@ -6,8 +6,10 @@
 //     groups, wgmma), C entry points bfvi_scan_fwd and bfvi_scan_bwd;
 //   - the tiled route, bfvi_scan_fwd_bf16_tiled_kernel and
 //     bfvi_scan_bwd_bf16_tiled_kernel (bfvi_scan.cuh on the tile engine's
-//     bf16 route), bfvi_scan_fwd_tiled and bfvi_scan_bwd_tiled, for the
-//     widths and particle counts that the plan gives no cluster to;
+//     bf16 route), bfvi_scan_fwd_tiled and bfvi_scan_bwd_tiled, which run
+//     where a caller names them: the twin of the wgmma route
+//     (f32_scan.cuh, built by f32_scan.cu), which the plan gives the
+//     widths and particle counts that no cluster holds;
 //   - the weight gradients on both routes' bf16 rows, gtf_wgrad_bf16_kernel
 //     (wgrad_bf16.cuh: TMA, wgmma), gtf_wgrad_bf16.
 

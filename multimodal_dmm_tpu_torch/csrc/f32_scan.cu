@@ -1,14 +1,16 @@
 // The BFVI scan kernels in float32 on the routes of f32_scan.cuh ("column"
-// and "wgmma"), and their C entry points; ops/cuda/bfvi_scan.py chooses the
-// route (f32_scan_plan). bfvi_scan.cuh supplies the shared helpers only:
-// its own kernels, the route "tiled", are built by bfvi_scan.cu.
+// and "wgmma"), the bf16 scans' wgmma route (bf16_gtf), and their C entry
+// points; ops/cuda/bfvi_scan.py chooses the route (f32_scan_plan,
+// bf16_scan_plan). bfvi_scan.cuh supplies the shared helpers only: its own
+// kernels, the route "tiled", are built by bfvi_scan.cu and (bf16)
+// bfvi_scan_bf16.cu.
 
 #define BFVI_SCAN_HELPERS_ONLY 1
 #include "f32_scan.cuh"
 
 namespace {
 
-using f32scan::Mat;
+using f32scan::BMats;
 using f32scan::Mats;
 
 // The (N, K) of each matrix of f32scan's table at widths (D, H).
@@ -23,63 +25,80 @@ void mat_shapes(int D, int H, int (*nk)[2]) {
   }
 }
 
-long long mat_floats(int n, int k) {
-  const int npad = (n + f32scan::kImgRows - 1) / f32scan::kImgRows *
-                   f32scan::kImgRows;
-  return (long long)((k + f32scan::kSlab - 1) / f32scan::kSlab) * npad *
-         f32scan::kSlab;
-}
-
-// Floats of one direction's image (hi, then lo), as f32_pack lays it out:
-// each matrix ceil(K / 32) slabs of N rows padded to kImgRows.
-long long image_floats(int D, int H, int backward) {
+// Walks one direction's matrices in table order as their image lays them
+// out: each ceil(K / slab) slabs of N rows padded to `rows`, `slab` values
+// a row; f(table index, offset of the matrix in values, its padded rows).
+// Returns the image's values (each half's, for a 3xTF32 image).
+template <class F>
+long long walk_image(int D, int H, int backward, int slab, int rows, F f) {
   int nk[f32scan::kMats][2];
   mat_shapes(D, H, nk);
-  long long half = 0;
-  const int first = backward ? f32scan::WS_T : f32scan::W1;
-  const int last = backward ? f32scan::kMats : f32scan::WS_T;
-  for (int i = first; i < last; ++i) half += mat_floats(nk[i][0], nk[i][1]);
-  return 2 * half;
-}
-
-// The table entries of one direction's matrices in `img`.
-void set_mats(Mats* m, int D, int H, int backward, const float* img) {
-  int nk[f32scan::kMats][2];
-  mat_shapes(D, H, nk);
-  const long long half = image_floats(D, H, backward) / 2;
   const int first = backward ? f32scan::WS_T : f32scan::W1;
   const int last = backward ? f32scan::kMats : f32scan::WS_T;
   long long off = 0;
   for (int i = first; i < last; ++i) {
-    m->m[i].hi = img + off;
-    m->m[i].lo = img + half + off;
-    m->m[i].npad = (nk[i][0] + f32scan::kImgRows - 1) / f32scan::kImgRows *
-                   f32scan::kImgRows;
-    off += mat_floats(nk[i][0], nk[i][1]);
+    const int npad = (nk[i][0] + rows - 1) / rows * rows;
+    f(i, off, npad);
+    off += (long long)((nk[i][1] + slab - 1) / slab) * npad * slab;
   }
+  return off;
 }
 
-// A cooperative launch of one CTA on each SM (the wgmma kernels' grid):
+// Floats of one direction's 3xTF32 image (hi, then lo), as f32_pack lays
+// it out: 32-deep slabs of rows padded to kImgRows.
+long long image_floats(int D, int H, int backward) {
+  return 2 * walk_image(D, H, backward, f32scan::kSlab, f32scan::kImgRows,
+                        [](int, long long, int) {});
+}
+
+// The table entries of one direction's matrices in `img`.
+void set_mats(Mats* m, int D, int H, int backward, const float* img) {
+  const long long half = image_floats(D, H, backward) / 2;
+  walk_image(D, H, backward, f32scan::kSlab, f32scan::kImgRows,
+             [&](int i, long long off, int npad) {
+               m->m[i].hi = img + off;
+               m->m[i].lo = img + half + off;
+               m->m[i].npad = npad;
+             });
+}
+
+// Words of one direction's bf16 image, as bf16_wgmma_pack lays it out:
+// 64-deep slabs of rows padded to kBImgRows.
+long long bf16_image_words(int D, int H, int backward) {
+  return walk_image(D, H, backward, f32scan::kBSlab, f32scan::kBImgRows,
+                    [](int, long long, int) {});
+}
+
+// The table entries of one direction's matrices in the bf16 image `img`.
+void set_bmats(BMats* m, int D, int H, int backward, const uint16_t* img) {
+  walk_image(D, H, backward, f32scan::kBSlab, f32scan::kBImgRows,
+             [&](int i, long long off, int npad) {
+               m->m[i].w = img + off;
+               m->m[i].npad = npad;
+             });
+}
+
+// A cooperative launch of one CTA on each SM (the wgmma kernels' grid, on
+// either engine's table M, with `smem` bytes of dynamic shared memory):
 // fails if the card cannot hold one.
-template <typename Args>
-cudaError_t launch_wgmma(void (*kern)(Args, Mats), cudaStream_t st, Args* a,
-                         Mats* m) {
+template <typename Args, typename M>
+cudaError_t launch_wgmma(void (*kern)(Args, M), cudaStream_t st, Args* a,
+                         M* m, int smem = f32scan::kWgSmem) {
   cudaError_t err = cudaFuncSetAttribute(
-      (const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      f32scan::kWgSmem);
+      (const void*)kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int dev = 0, sms = 0, per_sm = 0;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, kern, f32scan::kWgThreads, f32scan::kWgSmem);
+      &per_sm, kern, f32scan::kWgThreads, smem);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   void* params[] = {a, m};
   err = cudaLaunchCooperativeKernel((const void*)kern, dim3(sms),
-                                    dim3(f32scan::kWgThreads), params,
-                                    f32scan::kWgSmem, st);
+                                    dim3(f32scan::kWgThreads), params, smem,
+                                    st);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -207,6 +226,44 @@ int bfvi_scan_bwd_wgmma(BWD_PARAMS, const float* img_fwd, long long fwd_floats,
   set_mats(&m, D, H, 1, img_bwd);
   return (int)launch_wgmma(f32scan::bfvi_scan_bwd_wgmma_kernel,
                            (cudaStream_t)stream, &a, &m);
+}
+
+// The bf16 forward scan on the wgmma route (bf16_gtf): bfvi_scan_fwd's
+// arguments, then `rows` (null, or the (T-1) K B rows [h1 | hn | z_nonlin]
+// of its transition, in f32) and the forward's bf16 image.
+int bfvi_scan_fwd_bf16_wgmma(FWD_PARAMS, float* rows, const uint16_t* img,
+                             long long img_words) {
+  if (D % 16 || H % 16 || img_words != bf16_image_words(D, H, 0))
+    return (int)cudaErrorInvalidValue;
+  FwdArgs a = fwd_args(FWD_ARGS, rows);
+  BMats m = {};
+  set_bmats(&m, D, H, 0, img);
+  return (int)launch_wgmma(f32scan::bfvi_scan_fwd_bf16_wgmma_kernel,
+                           (cudaStream_t)stream, &a, &m, f32scan::kBWgSmem);
+}
+
+// The bf16 backward scan on the wgmma route: bfvi_scan_bwd's arguments,
+// then the rows in bfloat16 that it writes for gtf_wgrad_bf16_kernel
+// (xs_bf, ys_bf as xs and ys, zs_bf as z_traj's first (T-1) K B rows) and
+// the bias gradients' f32 sums, nch partials of 2H + 4D (bias_part,
+// zeroed), as bfvi_scan_bwd_tiled takes them; then the forward image (the
+// recompute's) and the backward one.
+int bfvi_scan_bwd_bf16_wgmma(BWD_PARAMS, uint16_t* xs_bf, uint16_t* ys_bf,
+                             uint16_t* zs_bf, float* bias_part, int nch,
+                             const uint16_t* img_fwd, long long fwd_words,
+                             const uint16_t* img_bwd, long long bwd_words) {
+  if (D % 16 || H % 16 || nch < 1 ||
+      fwd_words != bf16_image_words(D, H, 0) ||
+      bwd_words != bf16_image_words(D, H, 1))
+    return (int)cudaErrorInvalidValue;
+  BwdArgs a = bwd_args(BWD_ARGS);
+  a.xs_bf = xs_bf; a.ys_bf = ys_bf; a.zs_bf = zs_bf;
+  a.bias_part = bias_part; a.nch = nch;
+  BMats m = {};
+  set_bmats(&m, D, H, 0, img_fwd);
+  set_bmats(&m, D, H, 1, img_bwd);
+  return (int)launch_wgmma(f32scan::bfvi_scan_bwd_bf16_wgmma_kernel,
+                           (cudaStream_t)stream, &a, &m, f32scan::kBWgSmem);
 }
 
 // The forward scan on the column route: `cols` batch columns a CTA; work

@@ -3,9 +3,10 @@
 // main path's launches, forward and backward:
 //   bfvi_scan_fwd_column_kernel, bfvi_scan_bwd_column_kernel   "column"
 //   bfvi_scan_fwd_wgmma_kernel,  bfvi_scan_bwd_wgmma_kernel    "wgmma"
-// built by f32_scan.cu. bfvi_scan.cuh's kernels (the tile
-// engine of tf32x3.cuh, mma.sync) stay as the route "tiled", which the plan
-// gives no shape (the reference the new routes are timed against); this
+// and the bf16 scans' wgmma route (bf16_scan_plan, below), built by
+// f32_scan.cu. bfvi_scan.cuh's kernels (the tile engine of tf32x3.cuh,
+// mma.sync) stay as the route "tiled", float32 and bf16, which the plans
+// give no shape (the reference the new routes are timed against); this
 // file reuses that header's elementwise phases, epilogues and jobs.
 //
 // Replaces the Pallas TPU kernels of multimodal_dmm_tpu/ops/pallas/bfvi_scan.py:
@@ -84,8 +85,60 @@
 // elementwise phases. At K = 1 latency alone: 24 steps of dependent
 // phases.
 //
+// Route "wgmma" in bfloat16 (MultiDMM(bf16_gtf=True)):
+//   bfvi_scan_fwd_bf16_wgmma_kernel, bfvi_scan_bwd_bf16_wgmma_kernel
+// which bf16_scan_plan gives every bf16 launch that no cluster of
+// bf16_scan.cuh holds (K > 64 particles, wide transitions). The same
+// grid, phases, job tables, producer warp and elementwise phases as the
+// float32 wgmma route (the phase machinery below is one template over the
+// two engines), with bfvi_scan.cuh's bf16 rounding points (its header):
+//   - products on wgmma.mma_async m64nNk16, bf16 operands, f32
+//     accumulators: one pass, not three; tiles of 128 rows by up to 128
+//     columns (pick_bn<true>: a slab of A costs as many bytes of L2 as
+//     256 weight rows, so wide tiles, which read A fewer times, win);
+//   - B, the weights, as one bfloat16 image a matrix (bf16_wgmma_pack),
+//     K-major in the 128-byte swizzle, 64-deep slabs, rows padded to 128:
+//     a 16 KB stage holds a 128-row tile's slab, a ring of 5. bf16 wgmma
+//     could read B MN-major, so that W as it is would serve both the
+//     forward products and the input-gradient ones; each direction has its
+//     own K-major image all the same, because a K-major tile of bn rows is
+//     bn 128-byte rows, one contiguous copy of what the tile reads at every
+//     width bn, where an MN-major tile narrower than 64 columns would copy
+//     whole 64-column rows of the swizzle atom (8x the bytes at bn = 8);
+//     the two images are packed once per autograd call;
+//   - A, the activations, f32 in L2 as on the float32 route, copied by
+//     cp.async into a warpgroup's slots three slabs ahead of its products
+//     (each thread its own 16-byte pieces: per 64-deep slab and row, depth
+//     16 i + 4 q + (0..3) for k16 step i, so that the four threads of a
+//     row copy 64 consecutive bytes a step), then rounded to bf16
+//     (cvt.rn.bf16x2.f32, as the tile engine rounds its fragments) into
+//     one of the warpgroup's two A stages in shared memory (K-major, the
+//     swizzle, the images' order of depth within each step), where wgmma
+//     reads it; each step still sums exactly its 16 depths. A in registers
+//     was the first design: two register sets of fragments for two slabs
+//     in flight spilled hundreds of bytes at 168 registers (and at 224),
+//     one set fits but waits for every slab's products;
+//   - two slabs' products in flight: the wait after slab s is for slab
+//     s - 1's group (wg_wait<1>), whose B stage is freed then;
+//   - every output sums its depth slab after slab, and each slab's k16
+//     steps, in one order on every tile width: the backward's recompute
+//     over all (T - 1) K B rows equals the forward's transition bit for
+//     bit, also at a bf16 rounding midpoint;
+//   - the backward writes the rows of the tiled bf16 backward
+//     (emit_bf16_rows: xs/ys/z in bfloat16, BIAS_CHUNKS partials of the
+//     bias sums), which gtf_wgrad_bf16_kernel takes unchanged;
+//   - registers: at most 168 a thread (kBRegs: 288 threads, three of the
+//     nine warps on one of the SM's four register files), 0 spilled.
+// Bound (H100, z = h = 768, K = 25): 425 GFLOP over a forward, 0.43 ms at
+// 989 TFLOP/s; the backward three times that. What the launch spends
+// beyond it (scripts/bf16_wgmma_parts.py on the card): the elementwise
+// phases (about a third of the forward), the epilogues' f32 stores, and
+// per slab the loads of A in f32 from L2 (32 KB a 128-row slab), as on the
+// float32 route.
+//
 // Layouts, arguments and the rows that the backward writes: bfvi_scan.cuh.
-// D and H must be multiples of 4 (the wrapper zero-pads).
+// D and H must be multiples of 4 (the wrapper zero-pads), of 16 on the
+// bf16 route.
 
 #pragma once
 
@@ -275,6 +328,54 @@ struct Mma<64> {
   }
 };
 
+// wgmma.mma_async m64nNk16, bf16 x bf16 -> f32, A and B from shared
+// memory (K-major descriptors), accumulating into d.
+#define F32SCAN_BMMA(N, OUTS, IN0)                                          \
+  template <>                                                               \
+  struct BMma<N> {                                                          \
+    __device__ static void run(float (&d)[N / 2], uint64_t a, uint64_t b) { \
+      asm volatile(                                                         \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, %" #IN0 ", 0;\n"               \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 "       \
+          OUTS ", p, 1, 1, 0, 0;\n}\n"                                      \
+          : F32SCAN_BACC##N                                                 \
+          : "l"(a), "l"(b), "r"(1));                                        \
+    }                                                                       \
+  };
+template <int N>
+struct BMma;
+#define F32SCAN_BACC8 "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+F32SCAN_BMMA(8, "{%0, %1, %2, %3}, %4, %5", 6)
+#define F32SCAN_BACC16 F32SCAN_BACC8, "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), \
+    "+f"(d[7])
+F32SCAN_BMMA(16, "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9", 10)
+#define F32SCAN_BACC32 F32SCAN_BACC16, "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), \
+    "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+F32SCAN_BMMA(32, "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+             "%13, %14, %15}, %16, %17", 18)
+#define F32SCAN_BACC64 F32SCAN_BACC32, "+f"(d[16]), "+f"(d[17]), \
+    "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), \
+    "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+    "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+F32SCAN_BMMA(64, "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+             "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "
+             "%25, %26, %27, %28, %29, %30, %31}, %32, %33", 34)
+#define F32SCAN_BACC128 F32SCAN_BACC64, \
+    "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), \
+    "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), \
+    "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), \
+    "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+    "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), \
+    "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), \
+    "+f"(d[62]), "+f"(d[63])
+F32SCAN_BMMA(128, "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+             "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, "
+             "%25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, "
+             "%37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, "
+             "%49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, "
+             "%61, %62, %63}, %64, %65", 66)
+#undef F32SCAN_BMMA
+
 // ---------------------------------------------------------------------------
 // Route "wgmma": the product engine
 // ---------------------------------------------------------------------------
@@ -284,9 +385,18 @@ constexpr int kWgThreads = NT + 32;  // two consumer warpgroups, a producer warp
 // __launch_bounds__ ptxas gives a CTA of 288 threads 168, as if it were
 // 384, and the consumers' loop and the elementwise phases spill there.)
 constexpr int kWgRegs = 224;
+// The bf16 kernels' cap: the most registers that 288 threads can hold,
+// three of the nine warps sharing one of the SM's four register files of
+// 16,384 (168 x 32 x 3 = 16,128); above it, under kWgRegs, the launch
+// found no room (cudaErrorInvalidConfiguration).
+constexpr int kBRegs = 168;
 // The elementwise phases' particles in flight a thread (bfvi_scan.cuh's
 // CH, 8 there).
 constexpr int kWgChunk = 4;
+// The bf16 backward's: at 4 its kernel spilled 24 bytes at 168 registers
+// (the bf16 engine's 64 accumulators a thread); 2 spill none and took the
+// same time on the card.
+constexpr int kBBwdChunk = 2;
 constexpr int kTileRows = 128;       // a tile's rows: 64 a consumer warpgroup
 constexpr int kMaxBN = 64;
 constexpr int kStages = 8;
@@ -296,6 +406,30 @@ constexpr int kStageBytes = 2 * kHalf;
 constexpr int kRedFloats = 3 * 2 * (NT / 2);  // bfvi_scan.cuh's group_sum
 constexpr int kWgSmem = kStages * kStageBytes + kRedFloats * 4 + 1024;
 constexpr int kImgRows = kMaxBN;     // image rows are padded to this
+// The bf16 engine: tiles of 128 rows by up to kBMaxBN columns (a
+// warpgroup 64 x 128: 64 accumulators a thread); a stage is one 64-deep
+// slab (128 bytes a row) of a tile's bf16 weight rows (16 KB), an A stage
+// that of a warpgroup's 64 rows of A in bf16 (8 KB); a slot holds a
+// warpgroup's 64 rows of a slab of A in f32 as they arrive from L2
+// (cp.async), kBSlots slabs ahead. The ring: 5 weight stages, two A
+// stages and kBSlots slots a warpgroup, 208 KB.
+constexpr int kBMaxBN = 128;
+constexpr int kBImgRows = kBMaxBN;  // bf16 image rows are padded to this
+constexpr int kBSlab = 64;
+constexpr int kBStageBytes = kBMaxBN * 128;
+constexpr int kBAStageBytes = 64 * 128;
+constexpr int kBStages = 5;
+constexpr int kBSlots = 3;
+constexpr int kBSlotBytes = 64 * kBSlab * 4;
+constexpr int kBAStages = kBStages * kBStageBytes;  // the A stages' offset
+constexpr int kBASlots = kBAStages + 4 * kBAStageBytes;  // the slots'
+constexpr int kBRingBytes = kBASlots + 2 * kBSlots * kBSlotBytes;
+constexpr int kBWgSmem = kBRingBytes + kRedFloats * 4 + 1024;
+// A slab of a tile reads 128 rows of A in f32 (32 KB) from L2 beside bn
+// rows of bf16 weights (128 bytes each): A's bytes are those of 256 weight
+// rows, so a wide tile costs little more than a narrow one and saves
+// reading A again.
+constexpr int kBSlabCost = 256;
 
 // One weight matrix's TF32 images (f32_pack): N rows by K deep, as
 // ceil(K / 32) slabs of npad rows of 32 values (128 bytes, swizzled), hi
@@ -312,6 +446,30 @@ struct Mat {
 enum { W1 = 0, WG2, WN2, WS, WS_T, WG2_T, WN2_T, G1_T, N1_T, ZL_T, kMats };
 struct Mats {
   Mat m[kMats];
+};
+
+// One matrix's bfloat16 image (bf16_wgmma_pack): ceil(K / 64) slabs of
+// npad rows of 64 values (128 bytes, swizzled); the same table.
+struct BMat {
+  const uint16_t* w;
+  int npad;
+};
+struct BMats {
+  BMat m[kMats];
+};
+
+// The ring and matrices of an engine: 3xTF32 (BF16 false) or bf16.
+template <bool BF16>
+struct Eng {
+  using M = Mats;
+  static constexpr int kStages = f32scan::kStages, kSlab = f32scan::kSlab;
+  static constexpr int kRingBytes = f32scan::kStages * kStageBytes;
+};
+template <>
+struct Eng<true> {
+  using M = BMats;
+  static constexpr int kStages = kBStages, kSlab = kBSlab;
+  static constexpr int kRingBytes = f32scan::kBRingBytes;
 };
 
 // A product of a phase: rows M of A (its first K columns) times matrix
@@ -337,14 +495,17 @@ struct Ring {
 // the split, the wait for its products), so a tile's cost is its width
 // plus kSlabCost columns' worth.
 constexpr int kSlabCost = 64;
+template <bool BF16>
 __device__ __forceinline__ int pick_bn(const WJob* jobs, int nj) {
+  constexpr int max_bn = BF16 ? kBMaxBN : kMaxBN;
+  constexpr int slab_cost = BF16 ? kBSlabCost : kSlabCost;
   const int mt = (jobs[0].M + kTileRows - 1) / kTileRows;
-  int best = kMaxBN, best_cost = 0x7fffffff;
-  for (int bn = kMaxBN; bn >= 8; bn >>= 1) {
+  int best = max_bn, best_cost = 0x7fffffff;
+  for (int bn = max_bn; bn >= 8; bn >>= 1) {
     int tiles = 0;
     for (int j = 0; j < nj; ++j) tiles += mt * ((jobs[j].N + bn - 1) / bn);
     const int cost = ((tiles + (int)gridDim.x - 1) / (int)gridDim.x) *
-                     (kSlabCost + bn);
+                     (slab_cost + bn);
     if (cost < best_cost) {
       best_cost = cost;
       best = bn;
@@ -452,13 +613,171 @@ __device__ __forceinline__ void consume(const WJob& jb, int m0, int n0,
   }
 }
 
+// The bf16 engine's producer (one thread): each 64-deep slab of the tile's
+// bf16 weight rows [n0, n0 + bn) into the next stage once it is free.
+__device__ __forceinline__ void produce_bf16(const BMat& m, int n0, int bn,
+                                             int ns, Ring& rg) {
+  const int bytes = bn * 128;
+  for (int s = 0; s < ns; ++s, ++rg.it) {
+    const uint32_t st = rg.it % kBStages, round = rg.it / kBStages;
+    mbar_wait(rg.empty + 8 * st, (round & 1) ^ 1);
+    const uint32_t full = rg.full + 8 * st;
+    mbar_expect(full, bytes);
+    bulk_copy(rg.base + st * kBStageBytes,
+              m.w + ((size_t)s * m.npad + n0) * kBSlab, bytes, full);
+  }
+}
+
+// Generic-proxy writes to shared memory before an async-proxy read
+// (wgmma) of them; the warpgroup's own barrier (named barrier 1 + wg over
+// its 128 threads; 8 is the elementwise phases', lanes_sync).
+__device__ __forceinline__ void fence_async_cta() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_bar(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(1 + wg) : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+__device__ __forceinline__ float4 ld_shared4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr) : "memory");
+  return v;
+}
+// 16 bytes from global memory (through L2 only) into shared memory,
+// asynchronously; `bytes` 0 fills them with zeros and reads nothing.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The bf16 engine's consumer warpgroup: acc = A[m0 + 64 wg + (0..63), :K]
+// times rows [n0, n0 + BN) of the matrix, ns slabs of four 16-deep steps
+// from the ring (past K the image and A hold zeros, which add exact
+// zeros), then the epilogue, which rounds each sum to bf16
+// (epi_pair<true>). A's slabs come from L2 by cp.async into the
+// warpgroup's slots, kBSlots slabs ahead of the products (each thread
+// copies and later reads only its own 16-byte pieces: its rows r0 and r1,
+// depth 64 s + 16 h + 4 q + (0..3) for step h); each slab is rounded to
+// bf16 and written into one of the warpgroup's two A stages (K-major, the
+// 128-byte swizzle, the images' order of depth), where wgmma reads it, so
+// that two slabs' products are in flight.
+template <int BN>
+__device__ __forceinline__ void consume_bf16(const WJob& jb, int m0, int n0,
+                                             int ns, Ring& rg) {
+  const int t = threadIdx.x, lane = t & 31, q = lane & 3, wg = t >> 7;
+  const int row0 = 16 * ((t >> 5) & 3) + (lane >> 2);  // in the 64 rows
+  const int r0 = m0 + 64 * wg + row0, r1 = r0 + 8, M = jb.M, K = jb.K;
+  const bool v0 = r0 < M, v1 = r1 < M;
+  const float* p0 = jb.a.p + (size_t)(v0 ? r0 : 0) * jb.a.ld;
+  const float* p1 = jb.a.p + (size_t)(v1 ? r1 : 0) * jb.a.ld;
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+  // Piece c of this thread in a slot at 16 (128 c + thread), so that a
+  // warp's 16-byte accesses take 32 distinct banks: pieces 0-3 row r0,
+  // 4-7 row r1, step h = c % 4.
+  const uint32_t a_base = rg.base + kBAStages + 2 * wg * kBAStageBytes;
+  const uint32_t f_base = rg.base + kBASlots + wg * kBSlots * kBSlotBytes +
+                          16 * (t & 127);
+  auto fetch = [&](int s) {
+    const uint32_t dst = f_base + (s % kBSlots) * kBSlotBytes;
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int k = kBSlab * s + 16 * h + 4 * q;
+      const bool ok = k < K;  // K is a multiple of 16
+      cp_async16(dst + 2048 * h, ok ? p0 + k : p0, ok && v0 ? 16 : 0);
+      cp_async16(dst + 2048 * (4 + h), ok ? p1 + k : p1, ok && v1 ? 16 : 0);
+    }
+  };
+  // Step i's depths 4q + (0, 1) at the positions 2q (+1) of the step, 4q +
+  // (2, 3) at 2q + 8 (+1) (bf16_wgmma_pack's order): byte 32 i + 4 q of
+  // the 128-byte row in chunk 2 i, and in chunk 2 i + 1, each chunk at
+  // chunk ^ (row % 8).
+  const uint32_t o0 = row0 * 128 + 4 * q, o1 = o0 + 8 * 128;
+  const int x0 = row0 & 7;  // row0 + 8 has the same swizzle
+  auto stage_a = [&](int s, uint32_t dst) {
+    const uint32_t src = f_base + (s % kBSlots) * kBSlotBytes;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 x = ld_shared4(src + 2048 * i);
+      const float4 y = ld_shared4(src + 2048 * (4 + i));
+      const uint32_t c0 = (uint32_t)((2 * i) ^ x0) << 4;
+      const uint32_t c1 = (uint32_t)((2 * i + 1) ^ x0) << 4;
+      st_shared(dst + o0 + c0, tf32x3::bf16x2_(x.x, x.y));
+      st_shared(dst + o0 + c1, tf32x3::bf16x2_(x.z, x.w));
+      st_shared(dst + o1 + c0, tf32x3::bf16x2_(y.x, y.y));
+      st_shared(dst + o1 + c1, tf32x3::bf16x2_(y.z, y.w));
+    }
+  };
+  // One commit group a slab (empty past the tile's last), so that the
+  // wait for slab s is always "all but the kBSlots - 1 newest".
+#pragma unroll
+  for (int p = 0; p < kBSlots; ++p) {
+    if (p < ns) fetch(p);
+    cp_async_commit();
+  }
+  fence_acc(acc);
+  for (int s = 0; s < ns; ++s) {
+    cp_async_wait<kBSlots - 1>();
+    // The A stage of slab s - 2, whose products the wait of slab s - 1
+    // saw done; the slot is refilled with slab s + kBSlots at once.
+    const uint32_t a_s = a_base + (s & 1) * kBAStageBytes;
+    stage_a(s, a_s);
+    if (s + kBSlots < ns) fetch(s + kBSlots);
+    cp_async_commit();
+    fence_async_cta();
+    wg_bar(wg);
+    const uint32_t st = rg.it % kBStages;
+    mbar_wait(rg.full + 8 * st, (rg.it / kBStages) & 1);
+    const uint32_t b = rg.base + st * kBStageBytes;
+    wg_fence();
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      BMma<BN>::run(acc, desc(a_s + 32 * i), desc(b + 32 * i));
+    wg_commit();
+    // Slab s - 1's products are done: its B stage is free.
+    wg_wait<1>();
+    if (s > 0 && lane == 0)
+      mbar_arrive(rg.empty + 8 * ((rg.it - 1) % kBStages));
+    ++rg.it;
+  }
+  wg_wait<0>();
+  if (lane == 0) mbar_arrive(rg.empty + 8 * ((rg.it - 1) % kBStages));
+  fence_acc(acc);
+  const Epi ep = jb.ep;
+  const int N = jb.N;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * q;
+    if (n < N) {
+      if (v0) epi_pair<true>(ep, r0, n, acc[4 * j], acc[4 * j + 1]);
+      if (v1) epi_pair<true>(ep, r1, n, acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
 // The tiles of one phase's jobs (all of M rows), in grid-stride order,
-// through the producer's or the consumers' side of the ring.
-template <bool PRODUCER>
+// through the producer's or the consumers' side of the ring, on the
+// 3xTF32 engine or (BF16) the bf16 one.
+template <bool PRODUCER, bool BF16>
 __device__ __forceinline__ void run_phase(const WJob* jobs, int nj,
-                                          const Mats& mats, Ring& rg) {
+                                          const typename Eng<BF16>::M& mats,
+                                          Ring& rg) {
   // (The producer is one thread: the others of its warp have left.)
-  const int bn = PRODUCER ? pick_bn(jobs, nj) : uniform(pick_bn(jobs, nj));
+  const int bn = PRODUCER ? pick_bn<BF16>(jobs, nj)
+                          : uniform(pick_bn<BF16>(jobs, nj));
   const int mt = (jobs[0].M + kTileRows - 1) / kTileRows;
   int total = 0;
   for (int j = 0; j < nj; ++j) total += mt * ((jobs[j].N + bn - 1) / bn);
@@ -470,9 +789,20 @@ __device__ __forceinline__ void run_phase(const WJob* jobs, int nj,
     }
     const WJob& jb = jobs[j];
     const int m0 = (local % mt) * kTileRows, n0 = (local / mt) * bn;
-    const int ns = (jb.K + kSlab - 1) / kSlab;
-    if (PRODUCER) {
+    constexpr int slab = Eng<BF16>::kSlab;
+    const int ns = (jb.K + slab - 1) / slab;
+    if constexpr (PRODUCER && BF16) {
+      produce_bf16(mats.m[jb.mat], n0, bn, ns, rg);
+    } else if constexpr (PRODUCER) {
       produce(mats.m[jb.mat], n0, bn, ns, rg);
+    } else if constexpr (BF16) {
+      switch (bn) {
+        case 128: consume_bf16<128>(jb, m0, n0, uniform(ns), rg); break;
+        case 64: consume_bf16<64>(jb, m0, n0, uniform(ns), rg); break;
+        case 32: consume_bf16<32>(jb, m0, n0, uniform(ns), rg); break;
+        case 16: consume_bf16<16>(jb, m0, n0, uniform(ns), rg); break;
+        default: consume_bf16<8>(jb, m0, n0, uniform(ns), rg); break;
+      }
     } else {
       switch (bn) {
         case 64: consume<64>(jb, m0, n0, uniform(ns), rg); break;
@@ -538,18 +868,18 @@ __device__ __forceinline__ int fwd_jobs(const FwdArgs& a, int t, int ph,
 }
 
 // bfvi_scan.cuh's scan_fwd with the products on this engine (one call
-// site of the inlined engine); the producer walks the same phases and only
-// loads.
-template <bool PRODUCER>
+// site of the inlined engine), 3xTF32 or (BF16) bf16; the producer walks
+// the same phases and only loads.
+template <bool PRODUCER, bool BF16>
 __device__ __forceinline__ void scan_fwd_wg(const FwdArgs& a,
-                                            const Mats& mats, Ring& rg,
-                                            float* red) {
+                                            const typename Eng<BF16>::M& mats,
+                                            Ring& rg, float* red) {
   unsigned target = 0;
   for (int t = 0; t < a.s.T; ++t) {
     for (int ph = 0; t > 0 && ph < 3; ++ph) {
       WJob jobs[2];
       const int nj = fwd_jobs(a, t, ph, jobs);
-      run_phase<PRODUCER>(jobs, nj, mats, rg);
+      run_phase<PRODUCER, BF16>(jobs, nj, mats, rg);
       if (!PRODUCER) {
         if (ph == 2 && a.rows != nullptr) copy_fwd_rows(a, t);
         consumer_grid_sync(a.bar, target);
@@ -567,7 +897,8 @@ __device__ __forceinline__ void scan_fwd_wg(const FwdArgs& a,
 // hn | z_nonlin] and, in ys, z_lin, a2 and s_raw); at step t, 3: d_znon +=
 // d_sraw @ ws and d_a1 = (d_a2 @ wg2) * (h1 > 0); 4: d_b1 = (d_znon @ wn2)
 // * (hn > 0); 5: the cotangent of z_{t-1} in three partials (gate_1,
-// nonlin_1, z_lin), which the next elementwise phase adds in order.
+// nonlin_1, z_lin), which the next elementwise phase adds in order (and
+// on the bf16 route rounds: the partials keep their f32 sums).
 __device__ __forceinline__ int bwd_jobs(const BwdArgs& a, int t, int ph,
                                         WJob* jobs) {
   const Dims& s = a.s;
@@ -619,6 +950,7 @@ __device__ __forceinline__ int bwd_jobs(const BwdArgs& a, int t, int ph,
                  store_to(a.gz + RD, D, nullptr, D)};
   jobs[2] = WJob{{Y + 2 * H, ly}, R, D, D, ZL_T,
                  store_to(a.gz + 2 * RD, D, nullptr, D)};
+  for (int j = 0; j < 3; ++j) jobs[j].ep.keep_f32 = 1;
   return 3;
 }
 
@@ -626,27 +958,33 @@ __device__ __forceinline__ int bwd_jobs(const BwdArgs& a, int t, int ph,
 // one sequence (one call site of the inlined engine): the recompute's
 // three products, then for t = T - 1 down to 1 the elementwise VJP of step
 // t and its three products, a grid barrier after each; the elementwise
-// VJP of step 0 last.
-template <bool PRODUCER>
+// VJP of step 0 last. On the bf16 route the phase of the z cotangent's
+// products also writes step t's rows in bfloat16 (emit_bf16_rows).
+template <bool PRODUCER, bool BF16>
 __device__ __forceinline__ void scan_bwd_wg(const BwdArgs& a,
-                                            const Mats& mats, Ring& rg,
-                                            float* red) {
+                                            const typename Eng<BF16>::M& mats,
+                                            Ring& rg, float* red) {
   unsigned target = 0;
   const int n_prod = a.s.T > 1 ? 3 * a.s.T : 0;
   int t = a.s.T - 1;
   for (int i = 0; i < n_prod; ++i) {
     const int ph = i < 3 ? i : 3 + (i - 3) % 3;
     if (ph == 3 && !PRODUCER) {
-      bwd_elementwise<false, kWgChunk>(a, t, red);
+      bwd_elementwise<BF16, BF16 ? kBBwdChunk : kWgChunk>(a, t, red);
       consumer_grid_sync(a.bar, target);
     }
     WJob jobs[3];
     const int nj = bwd_jobs(a, t, ph, jobs);
-    run_phase<PRODUCER>(jobs, nj, mats, rg);
-    if (!PRODUCER) consumer_grid_sync(a.bar, target);
+    run_phase<PRODUCER, BF16>(jobs, nj, mats, rg);
+    if (!PRODUCER) {
+      if constexpr (BF16) {
+        if (ph == 5) emit_bf16_rows(a, t);
+      }
+      consumer_grid_sync(a.bar, target);
+    }
     if (ph == 5) --t;
   }
-  if (!PRODUCER) bwd_elementwise<false, kWgChunk>(a, 0, red);
+  if (!PRODUCER) bwd_elementwise<BF16, BF16 ? kBBwdChunk : kWgChunk>(a, 0, red);
 }
 
 // The kernels' start: the ring's mbarriers (full: the producer's arrival
@@ -657,17 +995,19 @@ struct WgSmem {
   Ring rg;
   float* red;
 };
+template <bool BF16>
 __device__ __forceinline__ WgSmem wg_setup(char* raw, uint64_t* bars) {
+  constexpr int stages = Eng<BF16>::kStages;
   const uint32_t raw_addr = smem_u32(raw);
   const uint32_t pad = ((raw_addr + 1023u) & ~1023u) - raw_addr;
   WgSmem sm;
   sm.rg.base = raw_addr + pad;
   sm.rg.full = smem_u32(bars);
-  sm.rg.empty = smem_u32(bars + kStages);
+  sm.rg.empty = smem_u32(bars + stages);
   sm.rg.it = 0;
-  sm.red = reinterpret_cast<float*>(raw + pad + kStages * kStageBytes);
+  sm.red = reinterpret_cast<float*>(raw + pad + Eng<BF16>::kRingBytes);
   if (threadIdx.x == 0) {
-    for (int i = 0; i < kStages; ++i) {
+    for (int i = 0; i < stages; ++i) {
       mbar_init(sm.rg.full + 8 * i, 1);
       mbar_init(sm.rg.empty + 8 * i, NT / 32);
     }
@@ -681,24 +1021,50 @@ __global__ void __maxnreg__(kWgRegs)
     bfvi_scan_fwd_wgmma_kernel(FwdArgs a, Mats mats) {
   extern __shared__ __align__(16) char raw[];
   __shared__ __align__(8) uint64_t bars[2 * kStages];
-  WgSmem sm = wg_setup(raw, bars);
+  WgSmem sm = wg_setup<false>(raw, bars);
   if (threadIdx.x >= NT) {
-    if (threadIdx.x == NT) scan_fwd_wg<true>(a, mats, sm.rg, sm.red);
+    if (threadIdx.x == NT) scan_fwd_wg<true, false>(a, mats, sm.rg, sm.red);
     return;
   }
-  scan_fwd_wg<false>(a, mats, sm.rg, sm.red);
+  scan_fwd_wg<false, false>(a, mats, sm.rg, sm.red);
 }
 
 __global__ void __maxnreg__(kWgRegs)
     bfvi_scan_bwd_wgmma_kernel(BwdArgs a, Mats mats) {
   extern __shared__ __align__(16) char raw[];
   __shared__ __align__(8) uint64_t bars[2 * kStages];
-  WgSmem sm = wg_setup(raw, bars);
+  WgSmem sm = wg_setup<false>(raw, bars);
   if (threadIdx.x >= NT) {
-    if (threadIdx.x == NT) scan_bwd_wg<true>(a, mats, sm.rg, sm.red);
+    if (threadIdx.x == NT) scan_bwd_wg<true, false>(a, mats, sm.rg, sm.red);
     return;
   }
-  scan_bwd_wg<false>(a, mats, sm.rg, sm.red);
+  scan_bwd_wg<false, false>(a, mats, sm.rg, sm.red);
+}
+
+// The bf16 route's kernels (bf16_gtf): the same grid and phases on the
+// bf16 engine.
+__global__ void __maxnreg__(kBRegs)
+    bfvi_scan_fwd_bf16_wgmma_kernel(FwdArgs a, BMats mats) {
+  extern __shared__ __align__(16) char raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kBStages];
+  WgSmem sm = wg_setup<true>(raw, bars);
+  if (threadIdx.x >= NT) {
+    if (threadIdx.x == NT) scan_fwd_wg<true, true>(a, mats, sm.rg, sm.red);
+    return;
+  }
+  scan_fwd_wg<false, true>(a, mats, sm.rg, sm.red);
+}
+
+__global__ void __maxnreg__(kBRegs)
+    bfvi_scan_bwd_bf16_wgmma_kernel(BwdArgs a, BMats mats) {
+  extern __shared__ __align__(16) char raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kBStages];
+  WgSmem sm = wg_setup<true>(raw, bars);
+  if (threadIdx.x >= NT) {
+    if (threadIdx.x == NT) scan_bwd_wg<true, true>(a, mats, sm.rg, sm.red);
+    return;
+  }
+  scan_bwd_wg<false, true>(a, mats, sm.rg, sm.red);
 }
 
 // ---------------------------------------------------------------------------

@@ -51,11 +51,17 @@ plus the particle trajectory z_traj (T, K, B, D) that the backward reads.
   block cluster per group of batch columns, weights resident in shared
   memory as bfloat16, wgmma, no grid barrier) on the weight images of
   ``bf16_pack``, counted in ``.launches_bf16``; or, where no cluster plan
-  fits (wide operands, K > 64 particles), the tiled route,
-  ``*_bf16_tiled_kernel`` (``csrc/bfvi_scan.cuh`` on the tile engine's bf16
-  route, ``csrc/tf32x3.cuh``), counted in ``.launches_bf16_tiled``. Either
-  backward writes the weight gradients' rows in bfloat16 and the f32 sums
-  of its cotangents for the bias gradients, from which
+  fits (wide operands, K > 64 particles), the wgmma route,
+  ``*_bf16_wgmma_kernel`` (``csrc/f32_scan.cuh``: the float32 wgmma
+  route's grid and phases with bf16 ``wgmma`` products on the bfloat16
+  weight images of ``bf16_wgmma_pack``), counted in
+  ``.launches_bf16_wgmma``. The tiled bf16 kernels
+  (``*_bf16_tiled_kernel``, ``csrc/bfvi_scan.cuh`` on the tile engine's
+  bf16 route, ``csrc/tf32x3.cuh``), the route "tiled", run only where a
+  caller names it (``route="tiled"`` with ``bf16``, ``bf16_route``): the
+  twin that the wgmma route is timed against, ``.launches_bf16_tiled``.
+  Every bf16 backward writes the weight gradients' rows in bfloat16 and
+  the f32 sums of its cotangents for the bias gradients, from which
   ``gtf_wgrad_bf16_cuda`` (``csrc/wgrad_bf16.cuh``, TMA and wgmma; plain
   version ``gtf_wgrad_bf16_ref``) forms the weight gradients. The float32
   kernels read the GTF weights in PyTorch's layout; the wrapper joins
@@ -99,11 +105,13 @@ PREC_FLOOR = 1e-6
 # step's filtering passes use 1 and 25 by default (``train_particles``), the
 # MAP smoothing pass 1; the evaluation's 200-particle pass goes through the
 # cell kernel (poe_cell.py). Nothing in the kernels is sized by K (the f32
-# kernels walk a column's particles in chunks, the tiled bf16 route too, the
-# cluster route takes K <= 64); the limit is what the card tests check.
+# kernels and the bf16 wgmma and tiled routes walk a column's particles in
+# chunks, the cluster route takes K <= 64); the limit is what the card
+# tests check.
 MAX_K = 256
-# Partials of the bias gradients' sums that the tiled bf16 backward writes
-# (chunks of a step's rows; csrc/bfvi_scan.cuh, emit_bf16_rows).
+# Partials of the bias gradients' sums that the bf16 wgmma and tiled
+# backwards write (chunks of a step's rows; csrc/bfvi_scan.cuh,
+# emit_bf16_rows).
 BIAS_CHUNKS = 32
 
 
@@ -432,9 +440,10 @@ def _lib(bf16=False):
 
 
 def _f32_lib():
-    """The float32 scans' column and wgmma routes (``csrc/f32_scan.cu``):
-    the C entry points of ``csrc/bfvi_scan.cu``'s scans with their routes'
-    arguments after them."""
+    """The float32 scans' column and wgmma routes and the bf16 scans'
+    wgmma route (``csrc/f32_scan.cu``): the C entry points of
+    ``csrc/bfvi_scan.cu``'s scans with their routes' arguments after
+    them."""
     lib = _build.load("f32_scan")
     if not getattr(lib, "_bfvi_typed", False):
         fwd, bwd = [_P] * 22 + [_I] * 6, [_P] * 30 + [_I] * 6
@@ -443,8 +452,15 @@ def _f32_lib():
         lib.bfvi_scan_bwd_wgmma.argtypes = bwd + tail + [_P, _LL, _P, _LL]
         lib.bfvi_scan_fwd_column.argtypes = fwd + tail + [_P, _I]
         lib.bfvi_scan_bwd_column.argtypes = bwd + tail + [_I]
+        # The bf16 wgmma route (bf16_gtf): the rows, the bf16 rows and bias
+        # partials as the tiled bf16 entries take them, then the images.
+        lib.bfvi_scan_fwd_bf16_wgmma.argtypes = fwd + tail + [_P, _P, _LL]
+        lib.bfvi_scan_bwd_bf16_wgmma.argtypes = (bwd + tail + [_P] * 4
+                                                 + [_I, _P, _LL, _P, _LL])
         for fn in (lib.bfvi_scan_fwd_wgmma, lib.bfvi_scan_bwd_wgmma,
-                   lib.bfvi_scan_fwd_column, lib.bfvi_scan_bwd_column):
+                   lib.bfvi_scan_fwd_column, lib.bfvi_scan_bwd_column,
+                   lib.bfvi_scan_fwd_bf16_wgmma,
+                   lib.bfvi_scan_bwd_bf16_wgmma):
             fn.restype = _I
         lib._bfvi_typed = True
     return lib
@@ -484,7 +500,7 @@ def _check_sizes(k, d, h, bf16=False):
     kernels run at: D and H rounded up to multiples of 4, for the 16-byte
     rows of their tile loads (``csrc/tf32x3.cuh``); with ``bf16`` to
     multiples of 16, the depth of one wgmma step (``csrc/bf16_scan.cuh``,
-    ``csrc/wgrad_bf16.cuh``; the tiled route takes them too). Every width
+    ``csrc/wgrad_bf16.cuh``; the wgmma and tiled routes take them too). Every width
     has a bf16 route (``bf16_scan_plan``)."""
     if not 1 <= k <= MAX_K:
         raise ValueError("the scan kernels take 1 <= K <= %d particles, "
@@ -595,16 +611,65 @@ def bf16_scan_plan(k, b_dim, d, h, backward=False):
     clusters at once). Taken where both directions have such a plan, so
     that the backward's recompute runs the forward's products.
 
-    ``route`` "tiled" (``csrc/bfvi_scan.cuh`` on the tile engine's bf16
-    route): where either direction has none, as where a column's K
-    particles exceed one 64-row tile or the gathered full-width operands
-    and weight slices exceed a CTA's shared memory (wide D or H, or widths
-    that split into few CTAs). ``bias_chunks``: the partials of the bias
-    gradients' sums that its backward writes."""
+    ``route`` "wgmma" (``csrc/f32_scan.cuh``, the bf16 engine): where
+    either direction has none, as where a column's K particles exceed one
+    64-row tile or the gathered full-width operands and weight slices
+    exceed a CTA's shared memory (wide D or H, or widths that split into
+    few CTAs). A cooperative grid of one CTA on each of the card's SMs
+    (``ctas``, an estimate: the launch takes the card's own count),
+    ``threads`` (two consumer warpgroups and a TMA producer warp), a ring
+    of ``stages`` 64-deep bf16 weight stages in ``smem`` bytes; one wave.
+    ``bias_chunks``: the partials of the bias gradients' sums that its
+    backward writes.
+
+    The plan never gives the route "tiled" (the tiled bf16 kernels on
+    the tile engine): it runs where a caller names it (``_bf16_plan``'s
+    ``route``)."""
     plans = [_cluster_plan(k, b_dim, d, h, bw) for bw in (False, True)]
     if None in plans:
-        return {"route": "tiled", "bias_chunks": BIAS_CHUNKS}
+        return _bf16_wgmma_plan()
     return plans[int(bool(backward))]
+
+
+def _bf16_wgmma_plan():
+    return dict(_wgmma_plan(), stages=BF16_WGMMA_STAGES,
+                smem=BF16_WGMMA_SMEM, bias_chunks=BIAS_CHUNKS)
+
+
+_FORCED_BF16_ROUTE = []
+
+
+@contextlib.contextmanager
+def bf16_route(route):
+    """``f32_route`` for the bf16 scans: within the block, every bf16 scan
+    that ``bfvi_scan`` starts takes ``route`` ("cluster", "wgmma" or
+    "tiled") instead of the plan's, forward and backward alike."""
+    if route not in BF16_ROUTES:
+        raise ValueError("no bf16 scan route %r" % (route,))
+    _FORCED_BF16_ROUTE.append(route)
+    try:
+        yield
+    finally:
+        _FORCED_BF16_ROUTE.pop()
+
+
+def _bf16_plan(k, b_dim, d, h, backward, route=None):
+    """``bf16_scan_plan``'s plan, or with ``route`` that route's plan at
+    this shape: the cluster route where no cluster holds a column raises
+    (the others take every shape)."""
+    if route is None:
+        return bf16_scan_plan(k, b_dim, d, h, backward)
+    if route == "cluster":
+        plans = [_cluster_plan(k, b_dim, d, h, bw) for bw in (False, True)]
+        if None in plans:
+            raise ValueError("the bf16 cluster route holds no column at "
+                             "K = %d, D = %d, H = %d" % (k, d, h))
+        return plans[int(bool(backward))]
+    if route == "wgmma":
+        return _bf16_wgmma_plan()
+    if route == "tiled":
+        return {"route": "tiled", "bias_chunks": BIAS_CHUNKS}
+    raise ValueError("no bf16 scan route %r" % (route,))
 
 
 def _swizzled(mats, fill):
@@ -677,9 +742,10 @@ def bf16_pack(gtf, d, h, backward=False):
 
 
 class Bf16Pack:
-    """The bf16 weight images of one set of GTF weights at padded widths,
-    the forward's made at once, the backward's at first use, so that an
-    autograd call packs once and its backward reuses the pack."""
+    """The bf16 cluster route's weight images of one set of GTF weights at
+    padded widths, the forward's made at once, the backward's at first
+    use, so that an autograd call packs once and its backward reuses the
+    pack."""
 
     def __init__(self, gtf, d, h):
         self.gtf, self.d, self.h = gtf, d, h
@@ -718,6 +784,16 @@ WGMMA_STAGES = 8
 IMG_ROWS = 64    # image rows are padded to the widest tile
 WGMMA_SMEM = WGMMA_STAGES * 2 * IMG_ROWS * 128 + 3 * 2 * 128 * 4 + 1024
 SLAB = 32        # depth of one 128-byte swizzled row
+# The bf16 wgmma route (kBStages, kBSlab, kBImgRows, kBWgSmem): 5 stages
+# of one 64-deep bf16 slab of 128 weight rows, 16 KB each, a warpgroup's
+# two 8 KB stages of A in bf16 and three 16 KB slots of A in f32, then the
+# elementwise phases' 3 KB; image rows padded to the widest tile, 128.
+BF16_WGMMA_STAGES = 5
+BF16_SLAB = 64
+BF16_IMG_ROWS = 128
+BF16_WGMMA_SMEM = (BF16_WGMMA_STAGES * 16384 + 4 * 8192 + 2 * 3 * 16384
+                   + 3072 + 1024)
+BF16_ROUTES = ("cluster", "wgmma", "tiled")
 
 
 def column_smem(backward, rows, d, h):
@@ -865,41 +941,49 @@ def _slab_order():
     return 8 * (p % 4) + 2 * i + p // 4
 
 
-def _f32_mat_image(m, fill):
-    """One (N, K) matrix (or its indices) as its image: ceil(K / 32) slabs
-    of N rows padded to IMG_ROWS, each row's 32 values in ``_slab_order``
-    and its 16-byte chunks in the 128-byte swizzle (chunk c of row n at
-    c ^ (n % 8)); ``fill`` past N and K."""
+def _swizzled_slabs(m, fill, order, row_pad, chunk):
+    """One (N, K) matrix (or its indices) as a wgmma route's image: slabs
+    of S = len(order) depths, ceil(K / S) of them, of N rows padded to
+    ``row_pad``, each row's S values in ``order`` (position L holds depth
+    order[L] of the slab) and its 16-byte chunks (``chunk`` values) in the
+    128-byte swizzle (chunk c of row n at c ^ (n % 8)); ``fill`` past N
+    and K."""
     n, k = m.shape
-    ns, npad = -(-k // SLAB), -(-n // IMG_ROWS) * IMG_ROWS
-    full = m.new_full((npad, ns * SLAB), fill)
+    slab = len(order)
+    ns, npad = -(-k // slab), -(-n // row_pad) * row_pad
+    full = m.new_full((npad, ns * slab), fill)
     full[:n, :k] = m
-    kk = (SLAB * torch.arange(ns)[:, None] + _slab_order()[None, :]).to(
-        m.device)
+    kk = (slab * torch.arange(ns)[:, None] + order[None, :]).to(m.device)
     src = full[:, kk].permute(1, 0, 2)  # (slab, row, L)
     rows = torch.arange(npad, device=m.device)[:, None]
-    phys = torch.arange(SLAB, device=m.device)[None, :]
-    logical = ((phys // 4) ^ (rows % 8)) * 4 + phys % 4  # the swizzle's inverse
-    return torch.gather(src, 2, logical[None].expand(ns, npad, SLAB)).reshape(-1)
+    phys = torch.arange(slab, device=m.device)[None, :]
+    logical = ((phys // chunk) ^ (rows % 8)) * chunk + phys % chunk  # inverse
+    return torch.gather(src, 2, logical[None].expand(ns, npad, slab)).reshape(-1)
 
 
-_F32_INDEX = {}
+def _f32_mat_image(m, fill):
+    """The float32 wgmma route's image of one matrix: 32-deep slabs in
+    ``_slab_order``, rows padded to IMG_ROWS, 4 floats a chunk."""
+    return _swizzled_slabs(m, fill, _slab_order(), IMG_ROWS, 4)
 
 
-def _f32_index(d, h, backward, device):
-    """For each float of one direction's image half, its index in the six
-    weights flattened in GTF_LAYERS order, or one past them (a zero);
-    cached."""
-    key = (d, h, bool(backward), str(device))
-    if key not in _F32_INDEX:
+_INDEX = {}
+
+
+def _image_index(d, h, backward, device, mat_image):
+    """For each value of one direction's image (``mat_image`` of each
+    matrix of ``_f32_mats``), its index in the six weights flattened in
+    GTF_LAYERS order, or one past them (a zero); cached."""
+    key = (mat_image.__name__, d, h, bool(backward), str(device))
+    if key not in _INDEX:
         shapes, w, n = _gtf_shapes(d, h), {}, 0
         for name in GTF_LAYERS:
             rows, cols = shapes[name]
             w[name] = torch.arange(n, n + rows * cols).reshape(rows, cols)
             n += rows * cols
-        _F32_INDEX[key] = torch.cat(
-            [_f32_mat_image(m, n) for m in _f32_mats(w, backward)]).to(device)
-    return _F32_INDEX[key]
+        _INDEX[key] = torch.cat(
+            [mat_image(m, n) for m in _f32_mats(w, backward)]).to(device)
+    return _INDEX[key]
 
 
 def f32_pack(gtf, d, h, backward=False):
@@ -910,7 +994,7 @@ def f32_pack(gtf, d, h, backward=False):
     ``_f32_mat_image``. One gather through a cached index."""
     w = [gtf[n]["w"].detach().reshape(-1) for n in GTF_LAYERS]
     flat = torch.cat(w + [w[0].new_zeros(1)])
-    vals = flat[_f32_index(d, h, backward, flat.device)]
+    vals = flat[_image_index(d, h, backward, flat.device, _f32_mat_image)]
     hi = tf32_round(vals)
     return torch.cat([hi, tf32_round(vals - hi)])
 
@@ -922,13 +1006,59 @@ class F32Pack:
 
     def __init__(self, gtf, d, h):
         self.gtf, self.d, self.h = gtf, d, h
-        self.images = {False: f32_pack(gtf, d, h)}
+        self.images = {False: self._pack(gtf, d, h)}
+
+    @staticmethod
+    def _pack(*args):
+        return f32_pack(*args)
 
     def image(self, backward):
         if backward not in self.images:
-            self.images[backward] = f32_pack(self.gtf, self.d, self.h,
-                                             backward)
+            self.images[backward] = self._pack(self.gtf, self.d, self.h,
+                                               backward)
         return self.images[backward]
+
+
+def _bf16_step_order():
+    """Position p of a 64-deep bf16 slab's row holds depth j(p): the
+    wgmma step i = p // 16 reads column w = p % 16 of its 16-deep step,
+    and the thread q that holds columns 2q, 2q + 1 and 2q + 8, 2q + 9 of
+    A loads the 4 consecutive depths 16 i + 4 q + (0..3) of a row, so
+    j = 16 i + 4 ((w % 8) // 2) + 2 (w // 8) + w % 2: a permutation within
+    each step's 16 depths."""
+    pos = torch.arange(BF16_SLAB)
+    i, w = pos // 16, pos % 16
+    return 16 * i + 4 * ((w % 8) // 2) + 2 * (w // 8) + w % 2
+
+
+def _bf16_mat_image(m, fill):
+    """The bf16 wgmma route's image of one matrix: 64-deep slabs in
+    ``_bf16_step_order``, rows padded to BF16_IMG_ROWS, 8 bf16 values a
+    chunk."""
+    return _swizzled_slabs(m, fill, _bf16_step_order(), BF16_IMG_ROWS, 8)
+
+
+def bf16_wgmma_pack(gtf, d, h, backward=False):
+    """The bf16 wgmma route's weight image of one direction at padded
+    widths (D, H), multiples of 16: the matrices of ``_f32_mats`` (the
+    forward's W as it is, (out, in); the backward's the transposes), each
+    laid out by ``_bf16_mat_image``, every value the weight rounded to
+    bfloat16 as ``nn.gtf_pack`` rounds it (int16 words). One gather
+    through a cached index, then the cast."""
+    w = [gtf[n]["w"].detach().reshape(-1) for n in GTF_LAYERS]
+    flat = torch.cat(w + [w[0].new_zeros(1)])
+    idx = _image_index(d, h, backward, flat.device, _bf16_mat_image)
+    return flat[idx].to(torch.bfloat16).view(torch.int16)
+
+
+class Bf16WgPack(F32Pack):
+    """The bf16 wgmma route's images (``bf16_wgmma_pack``) of one set of
+    GTF weights, packed as ``F32Pack`` packs: one pack an autograd
+    call."""
+
+    @staticmethod
+    def _pack(*args):
+        return bf16_wgmma_pack(*args)
 
 
 # Zero-padding to the kernels' widths. A padded input dim meets only zero
@@ -1044,7 +1174,7 @@ def _images(pack, gtf, d, h, cls=None):
     cls = Bf16Pack if cls is None else cls
     if pack is None:
         return cls(gtf, d, h)
-    if not isinstance(pack, cls) or (pack.d, pack.h) != (d, h):
+    if type(pack) is not cls or (pack.d, pack.h) != (d, h):
         raise ValueError("the pack is a %s at widths (%d, %d), the launch "
                          "needs a %s at (%d, %d)" % (type(pack).__name__,
                                                      pack.d, pack.h,
@@ -1077,12 +1207,13 @@ def _check_inputs(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
 
 
 # A scan wrapper's launch counter by (bf16, route): the float32 scan's
-# three routes (``f32_scan_plan``) and the bf16 scan's two
+# three routes (``f32_scan_plan``) and the bf16 scan's three
 # (``bf16_scan_plan``). ``.launches`` counts the float32 scan on any route.
 _COUNTERS = {(False, "column"): "launches_column",
              (False, "wgmma"): "launches_wgmma",
              (False, "tiled"): "launches_tiled",
              (True, "cluster"): "launches_bf16",
+             (True, "wgmma"): "launches_bf16_wgmma",
              (True, "tiled"): "launches_bf16_tiled"}
 
 
@@ -1097,11 +1228,8 @@ def _count(wrapper, bf16, route):
 
 def _route(k, b_dim, dp, hp, bf16, backward, route=None):
     """(route, plan) of a scan launch: the bf16 plan's, or the float32
-    plan's (``route``: the float32 route named by the caller)."""
-    if bf16 and route is not None:
-        raise ValueError("route names a float32 route; the bf16 scans "
-                         "take bf16_scan_plan's")
-    plan = (bf16_scan_plan(k, b_dim, dp, hp, backward) if bf16
+    plan's (``route``: the route of either named by the caller)."""
+    plan = (_bf16_plan(k, b_dim, dp, hp, backward, route) if bf16
             else _f32_plan(k, b_dim, dp, hp, backward, route))
     return plan["route"], plan
 
@@ -1123,10 +1251,11 @@ def bfvi_scan_fwd_cuda(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
     the current stream, at widths padded to multiples of 4 (16 with
     ``bf16``, ``_check_sizes``); same outputs as ``bfvi_scan_fwd_ref``.
     ``pack``: the weight images of ``gtf`` at the padded widths, a
-    ``Bf16Pack`` for the bf16 cluster route or an ``F32Pack`` for the
-    wgmma route, made here if None. ``route``: a float32 route in place
-    of the plan's ("column", "wgmma" or "tiled"), to time or test one
-    route beside another."""
+    ``Bf16Pack`` for the bf16 cluster route, a ``Bf16WgPack`` for the bf16
+    wgmma route or an ``F32Pack`` for the float32 wgmma route, made here
+    if None. ``route``: a route in place of the plan's (float32: "column",
+    "wgmma" or "tiled"; with ``bf16``: "cluster", "wgmma" or "tiled"), to
+    time or test one route beside another."""
     t_max, n_exp, b_dim, k, d, h = _check_inputs(
         obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf, eps)
     dp, hp = _check_sizes(k, d, h, bf16)
@@ -1155,6 +1284,11 @@ def bfvi_scan_fwd_cuda(obs_mean, obs_std, obs_mask, glb_mean, glb_std, gtf,
         rc = _lib(True).bfvi_scan_fwd(
             *[_ptr(v) for v in args + [rows, None]], *dims,
             *_image_args(pack, False), _plan_args(plan))
+    elif bf16 and route == "wgmma":
+        img = _images(pack, gtf, dp, hp, Bf16WgPack).image(False)
+        rc = _f32_lib().bfvi_scan_fwd_bf16_wgmma(
+            *[_ptr(v) for v in args + work], *dims, _ptr(rows), _ptr(img),
+            img.numel())
     elif bf16:
         rc = _lib(True).bfvi_scan_fwd_tiled(
             *[_ptr(v) for v in args + work], *dims, _ptr(rows))
@@ -1261,7 +1395,13 @@ def bfvi_scan_bwd_cuda(res, cots, min_std, bf16=False, *, pack=None,
         if bf16:
             tail = [_ptr(v) for v in (rows[1], rows[2], rows[0], bias_part)]
             tail.append(n_bp)
-            fn = _lib(True).bfvi_scan_bwd_tiled
+            if route == "wgmma":
+                pack = _images(pack, res[5], dp, hp, Bf16WgPack)
+                tail += [_ptr(pack.image(False)), pack.image(False).numel(),
+                         _ptr(pack.image(True)), pack.image(True).numel()]
+                fn = _f32_lib().bfvi_scan_bwd_bf16_wgmma
+            else:
+                fn = _lib(True).bfvi_scan_bwd_tiled
         elif route == "wgmma":
             pack = _images(pack, res[5], dp, hp, F32Pack)
             tail = [_ptr(pack.image(False)), pack.image(False).numel(),
@@ -1658,17 +1798,18 @@ class _BfviScan(torch.autograd.Function):
         kernel = obs_mean.is_cuda and plain is not True
         ctx.pack = ctx.route = None
         if kernel:
-            # The float32 route, named once for the forward and the
-            # backward (f32_route's, else the plan's), and the cluster and
-            # wgmma routes' weight images: one pack for both.
+            # The route, named once for the forward and the backward
+            # (f32_route's or bf16_route's, else the plan's), and the
+            # cluster and wgmma routes' weight images: one pack for both.
             kw = {}
-            if not bf16 and _FORCED_ROUTE:
-                ctx.route = kw["route"] = _FORCED_ROUTE[-1]
+            forced = _FORCED_BF16_ROUTE if bf16 else _FORCED_ROUTE
+            if forced:
+                ctx.route = kw["route"] = forced[-1]
             d, h = obs_mean.shape[-1], gtf["gate_1"]["w"].shape[0]
             k, b_dim = eps.shape[1], obs_mean.shape[2]
             dp, hp = _check_sizes(k, d, h, bf16)
             route = _route(k, b_dim, dp, hp, bf16, False, ctx.route)[0]
-            cls = {(True, "cluster"): Bf16Pack,
+            cls = {(True, "cluster"): Bf16Pack, (True, "wgmma"): Bf16WgPack,
                    (False, "wgmma"): F32Pack}.get((bf16, route))
             if cls is not None:
                 ctx.pack = kw["pack"] = cls(_pad_gtf(gtf, dp, hp), dp, hp)

@@ -113,13 +113,15 @@ def test_plan_routes():
 
 def test_plan_refuses_what_fits_nowhere():
     """What no cluster holds, a column's K = 25 particles at D = H = 1,024
-    or K = 65 particles (more than one 64-row wgmma tile), takes the tiled
+    or K = 65 particles (more than one 64-row wgmma tile), takes the wgmma
     route in both directions instead of raising; K = 0 and K past MAX_K
     still raise."""
     assert tscan._check_sizes(25, 1024, 1024, bf16=True) == (1024, 1024)
     for backward in (False, True):
         for k, d in ((25, 1024), (65, 256)):
             assert tscan.bf16_scan_plan(k, 100, d, d, backward)["route"] \
+                == "wgmma"
+            assert tscan._route(k, 100, d, d, True, backward, "tiled")[0] \
                 == "tiled"
         assert tscan.bf16_scan_plan(25, 100, 256, 256, backward)["route"] \
             == "cluster"

@@ -314,24 +314,92 @@ def test_bf16_kernels_match_plain_versions(dev, t_max, b_dim, d, h, k):
 
 # Each bf16 route at the shapes that need it: widths whose operands no
 # cluster holds (464 and 592 split into clusters of two CTAs; 768), and K
-# past one 64-row wgmma tile, on the tiled route; K = 50 on the cluster
-# route (one column a cluster). The plan chooses the route; each route
-# counts its own launches.
+# past one 64-row wgmma tile (100 at D = H = 256, 65 at the spirals widths
+# run as 16 and 32), on the wgmma route; K = 50 on the cluster route (one
+# column a cluster). The plan chooses the route; each route counts its own
+# launches. The tiled route runs where named (the twin of the wgmma
+# route).
+BF16_WGMMA_SHAPES = [(9, 464, 256, 25), (9, 592, 592, 25), (9, 768, 768, 25),
+                     (20, 256, 256, 100), (13, 5, 20, 65)]
+
+
 @pytest.mark.parametrize("b_dim,d,h,k,route", [
-    (9, 464, 256, 25, "tiled"), (9, 592, 592, 25, "tiled"),
-    (9, 768, 768, 25, "tiled"), (20, 256, 256, 50, "cluster"),
-    (20, 256, 256, 100, "tiled"), (13, 5, 20, 65, "tiled")])
+    s + ("wgmma",) for s in BF16_WGMMA_SHAPES] + [
+    (20, 256, 256, 50, "cluster"), (9, 768, 768, 25, "tiled"),
+    (20, 256, 256, 100, "tiled")])
 def test_bf16_routes_match_plain_versions(dev, b_dim, d, h, k, route):
     dp, hp = tscan._check_sizes(k, d, h, bf16=True)
-    assert tscan.bf16_scan_plan(k, b_dim, dp, hp)["route"] == route
-    name = "launches_bf16" if route == "cluster" else "launches_bf16_tiled"
+    named = route if route == "tiled" else None
+    assert tscan.bf16_scan_plan(k, b_dim, dp, hp)["route"] == (
+        "wgmma" if named else route)
+    name = tscan._COUNTERS[(True, route)]
     before = [getattr(f, name) for f in (tscan.bfvi_scan_fwd_cuda,
                                          tscan.bfvi_scan_bwd_cuda)]
     _check_bf16_against_plain(
-        *_inputs(dev, t_max=4, b_dim=b_dim, d=d, h=h, k=k), tight=True)
+        *_inputs(dev, t_max=4, b_dim=b_dim, d=d, h=h, k=k), tight=True,
+        route=named)
     after = [getattr(f, name) for f in (tscan.bfvi_scan_fwd_cuda,
                                         tscan.bfvi_scan_bwd_cuda)]
     assert after == [before[0] + 1, before[1] + 2]
+
+
+@pytest.mark.parametrize("b_dim,d,h,k", BF16_WGMMA_SHAPES)
+def test_bf16_wgmma_route_runs_agree_and_recompute_equals_forward(
+        dev, b_dim, d, h, k):
+    """The bf16 wgmma kernels: two forward runs and two backward runs
+    give the same bits, and the backward's recomputed transition (its
+    xs rows, in bfloat16) equals the forward's own rows bit for bit."""
+    x, gtf, eps, cots = _inputs(dev, t_max=4, b_dim=b_dim, d=d, h=h, k=k)
+    before = tscan.bfvi_scan_fwd_cuda.launches_bf16_wgmma
+    tscan.bfvi_scan_fwd_cuda.rows = fwd_rows = []
+    tscan.bfvi_scan_bwd_cuda.rows = bwd_rows = []
+    try:
+        got = tscan.bfvi_scan_fwd_cuda(*x, gtf, eps, MIN_STD, bf16=True)
+        res = tuple(x) + (gtf, eps, got[5], got[0], got[1])
+        g_bwd = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD, bf16=True)
+    finally:
+        tscan.bfvi_scan_fwd_cuda.rows = tscan.bfvi_scan_bwd_cuda.rows = None
+    assert tscan.bfvi_scan_fwd_cuda.launches_bf16_wgmma == before + 1
+    again = tscan.bfvi_scan_fwd_cuda(*x, gtf, eps, MIN_STD, bf16=True)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    g_again = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD, bf16=True)
+    for a, b in zip(g_bwd[:4], g_again[:4]):
+        assert torch.equal(a, b)
+    for n in tscan.GTF_LAYERS:
+        for kk in ("w", "b"):
+            assert torch.equal(g_bwd[4][n][kk], g_again[4][n][kk]), (n, kk)
+    assert fwd_rows[0].shape == bwd_rows[0].shape == (3 * k * b_dim,
+                                                      2 * h + d)
+    assert torch.equal(fwd_rows[0], bwd_rows[0])
+
+
+def test_bf16_autograd_takes_the_named_route(dev):
+    """``bfvi_scan`` with ``bf16`` under ``bf16_route("tiled")`` runs the
+    forward and its backward on the tiled kernels, and the plan's wgmma
+    route without it; the two agree as each agrees with the plain
+    versions."""
+    x, gtf, eps, cots = _inputs(dev, t_max=4, b_dim=9, d=64, h=48, k=100)
+    wrappers = (tscan.bfvi_scan_fwd_cuda, tscan.bfvi_scan_bwd_cuda)
+
+    def grads():
+        obs = [v.clone().requires_grad_() for v in x[:2]]
+        out = tscan.bfvi_scan(obs[0], obs[1], *x[2:], gtf, eps, MIN_STD,
+                              bf16=True)
+        sum((o * c).sum() for o, c in zip(out, cots)).backward()
+        return [o.grad for o in obs]
+    before = [(f.launches_bf16_tiled, f.launches_bf16_wgmma)
+              for f in wrappers]
+    with tscan.bf16_route("tiled"):
+        tiled = grads()
+    mid = [(f.launches_bf16_tiled, f.launches_bf16_wgmma) for f in wrappers]
+    planned = grads()
+    after = [(f.launches_bf16_tiled, f.launches_bf16_wgmma)
+             for f in wrappers]
+    assert mid == [(b[0] + 1, b[1]) for b in before]
+    assert after == [(m[0], m[1] + 1) for m in mid]
+    for g, e in zip(tiled, planned):
+        assert ((g - e).norm() / e.norm()).item() <= 0.25
 
 
 def _rel_fro(got, exp):
@@ -349,15 +417,17 @@ def _hold_bf16(direction, got, ctrl, exp):
             direction, i, err, _rel_fro(c, e))
 
 
-def _check_bf16_against_plain(x, gtf, eps, cots, tight=False):
+def _check_bf16_against_plain(x, gtf, eps, cots, tight=False, route=None):
     """The bf16 variants against the bf16 plain versions: the forward at
     BF16_TOL, the backward (on its own ReLU masks, each flip within the
     rounding bound) within BF16_GRAD_RTOL in relative Frobenius norm and
     equal to a second run bit for bit. With ``tight``, every output also
     within BF16_RFRO, with the float32 kernels as the control
-    (``_hold_bf16``)."""
+    (``_hold_bf16``). ``route``: a bf16 route named in place of the
+    plan's."""
     d = x[0].shape[-1]
-    got = tscan.bfvi_scan_fwd_cuda(*x, gtf, eps, MIN_STD, bf16=True)
+    got = tscan.bfvi_scan_fwd_cuda(*x, gtf, eps, MIN_STD, bf16=True,
+                                   route=route)
     exp = tscan.bfvi_scan_fwd_ref(*x, gtf, eps, MIN_STD, bf16=True)
     for i, (g, e) in enumerate(zip(got, exp)):
         np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(),
@@ -368,10 +438,12 @@ def _check_bf16_against_plain(x, gtf, eps, cots, tight=False):
     res = tuple(x) + (gtf, eps, exp[5], exp[0], exp[1])
     tscan.bfvi_scan_bwd_cuda.rows = rows = []
     try:
-        got = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD, bf16=True)
+        got = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD, bf16=True,
+                                       route=route)
     finally:
         tscan.bfvi_scan_bwd_cuda.rows = None
-    again = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD, bf16=True)
+    again = tscan.bfvi_scan_bwd_cuda(res, cots, MIN_STD, bf16=True,
+                                     route=route)
     ref, margins = tscan.bfvi_scan_bwd_ref_on_masks(res, cots, MIN_STD,
                                                     rows[0], bf16=True)
     bound = tscan.relu_flip_bound(d, bf16=True)

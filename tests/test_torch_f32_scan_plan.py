@@ -148,7 +148,7 @@ def test_forced_route_and_counters():
     with pytest.raises(ValueError, match="no float32 scan route"):
         tscan._route(25, 300, 8, 20, False, False, "fast")
     with pytest.raises(ValueError, match="bf16"):
-        tscan._route(25, 300, 16, 32, True, False, "tiled")
+        tscan._route(25, 300, 16, 32, True, False, "column")
     with tscan.f32_route("tiled"):
         with tscan.f32_route("wgmma"):
             assert tscan._FORCED_ROUTE == ["tiled", "wgmma"]
@@ -163,7 +163,7 @@ def test_forced_route_and_counters():
     for fn in (tscan.bfvi_scan_fwd_cuda, tscan.bfvi_scan_bwd_cuda):
         for name in ("launches", "launches_column", "launches_wgmma",
                      "launches_tiled", "launches_bf16",
-                     "launches_bf16_tiled"):
+                     "launches_bf16_wgmma", "launches_bf16_tiled"):
             assert isinstance(getattr(fn, name), int), name
 
 

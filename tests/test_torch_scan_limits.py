@@ -5,14 +5,15 @@ what chooses their route and pads their inputs is Python that runs here).
 - ``_check_sizes`` accepts, on the float32 and the bf16 routes, every
   width up to 1,024 at K from 1 to 256, and ``bf16_scan_plan`` names a
   route for each: the cluster route where both directions fit one
-  cluster's shared memory, the tiled route elsewhere.
+  cluster's shared memory, the wgmma route elsewhere (the tiled route
+  where a caller names it).
 - The port's ``z_filter`` with 50 particles matches the JAX package's, in
   float32 and with ``bf16_gtf``, outputs and gradients, at the tolerances
   of tests/test_torch_bfvi_scan.py and tests/test_torch_bf16_gtf.py.
 - ``gtf_wgrad_bf16_ref``, the bf16 weight-gradient kernel's input form
   (rows in bfloat16, partials of the float32 bias sums), equals
   ``gtf_wgrad_ref(..., bf16=True)`` on the same rows bit for bit.
-- Zero-padding to the tiled route's widths leaks nothing.
+- Zero-padding to the bf16 wgmma and tiled routes' widths leaks nothing.
 """
 
 import numpy as np
@@ -57,7 +58,8 @@ def test_plan_names_its_route(k):
     """A route for every padded width 16-1,024 (z = h, and either at 256)
     and for the wide transitions; the cluster route exactly where both
     directions have a cluster plan (no K > 64: a column's particles in
-    one 64-row tile), each cluster plan within one CTA's shared memory."""
+    one 64-row tile), each cluster plan within one CTA's shared memory;
+    the wgmma route everywhere else, the tiled route only where named."""
     routes = {}
     for d, h in _widths():
         dp, hp = tscan._check_sizes(k, d, h, bf16=True)
@@ -65,7 +67,7 @@ def test_plan_names_its_route(k):
             continue
         fwd = tscan.bf16_scan_plan(k, 100, dp, hp)
         bwd = tscan.bf16_scan_plan(k, 100, dp, hp, backward=True)
-        assert fwd["route"] == bwd["route"] in ("cluster", "tiled")
+        assert fwd["route"] == bwd["route"] in ("cluster", "wgmma")
         both = all(tscan._cluster_plan(k, 100, dp, hp, bw) is not None
                    for bw in (False, True))
         assert (fwd["route"] == "cluster") == both, (dp, hp)
@@ -75,22 +77,25 @@ def test_plan_names_its_route(k):
                 assert p["smem"] <= tscan.BF16_SMEM_LIMIT
         else:
             assert fwd["bias_chunks"] == tscan.BIAS_CHUNKS
+            named = tscan._bf16_plan(k, 100, dp, hp, False, "tiled")
+            assert named["route"] == "tiled"
+            assert named["bias_chunks"] == tscan.BIAS_CHUNKS
         routes[(dp, hp)] = fwd["route"]
     if k > tscan.TILE_ROWS:
-        assert set(routes.values()) == {"tiled"}
+        assert set(routes.values()) == {"wgmma"}
     if k == 25:  # widths whose operands no cluster holds at K = 25
         for d, h in WIDE[:3]:
-            assert routes[(d, h)] == "tiled", (d, h)
+            assert routes[(d, h)] == "wgmma", (d, h)
     if k <= 25:
         assert routes[(256, 256)] == "cluster"
 
 
-def _filter_case(rng, k, z):
-    zm = rng.randn(3, T, B, z).astype(np.float32)
-    zs = (rng.rand(3, T, B, z) + 0.3).astype(np.float32)
-    zk = (rng.rand(3, T, B) > 0.3).astype(np.float32)
-    eps = rng.randn(T, k, B, z).astype(np.float32)
-    cots = [rng.randn(T, B, z).astype(np.float32) for _ in range(5)]
+def _filter_case(rng, k, z, t_max=T):
+    zm = rng.randn(3, t_max, B, z).astype(np.float32)
+    zs = (rng.rand(3, t_max, B, z) + 0.3).astype(np.float32)
+    zk = (rng.rand(3, t_max, B) > 0.3).astype(np.float32)
+    eps = rng.randn(t_max, k, B, z).astype(np.float32)
+    cots = [rng.randn(t_max, B, z).astype(np.float32) for _ in range(5)]
     return zm, zs, zk, eps, cots
 
 
@@ -110,9 +115,14 @@ def test_z_filter_50_particles_matches_jax(bf16, direction):
     ``bf16_gtf``: tests/test_torch_bf16_gtf.py's, outputs and input
     gradients within one bfloat16 ulp with JAX's float32 result far
     farther (``_rounded``), each weight leaf within WGRAD_RTOL."""
-    k, z, hd = 50, 16, 12
+    z_filter_against_jax(50, 16, 12, bf16, direction)
+
+
+def z_filter_against_jax(k, z, hd, bf16, direction, t_max=T):
+    """The check of ``test_z_filter_50_particles_matches_jax`` at K
+    particles, widths (z, hd) and ``t_max`` steps."""
     rng = np.random.RandomState(50)
-    zm, zs, zk, eps, cots = _filter_case(rng, k, z)
+    zm, zs, zk, eps, cots = _filter_case(rng, k, z, t_max)
     jout, jgrads = {}, {}
     for b in (False, True):
         jmodel, tmodel, jparams, tparams = _models(z, hd, b)
@@ -200,7 +210,8 @@ def test_wgrad_bf16_form_equals_old_form(d, h):
 
 @pytest.mark.parametrize("d,h", [(5, 20), (12, 20)])
 def test_tiled_route_padding_leaks_nothing(d, h):
-    """At K = 65, which the tiled route takes: the plain bf16 forward and
+    """At K = 65, which the wgmma route takes (and the tiled route, where
+    named), padded as both pad: the plain bf16 forward and
     backward on the inputs zero-padded to its widths (multiples of 16)
     equal the unpadded ones; and the bf16 weight-gradient form on the rows
     and bias partials padded as the wrapper pads them (``_pad_blocks``)
@@ -209,7 +220,8 @@ def test_tiled_route_padding_leaks_nothing(d, h):
     k = 65
     dp, hp = tscan._check_sizes(k, d, h, bf16=True)
     assert (dp, hp) == (16, 32)
-    assert tscan.bf16_scan_plan(k, 9, dp, hp)["route"] == "tiled"
+    assert tscan.bf16_scan_plan(k, 9, dp, hp)["route"] == "wgmma"
+    assert tscan._bf16_plan(k, 9, dp, hp, False, "tiled")["route"] == "tiled"
     rng = np.random.RandomState(d)
     gtf = _models(d, h)[3]["trans"]["fwd"]
     n_exp, tm, bm = 2, 5, 3
