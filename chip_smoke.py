@@ -41,17 +41,25 @@ imports nothing of JAX or of the JAX package. Phases:
    against the same step on the plain versions, then --steps optimizer
    steps through the kernels, with their launch counts and the median
    step time;
-5. the PoE + sampling cell kernel against its plain version at the
-   evaluation's shapes ((M, K, B, D) = (3, 200, 25, 256), the
-   200-particle filter pass, and (5, 1, 25, 256)), with its device time,
-   the plain version's and the card's bound;
+5. the evaluation filter's two kernels (``csrc/poe_cell.cu``) against
+   their plain versions: the PoE + sampling cell (the sampled pass's
+   first step) at the evaluation's shapes ((M, K, B, D) = (3, 200, 25,
+   256), the 200-particle filter pass, and (5, 1, 25, 256)), and the
+   filter step (every later step: the transition's tail, the prior's
+   pair PoE and particle mixture, the cell) on ``gtf_products`` of 200
+   particles under the model's transition, with particle rows whose std
+   pre-activation holds a NaN, and at K = 1 with them (each output at
+   CELL_TOL); each launched twice, bit for bit; with their device times,
+   the plain versions' and the card's bound (``cell_work``,
+   ``step_work``);
 6. the Weizmann BFVI evaluation (``WeizmannTrainer.evaluate``, the app's
    task: half of each sequence's steps deleted at random; 200 filter
    particles, MAP smoothing) on the weights trained in phase 4, over ten
    synthetic sequences of 30-60 steps (one batch of 25 with 15 ghost
    columns): on the kernels, then on the plain versions with the same
-   generator seed, the metrics compared; then N_EVALS timed calls, with
-   the launch counts and the median ms per call;
+   generator seed, the metrics compared, the cell launched once and the
+   step T - 1 times; then N_EVALS timed calls, with the launch counts and
+   the median ms per call;
 7. the step that the JAX package's bench.py times (bf16 codecs,
    ``ragged_mode_scans``, video in the codec-native layout) at full width
    on the seed's weights, on the kernels, on the same noise, on a batch of
@@ -83,7 +91,7 @@ imports nothing of JAX or of the JAX package. Phases:
    100 and 3 V B = 300 columns), then phase 3's checks at those shapes
    and at the evaluation's smoothing shape (T, B, M, K) = (100, 100, 4,
    1), and the cell at (M, K, B, D) = (2, 200, 100, 5) and (4, 1, 100, 5)
-   with phase 5's;
+   and the step at (2, 200, 100, 5) and (2, 1, 100, 5) with phase 5's;
 10. spirals BFVI at full width (T = 100, B = 100): one step's loss and
    gradients on the kernels against the plain versions (phase 4's
    checks) and timed steps; then ``apps.spirals.main`` in a temporary
@@ -106,13 +114,15 @@ imports nothing of JAX or of the JAX package. Phases:
    of the training step's three scans read from one step on a fixture
    batch ((2, 1), (2, 25), (4, 1) at 3 V B = 75 columns), phase 3's checks
    at those shapes at T = 80 and at the smoothing shape (80, 25, 4, 1),
-   the cell at (2, 200, 25, 256) and (4, 1, 25, 256); one BFVI step on
+   the cell at (2, 200, 25, 256) and (4, 1, 25, 256), the step at (2,
+   200, 25, 256) and (2, 1, 25, 256); one BFVI step on
    the kernels against the plain versions (phase 4's checks, the batch
    in the codec-native layout); timed f32, bf16 and DKS f-mask steps with
    their device busy time; then ``apps.vidtimit.main``: 2 epochs of
    ``--method bfvi`` with the 200-particle evaluation after each, the
    checkpoints, the launch counts (3 of each scan kernel a step, per
-   evaluation one forward scan a batch and the cell at each step), and
+   evaluation one forward scan and the cell a batch and the step at each
+   later step), and
    ``--load last.pth --evaluate`` twice, identical;
 13. the experiment layer, in a directory of its own, on phase 10's
    spirals corpus and phase 11's Weizmann fixture: (a) ``python -m
@@ -127,7 +137,7 @@ imports nothing of JAX or of the JAX package. Phases:
    0.0 and 0.5 x 2 seeds, 2 epochs, z = h = 256, ``--method bfvi``), the
    kernels' launches against the trials' steps and evaluation batches (3
    of each scan kernel a step; per evaluation batch one forward scan and
-   the cell at each step), the seconds of each trial, then
+   the cell, the step at each later step), the seconds of each trial, then
    ``analyze_best3``'s two CSVs, two levels, finite; (c) the grid again
    with ``--resume``: every trial already done, nothing launched; (d)
    ``--find_best`` through ``apps.weizmann.main`` on the grid's first
@@ -167,9 +177,10 @@ imports nothing of JAX or of the JAX package. Phases:
    within BF16_GTF_LOSS_RTOL, each leaf within BF16_GRAD_RTOL), then the
    step timed in turns beside the float32 step and the bench
    configuration with ``bf16_gtf``, each with its device time; (c) the
-   evaluation (200-particle cell filter) on the kernels against the plain
-   versions, metrics within BF16_GTF_EVAL_RTOL; (d) torch.profiler's
-   kernel names of one step: every scan launch a bf16 variant; (e)
+   evaluation (the 200-particle filter on the cell and the step) on the
+   kernels against the plain versions, metrics within BF16_GTF_EVAL_RTOL;
+   (d) torch.profiler's kernel names of one step: every scan launch a
+   bf16 variant; (e)
    ``apps.weizmann.main --model_args '{bf16_gtf: true}'``: one epoch, then
    ``--load last.pth --evaluate --save_args '{skip: true}'``;
 16. every width and particle count that the reference takes: (a) phase 3's
@@ -201,8 +212,9 @@ imports nothing of JAX or of the JAX package. Phases:
    command line (``Trainer.main`` of a ``WeizmannTrainer`` that keeps each
    set's results) with ``--load last.pth --evaluate --visualize`` on phase
    8's fixture and checkpoint, the default save_args: the collect path's
-   launches (the forward scan once a batch, the cell at each of its
-   steps), then, where cv2 is installed, each set's AVI read back (a frame
+   launches (the forward scan and the cell once a batch, the step at
+   each of its later steps), then, where cv2 is installed, each set's AVI
+   read back (a frame
    for each step, 3 x 64 wide, the reconstruction's luma within
    AVI_LUMA_TOL off the label rows: fourcc 0 stores YUV 4:2:0), and where
    matplotlib is, each set's PDF; a renderer that is not installed is
@@ -242,8 +254,8 @@ two scans (``..._bf16_wgmma``: phase 16 (a)'s one launch at z = h = 768, K
 scans (``..._bf16_tiled``: the twin's time and error at z = h = 768,
 launches of phase 16 (c)'s step on the tiled kernels; ``launches_by_phase``
 of the bf16 rows adds phase 16 (b)'s ``bf16_gtf`` steps and (c)'s, each on
-its own). ``library_ms`` is null for the scans
-and the cell (no PyTorch call computes them) and, for the weight
+its own). ``library_ms`` is null for the scans,
+the cell and the step (no PyTorch call computes them) and, for the weight
 gradients, the device time of four ``torch.mm`` (float32, or bf16 rows
 with ``out_dtype=torch.float32``) and the bias sums. For
 the scan kernels ``ms``, ``plain_ms`` and ``bound_ms`` are sums over the
@@ -251,7 +263,8 @@ training step's three launches (phase 3, 9 or 12); ``bound_ms`` is the
 bound of the function at its products' precision (three TF32 passes for
 the float32 scans on every route, one bf16 pass for the bf16 variants)
 and ``bound_f32_ms`` that of float32 outside the tensor cores, both for
-the real (unpadded) work; for the cell they are per launch at the
+the real (unpadded) work; for the cell and the step (rows
+``poe_sample_cell`` and ``poe_sample_step``) they are per launch at the
 evaluation's 200-particle shape. ``launches`` counts the launches of
 the row's command-line run (phase 8, 10 or 12),
 and ``launches_by_phase`` those of the runs of phases 4 (the training
@@ -291,6 +304,8 @@ KERNELS = {
                       "multimodal_dmm_tpu/ops/pallas/bfvi_scan.py:293"),
     "gtf_wgrad": (SCAN_SRC, "multimodal_dmm_tpu/ops/pallas/bfvi_scan.py:451"),
     "poe_sample_cell": ("multimodal_dmm_tpu_torch/csrc/poe_cell.cu",
+                        "multimodal_dmm_tpu/ops/pallas/poe_cell.py:32"),
+    "poe_sample_step": ("multimodal_dmm_tpu_torch/csrc/poe_cell.cu",
                         "multimodal_dmm_tpu/ops/pallas/poe_cell.py:32"),
 }
 SCAN_KERNELS = ("bfvi_scan_fwd", "bfvi_scan_bwd", "gtf_wgrad")
@@ -332,6 +347,11 @@ WGRAD_ROUTES = {"gtf_wgrad_" + r: r for r in ("narrow", "wgmma", "tiled")}
 NEW_WGRAD_ROUTES = ("narrow", "wgmma")
 # (M, K, smoothing) at B = 25, D = 256
 CELL_SHAPES = ((3, 200, False), (5, 1, True))
+# (M, K, NaN rows) of the filter step at B = 25, D = H = 256: the
+# evaluation's 200-particle pass, with particle rows that drop out of the
+# pair PoE, and one particle
+STEP_SHAPES = ((3, 200, False), (3, 200, True), (3, 1, True))
+MIN_STD = 1e-3              # MultiDMM's min_std
 N_EVAL_SEQS = 10
 N_EVALS = 10                # timed evaluations, after one warm-up call
 FWD_TOL = dict(rtol=5e-4, atol=5e-5)
@@ -1192,6 +1212,22 @@ def cell_work(n_exp, k, b_dim, d):
     return flops, nbytes
 
 
+def step_work(n_exp, k, b_dim, d):
+    """(operations, bytes) of one step launch: per particle element the
+    transition's tail (sigmoid, softplus and the mix, about 12 operations),
+    the pair PoE with the global prior (about 12), the mixture's three
+    sums (5) and z with its share of the sample (3); per (b, d) element
+    the mixture's moments (about 8) and the cell's PoE (8 + 5 M). Bytes:
+    the four product outputs and eps read, z written, (K, B, D) each; the
+    global prior and the experts read, the prior, infer and sample
+    written."""
+    bd, kbd = b_dim * d, k * b_dim * d
+    flops = kbd * 32 + bd * (16 + 5 * n_exp)
+    nbytes = 4 * (5 * kbd + kbd + 2 * bd + 2 * n_exp * bd + n_exp * b_dim
+                  + 5 * bd)
+    return flops, nbytes
+
+
 def cell_inputs(n_exp, k, dev, seed, b_dim=B_DATA, d=Z_DIM,
                 smoothing=False):
     """Inputs shaped like one step of the evaluation's passes (by default
@@ -1215,39 +1251,107 @@ def cell_inputs(n_exp, k, dev, seed, b_dim=B_DATA, d=Z_DIM,
     return prior_mean, prior_std, obs_mean, obs_std, mask, eps
 
 
-def check_cell(cell, dev, shapes=CELL_SHAPES, b_dim=B_DATA, d=Z_DIM,
-               seed=300):
-    """Phases 5 and 9: the cell kernel against its plain version at
-    ``shapes`` ((M, K, smoothing) at B, D); returns its record (time,
-    plain time and bound per launch at the first shape, the evaluation's
-    200-particle filter step; largest error over all shapes)."""
-    rec = dict(err=0.0)
+def step_inputs(gtf, n_exp, k, dev, seed, b_dim, nan_rows=False):
+    """Inputs of one later step of the evaluation's filter pass: the
+    product outputs (``nn.gtf_products``: z_lin a view of rows of 2H + D)
+    of K particles z ~ N(0, 1) under the transition ``gtf``, the global
+    prior of a fresh model (mean 0, std 1 + min_std, broadcast to (B, D)
+    and made contiguous as ``_cell_filter`` does), experts, mask and eps as
+    ``cell_inputs``'. With ``nan_rows`` a NaN in two particle rows' std
+    pre-activations (those rows drop out of the pair PoE)."""
+    from multimodal_dmm_tpu_torch.models import nn as tnn
+    d = gtf["z_lin"]["w"].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    z = torch.randn((k, b_dim, d), generator=gen, device=dev)
+    prods = tnn.gtf_products(tnn.gtf_pack(gtf), z)
+    if nan_rows:
+        prods[3][0, 1, d // 2] = float("nan")
+        prods[3][k - 1, b_dim - 1, 0] = float("nan")
+    glb_mean = torch.zeros((b_dim, d), device=dev)
+    glb_std = torch.full((b_dim, d), 1.0 + MIN_STD, device=dev)
+    _, _, obs_mean, obs_std, mask, eps = cell_inputs(n_exp, k, dev, seed + 1,
+                                                     b_dim, d)
+    return prods, glb_mean, glb_std, obs_mean, obs_std, mask, eps
+
+
+def hold_cell_outputs(what, names, got, again, exp, tol, rec):
+    """``got`` against the plain version's ``exp`` at ``tol`` (rtol =
+    atol), every output finite and ``again`` (a second launch on the same
+    inputs) equal to ``got`` bit for bit; the largest error into ``rec``."""
+    for name, g, a, e in zip(names, got, again, exp):
+        check(bool(torch.isfinite(g).all()), "non-finite %s %s" % (what,
+                                                                    name))
+        check(torch.equal(g, a), "%s %s: two launches differ" % (what, name))
+        err = (g - e).abs().max().item()
+        rec["err"] = max(rec["err"], err)
+        check(torch.allclose(g, e, rtol=tol, atol=tol),
+              "%s kernel %s disagrees: max abs err %.3g" % (what, name, err))
+
+
+def check_cell(cell, dev, gtf, shapes=CELL_SHAPES, b_dim=B_DATA, seed=300,
+               step_shapes=STEP_SHAPES):
+    """Phases 5, 9 and 12: the cell kernel against its plain version at
+    ``shapes`` ((M, K, smoothing) at B and the transition's D), and the
+    step kernel against its plain version at ``step_shapes`` ((M, K, NaN
+    rows), the products of the transition ``gtf``), each output at
+    CELL_TOL (10x with the inverse expert), each launch twice, bit for
+    bit. Returns their records (time, plain time and bound per launch at
+    each one's first shape, the evaluation's 200-particle filter step;
+    largest error over all shapes), by wrapper name."""
+    d = gtf["z_lin"]["w"].shape[0]
+    recs = {"poe_sample_cell": dict(err=0.0),
+            "poe_sample_step": dict(err=0.0)}
+    rec = recs["poe_sample_cell"]
     for i, (n_exp, k, smoothing) in enumerate(shapes):
         x = cell_inputs(n_exp, k, dev, seed + i, b_dim, d, smoothing)
         got = cell.poe_sample_cell_cuda(*x)
+        again = cell.poe_sample_cell_cuda(*x)
         exp = cell.poe_sample_cell_ref(*x)
         torch.cuda.synchronize()
-        tol = CELL_TOL * (10 if smoothing else 1)
-        for name, g, e in zip(("infer_mean", "infer_std", "z", "sample"),
-                              got, exp):
-            check(bool(torch.isfinite(g).all()), "non-finite cell %s" % name)
-            err = (g - e).abs().max().item()
-            rec["err"] = max(rec["err"], err)
-            check(torch.allclose(g, e, rtol=tol, atol=tol),
-                  "cell kernel %s disagrees at (M, K) = (%d, %d): max abs "
-                  "err %.3g" % (name, n_exp, k, err))
+        hold_cell_outputs("cell (M, K) = (%d, %d)" % (n_exp, k),
+                          ("infer_mean", "infer_std", "z", "sample"), got,
+                          again, exp, CELL_TOL * (10 if smoothing else 1),
+                          rec)
         ms = time_device_ms(lambda: cell.poe_sample_cell_cuda(*x), 200)
         pms = time_device_ms(lambda: cell.poe_sample_cell_ref(*x), 50)
         host_ms = time_ms(lambda: cell.poe_sample_cell_cuda(*x), 200)
         bms, by_what = bound_ms(*cell_work(n_exp, k, b_dim, d))
         log("  poe_sample_cell (M, K, B, D) = (%d, %d, %d, %d): kernel "
             "%.4f ms (%.4f ms a call with the host's launch), plain %.4f "
-            "ms, bound %.4f ms (%s), max abs err %.3g"
+            "ms, bound %.4f ms (%s), max abs err %.3g; plan %s"
             % (n_exp, k, b_dim, d, ms, host_ms, pms, bms, by_what,
-               rec["err"]))
+               rec["err"], cell.poe_plan(k, b_dim, d, step=False)))
         if i == 0:  # the evaluation's filter pass
             rec.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by_what)
-    return rec
+    rec = recs["poe_sample_step"]
+    for i, (n_exp, k, nan_rows) in enumerate(step_shapes):
+        prods, *x = step_inputs(gtf, n_exp, k, dev, seed + 50 + i, b_dim,
+                                nan_rows)
+        got = cell.poe_sample_step_cuda(prods, *x, MIN_STD)
+        again = cell.poe_sample_step_cuda(prods, *x, MIN_STD)
+        exp = cell.poe_sample_step_ref(prods, *x, MIN_STD)
+        torch.cuda.synchronize()
+        hold_cell_outputs("step (M, K) = (%d, %d)%s" % (
+            n_exp, k, " with NaN rows" if nan_rows else ""),
+            ("prior_mean", "prior_std", "infer_mean", "infer_std", "z",
+             "sample"), got, again, exp, CELL_TOL, rec)
+        ms = time_device_ms(
+            lambda: cell.poe_sample_step_cuda(prods, *x, MIN_STD), 200)
+        pms = time_device_ms(
+            lambda: cell.poe_sample_step_ref(prods, *x, MIN_STD), 50)
+        host_ms = time_ms(
+            lambda: cell.poe_sample_step_cuda(prods, *x, MIN_STD), 200)
+        bms, by_what = bound_ms(*step_work(n_exp, k, b_dim, d))
+        log("  poe_sample_step (M, K, B, D) = (%d, %d, %d, %d)%s: kernel "
+            "%.4f ms (%.4f ms a call with the host's launch), plain %.4f "
+            "ms, bound %.4f ms (%s), max abs err %.3g; plan %s, z_lin rows "
+            "of %d" % (n_exp, k, b_dim, d, " NaN rows" if nan_rows else "",
+                       ms, host_ms, pms, bms, by_what, rec["err"],
+                       cell.poe_plan(k, b_dim, d, step=True),
+                       prods[0].stride(1)))
+        if i == 0:
+            rec.update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by_what)
+    return recs
 
 
 def synthetic_eval_set(seed):
@@ -1308,7 +1412,8 @@ def check_evaluation(trainer, seed, n_evals, bf16=False):
     log("  launches, kernels: %s; plain: %s" % (launches, plain_launches))
     want = {n: 0 for n in wrappers}
     want["bfvi_scan_fwd_bf16" if bf16 else "bfvi_scan_fwd"] = 1
-    want["poe_sample_cell"] = t_max
+    want["poe_sample_cell"] = 1  # the sampled filter pass's first step
+    want["poe_sample_step"] = t_max - 1
     if not bf16:  # the MAP smoothing pass's route (K = 1)
         from multimodal_dmm_tpu_torch.ops.cuda import bfvi_scan as scan
         d, h = trainer.model.z_dim, trainer.model.h_dim
@@ -1316,8 +1421,8 @@ def check_evaluation(trainer, seed, n_evals, bf16=False):
         want["bfvi_scan_fwd_" + scan.f32_scan_plan(
             1, loader.batch_size, dp, hp)["route"]] = 1
     check(launches == want,
-          "evaluation launches %s, expected the cell T = %d times and the "
-          "forward scan once" % (launches, t_max))
+          "evaluation launches %s, expected the cell once, the step T - 1 = "
+          "%d times and the forward scan once" % (launches, t_max - 1))
     check(not any(plain_launches.values()),
           "the plain evaluation launched kernels: %s" % plain_launches)
     label_atol = EVAL_LABEL_FLIPS / (len(items) * min(lengths))
@@ -1339,17 +1444,18 @@ def check_evaluation(trainer, seed, n_evals, bf16=False):
 
     times = []
     wrappers = kernel_wrappers()
-    cell = wrappers["poe_sample_cell"]
-    cell.launches = 0
+    cell, step = wrappers["poe_sample_cell"], wrappers["poe_sample_step"]
+    cell.launches = step.launches = 0
     for i in range(1 + n_evals):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         trainer.evaluate(loader, args, collect_results=False)
         if i:
             times.append(1e3 * (time.perf_counter() - t0))
-    check(cell.launches == t_max * (1 + n_evals),
-          "the cell launched %d times in %d evaluations of T = %d"
-          % (cell.launches, 1 + n_evals, t_max))
+    check(cell.launches == 1 + n_evals
+          and step.launches == (t_max - 1) * (1 + n_evals),
+          "the cell launched %d times and the step %d in %d evaluations of "
+          "T = %d" % (cell.launches, step.launches, 1 + n_evals, t_max))
     ms = statistics.median(times)
     log("  evaluation: median %.2f ms per call over %d calls (%s), %.1f "
         "seqs/s" % (ms, len(times), ", ".join("%.2f" % v for v in times),
@@ -1365,6 +1471,7 @@ def kernel_wrappers():
     from multimodal_dmm_tpu_torch.ops.cuda import bfvi_scan, poe_cell
     out = {name: getattr(bfvi_scan, name + "_cuda") for name in SCAN_KERNELS}
     out["poe_sample_cell"] = poe_cell.poe_sample_cell_cuda
+    out["poe_sample_step"] = poe_cell.poe_sample_step_cuda
     for name, (f32, route) in F32_ROUTES.items():
         out[name] = RouteCount(out[f32], "launches_" + route)
     for name, route in WGRAD_ROUTES.items():
@@ -1803,8 +1910,9 @@ def check_bench_step(scan, seed, targets, card, profile_path=None):
     for name in SCAN_KERNELS:
         check(bench_launches[name] == 3 * N_BENCH, "bench steps: %s launched "
               "%d times in %d steps" % (name, bench_launches[name], N_BENCH))
-    check(bench_launches["poe_sample_cell"] == 0,
-          "the cell kernel launched during training")
+    check(bench_launches["poe_sample_cell"] == 0
+          and bench_launches["poe_sample_step"] == 0,
+          "the cell or step kernel launched during training")
     ms = {name: statistics.median(v) for name, v in times.items()}
     for name, v in times.items():
         tr, x, y = configs[name]
@@ -1881,10 +1989,11 @@ def run_cli(seed, card, tmp):
         check(n_bwd > 0 and n_bwd % 3 == 0
               and launches["gtf_wgrad"] == n_bwd
               and launches["bfvi_scan_fwd"] == n_bwd + CLI_EPOCHS
-              and launches["poe_sample_cell"] > 0,
+              and launches["poe_sample_cell"] == CLI_EPOCHS
+              and launches["poe_sample_step"] > 0,
               "command-line run launches %s: expected 3 of each scan "
-              "kernel per step, one forward scan and the cell per "
-              "evaluation" % launches)
+              "kernel per step, one forward scan and one sampled filter "
+              "pass (the cell, then the step) per evaluation" % launches)
         check_f32_routes(launches, "phase 8's command line")
         log("  %d epochs of %d steps in %.1f s of command: losses %s, "
             "seconds per epoch %s, evaluation seconds %s, eval rec_loss "
@@ -1991,8 +2100,9 @@ def check_spirals_kernels(scan, cell, seed, dev):
     rec = check_kernels(scan, gtf, dev, SP_T, vb,
                         [(m, k) for _, m, _, k in launched],
                         smooth_shape=(SP_T, SP_B, n + 2, 1), seed=500)
-    cell_rec = check_cell(cell, dev, ((n, 200, False), (n + 2, 1, True)),
-                          SP_B, model.z_dim, seed=600)
+    cell_rec = check_cell(cell, dev, gtf, ((n, 200, False), (n + 2, 1, True)),
+                          SP_B, seed=600,
+                          step_shapes=((n, 200, False), (n, 1, True)))
     return trainer, (inputs, targets, mask), rec, cell_rec
 
 
@@ -2088,10 +2198,11 @@ def check_spirals_bfvi(scan, trainer, batch, seed, tmp, card,
                                                      hist["eval"]))
     check(n_bwd > 0 and n_bwd % 3 == 0 and launches["gtf_wgrad"] == n_bwd
           and launches["bfvi_scan_fwd"] == n_bwd + n_eval
-          and launches["poe_sample_cell"] == n_eval * SP_T,
+          and launches["poe_sample_cell"] == n_eval
+          and launches["poe_sample_step"] == n_eval * (SP_T - 1),
           "spirals run launches %s: expected 3 of each scan kernel a step, "
-          "and per evaluation batch (%d) one forward scan and the cell T = "
-          "%d times" % (launches, n_eval, SP_T))
+          "and per evaluation batch (%d) one forward scan, the cell once and "
+          "the step T - 1 = %d times" % (launches, n_eval, SP_T - 1))
     check_f32_routes(launches, "phase 10's command line")
     log("  %d epochs of %d steps in %.1f s of command: losses %s, seconds "
         "per epoch %s, evaluation seconds %s, eval mse %s; launches %s [%s]"
@@ -2270,10 +2381,12 @@ def vidtimit_batch(data, seed, dev):
 
 
 def vidtimit_eval_cells(data):
-    """The cell launches of one evaluation of the fixture's test set (the
-    sa1/sa2 sequences, in the dataset's order, in batches of VT_B): the
-    sum of each batch's longest sequence, the video's frame count (the
-    audio has one frame more, which the dataset truncates)."""
+    """The sampled filter passes of one evaluation of the fixture's test
+    set (the sa1/sa2 sequences, in the dataset's order, in batches of
+    VT_B): the number of batches (one pass, one cell launch each) and the
+    sum of each batch's longest sequence (the pass's steps), the video's
+    frame count (the audio has one frame more, which the dataset
+    truncates)."""
     vdir = os.path.join(data, "video")
     names = sorted(f for f in os.listdir(vdir)
                    if f.endswith(("_sa1.npy", "_sa2.npy")))
@@ -2338,8 +2451,9 @@ def check_vidtimit(scan, cell, seed, dev, tmp, card, profile_path=None):
     rec = check_kernels(scan, gtf, dev, VT_T, vb,
                         [(m, k) for _, m, _, k in want],
                         smooth_shape=(VT_T, VT_B, n + 2, 1), seed=700)
-    cell_rec = check_cell(cell, dev, ((n, 200, False), (n + 2, 1, True)),
-                          VT_B, model.z_dim, seed=800)
+    cell_rec = check_cell(cell, dev, gtf, ((n, 200, False), (n + 2, 1, True)),
+                          VT_B, seed=800,
+                          step_shapes=((n, 200, False), (n, 1, True)))
 
     log("  (b) one BFVI step on the kernels vs the plain versions, fixture "
         "batch, native layout")
@@ -2407,10 +2521,13 @@ def check_vidtimit(scan, cell, seed, dev, tmp, card, profile_path=None):
     n_bwd = launches["bfvi_scan_bwd"]
     check(n_bwd > 0 and n_bwd % 3 == 0 and launches["gtf_wgrad"] == n_bwd
           and launches["bfvi_scan_fwd"] == n_bwd + CLI_EPOCHS * n_eval
-          and launches["poe_sample_cell"] == CLI_EPOCHS * eval_cells,
+          and launches["poe_sample_cell"] == CLI_EPOCHS * n_eval
+          and launches["poe_sample_step"] == CLI_EPOCHS * (eval_cells
+                                                            - n_eval),
           "VidTIMIT run launches %s: expected 3 of each scan kernel a step, "
-          "and per evaluation (%d batches, %d cell steps) one forward scan a "
-          "batch and the cell at each step" % (launches, n_eval, eval_cells))
+          "and per evaluation (%d batches, %d filter steps) one forward scan "
+          "and the cell a batch and the step at each later step"
+          % (launches, n_eval, eval_cells))
     check_f32_routes(launches, "phase 12's command line")
     log("  %d epochs of %d steps in %.1f s of command: losses %s, seconds "
         "per epoch %s, evaluation seconds %s, eval rec_loss %s, a_mse %s; "
@@ -2661,7 +2778,8 @@ def check_weizmann_grid(data, root, card):
         check(len(trainers) == len(trial_s) == n_trials,
               "%d trials built, %d run" % (len(trainers), len(trial_s)))
         # Per trial: an evaluation each epoch of the test set's batches,
-        # one smoothing scan a batch and the cell at each of its steps.
+        # one smoothing scan and the cell a batch, the step at each of its
+        # later steps.
         eval_batches = eval_cells = 0
         for tr in trainers:
             (_, dev_data), = tr._eval_dev_cache.values()
@@ -2673,11 +2791,12 @@ def check_weizmann_grid(data, root, card):
         check(n > 0 and launches["bfvi_scan_bwd"] == 3 * n
               and launches["gtf_wgrad"] == 3 * n
               and launches["bfvi_scan_fwd"] == 3 * n + eval_batches
-              and launches["poe_sample_cell"] == eval_cells,
+              and launches["poe_sample_cell"] == eval_batches
+              and launches["poe_sample_step"] == eval_cells - eval_batches,
               "grid launches %s for %d steps, %d evaluation batches and %d "
-              "cell steps: expected 3 of each scan kernel a step, one "
-              "forward scan an evaluation batch, the cell at each of its "
-              "steps" % (launches, n, eval_batches, eval_cells))
+              "filter steps: expected 3 of each scan kernel a step, one "
+              "forward scan and the cell an evaluation batch, the step at "
+              "each later step" % (launches, n, eval_batches, eval_cells))
         exp_dir = os.path.join(root, "weizmann_semisup")
         (state,) = [f for f in os.listdir(exp_dir)
                     if f.startswith("experiment_state")]
@@ -2868,8 +2987,10 @@ def check_dp_run(what, mesh_spec, backend, seed, b_dim, modes, ref, card):
             check(out["launches"][name] == 3 * n_steps,
                   "%s rank %d: %s launched %d times in %d steps, expected 3 "
                   "a step" % (what, r, name, out["launches"][name], n_steps))
-        check(out["launches"]["poe_sample_cell"] == 0,
-              "%s rank %d: the cell kernel launched in training" % (what, r))
+        check(out["launches"]["poe_sample_cell"] == 0
+              and out["launches"]["poe_sample_step"] == 0,
+              "%s rank %d: the cell or step kernel launched in training"
+              % (what, r))
         check(out["digest"] == outs[0]["digest"],
               "%s: rank %d's weights differ from rank 0's" % (what, r))
     for i, mode in enumerate(modes):
@@ -3124,7 +3245,8 @@ def run_bf16_cli(seed, card):
             check(n_bwd > 0 and n_bwd % 3 == 0
                   and launches["gtf_wgrad_bf16"] == n_bwd
                   and launches["bfvi_scan_fwd_bf16"] == n_bwd + 1
-                  and launches["poe_sample_cell"] > 0
+                  and launches["poe_sample_cell"] == 1
+                  and launches["poe_sample_step"] > 0
                   and not any(launches[n] for n in SCAN_KERNELS),
                   "bf16_gtf command-line run launches %s: expected 3 of "
                   "each bf16 variant per step, one bf16 forward scan and "
@@ -3627,10 +3749,11 @@ def check_results_export(card, save, flags):
     route = scan.f32_scan_plan(1, 25, Z_DIM, Z_DIM)["route"]
     want = {n: 0 for n in wrappers}
     want["bfvi_scan_fwd"] = want["bfvi_scan_fwd_" + route] = len(t_maxes)
-    want["poe_sample_cell"] = sum(t_maxes)
+    want["poe_sample_cell"] = len(t_maxes)
+    want["poe_sample_step"] = sum(t_maxes) - len(t_maxes)
     check(launches == want, "(a) launches %s, expected the forward scan "
-          "once a batch and the cell at each of its steps: %s"
-          % (launches, want))
+          "and the cell once a batch and the step at each of its later "
+          "steps: %s" % (launches, want))
     log("  (a) --load last.pth --evaluate%s: %.1f s of command, %d eval "
         "batches, launches %s [%s]"
         % (" --visualize" if found["matplotlib"] else "", secs,
@@ -3825,8 +3948,8 @@ def check_mesh_eval(seed, dev, card, ckpt_path):
             for (path, batch, method), got, exp in zip(MESH_EVALS, out, ref):
                 what = "--mesh %s rank %d, %s path, batch %d, %s" % (
                     spec, r, path, batch, method or "MAP")
-                for n in ("bfvi_scan_fwd", "poe_sample_cell")[
-                        :2 if method else 1]:
+                for n in ("bfvi_scan_fwd", "poe_sample_cell",
+                          "poe_sample_step")[:3 if method else 1]:
                     check(got["launches"][n] > 0, "%s: %s launched no time"
                           % (what, n))
                 check(got["launches"] == exp["launches"],
@@ -4009,8 +4132,9 @@ def main():
     for name in SCAN_KERNELS:
         check(launches[name] == 3 * n_steps, "%s launched %d times in %d "
               "steps, expected 3 per step" % (name, launches[name], n_steps))
-    check(launches["poe_sample_cell"] == 0,
-          "the cell kernel launched during training")
+    check(launches["poe_sample_cell"] == 0
+          and launches["poe_sample_step"] == 0,
+          "the cell or step kernel launched during training")
     check_f32_routes(launches, "phase 4's training steps")
     changed = [not torch.equal(v, trainer.params["trans"]["bwd"]["gate_1"]
                                [k]) for k, v in before.items()
@@ -4039,9 +4163,11 @@ def main():
         log("  profile written to %s" % args.profile)
 
     # -- phase 5: the cell kernel against its plain version -------------------
-    log_phase("phase 5: poe_sample_cell vs its plain version [%s]" % card)
-    cell_rec = check_cell(cell, dev)
-    log("  no single PyTorch call computes the cell: library_ms is null")
+    log_phase("phase 5: poe_sample_cell and poe_sample_step vs their plain "
+              "versions [%s]" % card)
+    cell_rec = check_cell(cell, dev, gtf)
+    log("  no single PyTorch call computes the cell or the step: library_ms "
+        "is null")
 
     # -- phase 6: the evaluation path -----------------------------------------
     log_phase("phase 6: Weizmann BFVI evaluation on the phase-4 weights [%s]"
@@ -4152,9 +4278,9 @@ def main():
 
     # -- summary --------------------------------------------------------------
     log(card)
-    rec["poe_sample_cell"] = cell_rec
-    sp_rec["poe_sample_cell"] = sp_cell
-    vt_rec["poe_sample_cell"] = vt_cell
+    rec.update(cell_rec)
+    sp_rec.update(sp_cell)
+    vt_rec.update(vt_cell)
     by_phase = {"4": launches, "6": eval_launches, "7": bench_launches,
                 "8": cli_launches, "10": sp_launches, "12": vt_launches,
                 "13": exp_launches, "14": dp_launches,

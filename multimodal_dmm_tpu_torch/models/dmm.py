@@ -35,9 +35,9 @@ injected ``eps``.
 ``bf16_gtf=True`` runs every GTF product in bfloat16 where the JAX
 package's ``lax.scan`` path does (its ``_packed_trans``): the filtering
 scans through the kernels' bfloat16 variants (``bfvi_scan(bf16=True)``),
-the rollouts and the evaluation filter's ``_z_next`` through
-``nn.gtf_apply_packed`` on weights packed in bfloat16. The parameters
-stay float32.
+the rollouts' ``_z_next`` through ``nn.gtf_apply_packed`` and the
+evaluation filter's steps through ``nn.gtf_products``, both on weights
+packed in bfloat16. The parameters stay float32.
 """
 
 import numpy as np
@@ -46,7 +46,7 @@ import torch
 from .. import resolve_device
 from ..ops import losses
 from ..ops.cuda.bfvi_scan import bfvi_scan
-from ..ops.cuda.poe_cell import poe_sample_cell
+from ..ops.cuda.poe_cell import poe_sample_cell, poe_sample_step
 from ..ops.poe import (product_of_experts, product_of_experts_pair,
                        mean_of_experts)
 from ..parallel.mesh import ColumnNoise, SyncStats
@@ -260,29 +260,38 @@ class MultiDMM(ModelBase):
 
     def _cell_filter(self, trans, xs_mean, xs_std, xs_mask, glb_mean,
                      glb_std, eps):
-        """The filtering loop in scan time order, one step at a time: the
-        conditional prior ``_z_next`` of the K particles (the global prior
-        at t = 0) under the packed transition ``trans``, then
-        ``poe_sample_cell``. Returns (prior_mean, prior_std, infer_mean,
-        infer_std, samples), each (T, B, D)."""
-        # One copy each instead of one per step.
-        xs_mean, xs_std, xs_mask = (x.contiguous() for x in (xs_mean, xs_std,
-                                                             xs_mask))
-        outs = [[] for _ in range(5)]
-        z = None
-        for t in range(xs_mean.shape[0]):
-            if t == 0:
-                prior_mean, prior_std = glb_mean, glb_std
-            else:
-                prior_mean, prior_std = self._z_next(trans, z, glb_mean,
-                                                     glb_std)
-            infer_mean, infer_std, z, smp = poe_sample_cell(
-                prior_mean, prior_std, xs_mean[t], xs_std[t], xs_mask[t],
-                eps[t], plain=self.plain_scan is True)
-            for lst, v in zip(outs, (prior_mean, prior_std, infer_mean,
-                                     infer_std, smp)):
-                lst.append(v)
-        return tuple(torch.stack(v) for v in outs)
+        """The filtering loop in scan time order, one step at a time under
+        the packed transition ``trans``: at t = 0 ``poe_sample_cell`` on
+        the global prior, at each later step ``nn.gtf_products`` of the K
+        particles and ``poe_sample_step`` (the transition's tail, the
+        conditional prior of ``_z_next`` and the cell, one launch on the
+        GPU). The outputs go into (T, B, D) buffers, the particles into two
+        (K, B, D) buffers in turn. Returns (prior_mean, prior_std,
+        infer_mean, infer_std, samples), each (T, B, D)."""
+        # One copy (or cast) each instead of one per step.
+        xs_mean, xs_std, glb_mean, glb_std, eps = (
+            x.contiguous() for x in (xs_mean, xs_std, glb_mean, glb_std,
+                                     eps))
+        xs_mask = xs_mask.to(torch.float32).contiguous()
+        t_max = xs_mean.shape[0]
+        plain = self.plain_scan is True
+        opts = dict(dtype=torch.float32, device=eps.device)
+        p_mean, p_std, i_mean, i_std, smp = (
+            torch.empty((t_max,) + tuple(glb_mean.shape), **opts)
+            for _ in range(5))
+        zs = [torch.empty(eps.shape[1:], **opts) for _ in range(2)]
+        p_mean[0].copy_(glb_mean)
+        p_std[0].copy_(glb_std)
+        poe_sample_cell(glb_mean, glb_std, xs_mean[0], xs_std[0], xs_mask[0],
+                        eps[0], plain=plain,
+                        out=(i_mean[0], i_std[0], zs[0], smp[0]))
+        for t in range(1, t_max):
+            poe_sample_step(tnn.gtf_products(trans, zs[(t - 1) % 2]),
+                            glb_mean, glb_std, xs_mean[t], xs_std[t],
+                            xs_mask[t], eps[t], self.min_std, plain=plain,
+                            out=(p_mean[t], p_std[t], i_mean[t], i_std[t],
+                                 zs[t % 2], smp[t]))
+        return p_mean, p_std, i_mean, i_std, smp
 
     def z_filter_grouped(self, params, z_mean, z_std, z_masks, eps,
                          k_groups, direction="fwd"):

@@ -153,16 +153,31 @@ def linear_cd(x, w, b, cd=None):
                     cd) + b
 
 
-def gtf_apply_packed(pk, z, min_std=0.0):
+def gtf_products(pk, z):
+    """The packed transition's products and ReLUs (``linear_cd``, so with a
+    compute dtype they round as ``gtf_apply_packed`` does): returns
+    (z_lin, gate_pre, z_nonlin, std_pre), the four inputs of ``gtf_tail``.
+    ``z_lin`` is a view of the first product's output (rows of 2H + D)."""
     h_dim, cd = pk["h_dim"], pk["cd"]
     a1 = linear_cd(z, pk["w1"], pk["b1"], cd)
     g1 = F.relu(a1[..., :h_dim])
     n1 = F.relu(a1[..., h_dim:2 * h_dim])
-    z_lin = a1[..., 2 * h_dim:]
-    gate = torch.sigmoid(linear_cd(g1, pk["w2"][0], pk["b2"][0], cd))
+    gate_pre = linear_cd(g1, pk["w2"][0], pk["b2"][0], cd)
     z_nonlin = linear_cd(n1, pk["w2"][1], pk["b2"][1], cd)
-    z_std = F.softplus(linear_cd(z_nonlin, pk["w3"], pk["b3"], cd)) + min_std
+    std_pre = linear_cd(z_nonlin, pk["w3"], pk["b3"], cd)
+    return a1[..., 2 * h_dim:], gate_pre, z_nonlin, std_pre
+
+
+def gtf_tail(z_lin, gate_pre, z_nonlin, std_pre, min_std=0.0):
+    """The transition's elementwise tail: the sigmoid gate's mix of the
+    linear and nonlinear means, and ``softplus + min_std``."""
+    gate = torch.sigmoid(gate_pre)
+    z_std = F.softplus(std_pre) + min_std
     return (1 - gate) * z_lin + gate * z_nonlin, z_std
+
+
+def gtf_apply_packed(pk, z, min_std=0.0):
+    return gtf_tail(*gtf_products(pk, z), min_std)
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-v"]
 # Flags of one source only: the bf16 scans' elementwise phases divide and
 # take square roots by the approximate instructions (1-2 ulp in float32,
-# far below the bfloat16 rounding of every product around them).
-SOURCE_FLAGS = {"bfvi_scan_bf16": ["-prec-div=false", "-prec-sqrt=false"]}
+# far below the bfloat16 rounding of every product around them); the
+# filter step's kernels contract no product and sum into an FMA, so each
+# operation rounds where PyTorch's separate elementwise ops do.
+SOURCE_FLAGS = {"bfvi_scan_bf16": ["-prec-div=false", "-prec-sqrt=false"],
+                "poe_cell": ["-fmad=false"]}
 
 _loaded = {}
 

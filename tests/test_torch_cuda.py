@@ -643,8 +643,9 @@ def test_cell_kernel_at_vidtimit_shape(dev):
 
 @pytest.mark.parametrize("direction", ["fwd", "bwd"])
 def test_cell_path_z_filter_cuda_matches_cpu(dev, direction):
-    """The filtering pass's cell path (200 particles) on the GPU (cell
-    kernel) equals the same pass on the CPU (plain version)."""
+    """The filtering pass's cell path (200 particles) on the GPU (the cell
+    kernel at its first step, the step kernel at the five others) equals
+    the same pass on the CPU (plain versions)."""
     model = MultiDMM(["a", "b"], [4, 6], z_dim=32, h_dim=24)
     rng = np.random.RandomState(4)
     zm = rng.randn(2, 6, 5, 32).astype(np.float32)
@@ -654,16 +655,100 @@ def test_cell_path_z_filter_cuda_matches_cpu(dev, direction):
     results = []
     for device in ("cpu", dev):
         params, _ = model.init(0, device=device)
-        before = tcell.poe_sample_cell_cuda.launches
+        before = (tcell.poe_sample_cell_cuda.launches,
+                  tcell.poe_sample_step_cuda.launches)
         with torch.no_grad():
             (im, istd), (pm, ps), smp = model.z_filter(
                 params, *[torch.tensor(a, device=device)
                           for a in (zm, zs, zk)], direction=direction,
                 n_particles=200, eps=torch.tensor(eps, device=device),
                 use_cell=True)
-        launched = tcell.poe_sample_cell_cuda.launches - before
-        assert launched == (6 if device == dev else 0)
+        launched = (tcell.poe_sample_cell_cuda.launches - before[0],
+                    tcell.poe_sample_step_cuda.launches - before[1])
+        assert launched == ((1, 5) if device == dev else (0, 0))
         results.append([im, istd, pm, ps, smp])
     for i, (c, g) in enumerate(zip(*results)):
         np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=1e-4,
                                    atol=1e-5, err_msg=str(i))
+
+
+def _step_inputs(dev, n_exp, k, b_dim, d, h, seed, nan_rows=False,
+                 inverse=False):
+    """One later filter step's inputs: ``gtf_products`` of K particles
+    under a transition at (D, H) (z_lin a view of rows of 2H + D), a
+    global prior broadcast to (B, D), experts (with ``inverse`` the last
+    one the smoothing pass's inverse expert), mask, eps."""
+    rng = np.random.RandomState(seed)
+    gen = torch.Generator().manual_seed(seed)
+    gtf = {n: {kk: v.to(dev) for kk, v in p.items()}
+           for n, p in tnn.gtf_init(gen, d, h).items()}
+    z = torch.tensor(rng.randn(k, b_dim, d).astype(np.float32), device=dev)
+    prods = tnn.gtf_products(tnn.gtf_pack(gtf), z)
+    if nan_rows:
+        prods[3][0, 0, d - 1] = float("nan")
+        prods[3][k - 1, b_dim - 1, 0] = float("nan")
+    obs_std = (rng.rand(n_exp, b_dim, d) + 0.2).astype(np.float32)
+    mask = rng.rand(n_exp, b_dim) > 0.4
+    if inverse:
+        obs_std[-1] = -obs_std[-1] - 2.0
+        mask[-1] = True
+    arrays = [np.tile(rng.randn(1, d), (b_dim, 1)),
+              np.tile(rng.rand(1, d) + 0.5, (b_dim, 1)),
+              rng.randn(n_exp, b_dim, d), obs_std, mask,
+              rng.randn(k, b_dim, d)]
+    return [prods] + [torch.tensor(np.asarray(a, np.float32), device=dev)
+                      for a in arrays]
+
+
+# Odd and edge shapes (M, K, B, D, H): D no multiple of 4 and rows that
+# are (elements copied by the threads) or are not (one TMA copy a row)
+# 16-byte runs, D = 1, D above a CTA's 256 threads, K = 1 and 256, no
+# expert, and D = 4096, whose rows a CTA stages one at a time.
+STEP_SHAPES = [(3, 200, 13, 130, 24), (2, 7, 5, 8, 3), (2, 256, 3, 1, 4),
+               (3, 1, 25, 256, 256), (0, 50, 4, 300, 16),
+               (2, 200, 100, 5, 20), (1, 200, 2, 4096, 8)]
+
+
+@pytest.mark.parametrize("n_exp,k,b_dim,d,h", STEP_SHAPES)
+@pytest.mark.parametrize("nan_rows", [False, True])
+def test_step_kernel_matches_plain_version(dev, n_exp, k, b_dim, d, h,
+                                           nan_rows):
+    """``poe_sample_step`` on the GPU against its plain version; rtol/atol
+    1e-5, as the cell's; two launches agree bit for bit."""
+    prods, *x = _step_inputs(dev, n_exp, k, b_dim, d, h, k + d, nan_rows)
+    before = tcell.poe_sample_step_cuda.launches
+    got = tcell.poe_sample_step(prods, *x, MIN_STD)
+    again = tcell.poe_sample_step(prods, *x, MIN_STD)
+    assert tcell.poe_sample_step_cuda.launches == before + 2
+    exp = tcell.poe_sample_step_ref(prods, *x, MIN_STD)
+    for i, (g, a, e) in enumerate(zip(got, again, exp)):
+        assert g.shape == e.shape
+        assert torch.equal(g, a), i
+        np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5, err_msg=str(i))
+
+
+def test_step_kernel_with_the_inverse_expert(dev):
+    """The step with the smoothing pass's inverse expert among the
+    observations: rtol/atol 1e-4, as the cell's."""
+    prods, *x = _step_inputs(dev, 4, 25, 13, 32, 24, 5, inverse=True)
+    got = tcell.poe_sample_step(prods, *x, MIN_STD)
+    exp = tcell.poe_sample_step_ref(prods, *x, MIN_STD)
+    for i, (g, e) in enumerate(zip(got, exp)):
+        np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-4, err_msg=str(i))
+
+
+def test_step_kernel_writes_into_given_outputs(dev):
+    """``out=`` receives the outputs (views into a pass's (T, B, D)
+    buffers), as ``_cell_filter`` hands them over."""
+    prods, *x = _step_inputs(dev, 2, 9, 6, 16, 8, 3)
+    bufs = [torch.full((3, 6, 16), 7.0, device=dev) for _ in range(5)]
+    z = torch.empty((9, 6, 16), device=dev)
+    out = (bufs[0][1], bufs[1][1], bufs[2][1], bufs[3][1], z, bufs[4][1])
+    got = tcell.poe_sample_step(prods, *x, MIN_STD, out=out)
+    exp = tcell.poe_sample_step(prods, *x, MIN_STD)
+    for g, o, e in zip(got, out, exp):
+        assert g is o and torch.equal(g, e)
+    for b in bufs:
+        assert bool((b[0] == 7.0).all()) and bool((b[2] == 7.0).all())
