@@ -50,6 +50,7 @@ from ..ops.cuda.poe_cell import poe_sample_cell, poe_sample_step
 from ..ops.poe import (product_of_experts, product_of_experts_pair,
                        mean_of_experts)
 from ..parallel.mesh import ColumnNoise, SyncStats
+from ..training.diagnostics import span
 from ..tree import tree_map
 from . import nn as tnn
 from .base import (ModelBase, embed_gaussian_codec, mlp_categorical_codec,
@@ -366,25 +367,30 @@ class MultiDMM(ModelBase):
         t_max, b_dim = some.shape[:2]
         full = self._nan_fill_missing(inputs, t_max, b_dim,
                                       device=some.device)
-        (obs_mean, obs_std, obs_mask), enc_state = self.encode(
-            params, state["enc"], full, train)
+        with span("mdmm/dmm.encode"):
+            (obs_mean, obs_std, obs_mask), enc_state = self.encode(
+                params, state["enc"], full, train)
         obs_mask = obs_mask.to(torch.float32)
         direction = "fwd" if mode in ("ffilter", "bsmooth") else "bwd"
         flt_init = sample_init if mode in ("ffilter", "bfilter") else False
-        infer, prior, z_samples = self.z_filter(
-            params, obs_mean, obs_std, obs_mask, gen, direction=direction,
-            sample=sample, n_particles=flt_particles, sample_init=flt_init,
-            use_cell=not train)
+        with span("mdmm/dmm.filter"):
+            infer, prior, z_samples = self.z_filter(
+                params, obs_mean, obs_std, obs_mask, gen,
+                direction=direction, sample=sample,
+                n_particles=flt_particles, sample_init=flt_init,
+                use_cell=not train)
         if mode in ("fsmooth", "bsmooth"):
             direction = "fwd" if mode == "fsmooth" else "bwd"
-            szm, szs, som = self._smooth_experts(params, obs_mean, obs_std,
-                                                 obs_mask, prior)
-            infer, prior, z_samples = self.z_filter(
-                params, szm, szs, som, gen, direction=direction,
-                sample=sample, n_particles=smt_particles,
-                sample_init=sample_init, use_cell=not train)
-        recon, dec_state = self.decode(params, state["dec"], z_samples,
-                                       train)
+            with span("mdmm/dmm.smooth"):
+                szm, szs, som = self._smooth_experts(
+                    params, obs_mean, obs_std, obs_mask, prior)
+                infer, prior, z_samples = self.z_filter(
+                    params, szm, szs, som, gen, direction=direction,
+                    sample=sample, n_particles=smt_particles,
+                    sample_init=sample_init, use_cell=not train)
+        with span("mdmm/dmm.decode"):
+            recon, dec_state = self.decode(params, state["dec"], z_samples,
+                                           train)
         return (infer, prior, recon), {"enc": enc_state, "dec": dec_state}
 
     def sample(self, params, state, t_max, b_dim, gen, direction="fwd"):
@@ -481,8 +487,9 @@ class MultiDMM(ModelBase):
         enc_train = train
         if mesh is not None and isinstance(train, SyncStats):
             enc_train = SyncStats(mesh.data_group)
-        (obs_mean, obs_std, obs_mask), enc_state = self.encode(
-            params, state["enc"], full, enc_train, native=native_mods)
+        with span("mdmm/dmm.encode"):
+            (obs_mean, obs_std, obs_mask), enc_state = self.encode(
+                params, state["enc"], full, enc_train, native=native_mods)
         # Variant expert-presence patterns (V, M): the joint row (when
         # there is more than one modality), then one row per modality
         # present in the inputs.
@@ -534,7 +541,8 @@ class MultiDMM(ModelBase):
         n_mods, t_max, b_dim, z_dim = obs_mean.shape
         vmat = vmat[self._variant_rows(vmat.shape[0])]
         v_dim = vmat.shape[0]
-        vm = torch.as_tensor(vmat.T, device=obs_mean.device)  # (M, V)
+        with span("mdmm/sync.variant_mask"):
+            vm = torch.as_tensor(vmat.T, device=obs_mean.device)  # (M, V)
         om = (obs_mask.to(torch.float32)[:, :, None, :]
               * vm[:, None, :, None]).reshape(n_mods, t_max, v_dim * b_dim)
 
@@ -641,7 +649,10 @@ class MultiDMM(ModelBase):
             if not all_rows[:, i].any():
                 continue
             a_dim = len(active)
-            za = z_v[:, active].reshape(t_max * a_dim * b_dim, self.z_dim)
+            # A list index goes to the device as a copy that waits.
+            with span("mdmm/sync.variant_rows"):
+                za = z_v[:, active].reshape(t_max * a_dim * b_dim,
+                                            self.z_dim)
             dec = self.dec[m]
             use_logits = (self.dists[m] == "Bernoulli"
                           and hasattr(dec, "apply_logits"))

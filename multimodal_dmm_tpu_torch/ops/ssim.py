@@ -11,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..training.diagnostics import span
+
 
 def _gauss_kernel_1d(size, sigma):
     coords = np.arange(size, dtype=np.float32) - size // 2
@@ -37,8 +39,9 @@ def eval_ssim(x, y, win_size=11, win_sigma=1.5, data_range=1.0,
         raise ValueError("Window size must be odd.")
     c1 = (0.01 * data_range) ** 2
     c2 = (0.03 * data_range) ** 2
-    win = _gauss_kernel_1d(win_size, win_sigma).to(device=x.device,
-                                                   dtype=x.dtype)
+    with span("mdmm/sync.ssim_window"):
+        win = _gauss_kernel_1d(win_size, win_sigma).to(device=x.device,
+                                                       dtype=x.dtype)
     out = _blur(torch.cat([x, y, x * x, y * y, x * y], dim=1), win)
     mu1, mu2, s1_sq, s2_sq, s12 = torch.chunk(out, 5, dim=1)
     mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from .diagnostics import span
 
 
 class DeviceTrainData:
@@ -101,14 +102,20 @@ class DeviceTrainData:
         perm = np.random.RandomState(seed).permutation(self.n)
         gen = torch.Generator(device=self.device).manual_seed(seed)
         for start in range(0, self.n, self.batch_size):
-            sel = np.sort(perm[start:start + self.batch_size])
-            n_real = len(sel)
-            if n_real < self.batch_size:
-                sel = np.concatenate([sel, np.zeros(self.batch_size - n_real,
-                                                    dtype=sel.dtype)])
-            real = torch.as_tensor(np.arange(self.batch_size) < n_real,
-                                   device=self.device)
-            inputs, targets, mask = self.gather_and_burst(
-                torch.as_tensor(sel, device=self.device), real, gen)
-            yield (inputs, targets, mask,
-                   [int(l) for l in self.lengths[sel[:n_real]]])
+            with span("mdmm/train.batch"):
+                sel = np.sort(perm[start:start + self.batch_size])
+                n_real = len(sel)
+                if n_real < self.batch_size:
+                    sel = np.concatenate([sel, np.zeros(
+                        self.batch_size - n_real, dtype=sel.dtype)])
+                # Copies from pageable host memory: each waits for the
+                # device's stream.
+                with span("mdmm/sync.batch_copy"):
+                    real = torch.as_tensor(np.arange(self.batch_size)
+                                           < n_real, device=self.device)
+                with span("mdmm/sync.batch_copy"):
+                    idx = torch.as_tensor(sel, device=self.device)
+                inputs, targets, mask = self.gather_and_burst(idx, real, gen)
+                batch = (inputs, targets, mask,
+                         [int(l) for l in self.lengths[sel[:n_real]]])
+            yield batch

@@ -6,9 +6,13 @@ multimodal_dmm_tpu/training/diagnostics.py).
   (``--gradients``; matplotlib is imported only there).
 - ``StepTimer``: per-step times, by CUDA events on the GPU (read when the
   summary is asked for, so timing adds no synchronisation to the loop)
-  and by the host's clock on the CPU.
+  and by the host's clock on the CPU; the epoch loop keeps one under
+  ``--profile_dir`` only.
 - ``profile_ctx``: a ``torch.profiler`` trace of the block, written as a
   Chrome trace into a directory, with its table of device time per op.
+- ``span``: a named host interval of the program's phases (``mdmm/...``)
+  in whatever ``torch.profiler`` trace is being recorded, and nothing
+  when none is.
 """
 
 import contextlib
@@ -19,6 +23,26 @@ import numpy as np
 import torch
 
 from ..tree import tree_leaves_with_path
+
+# The gate and the event of ``span``, looked up once.
+_profiling = torch._C._autograd._profiler_enabled
+_HostEvent = torch._C._profiler._RecordFunctionFast
+NO_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    """A context manager that marks the block as the program phase
+    ``name`` in the trace of a running ``torch.profiler``.
+
+    While a profiler records, it is a host-only profiler event on the
+    profiler's clock: not a user annotation, so the profiler mirrors
+    nothing of it onto the device's track, and it launches and waits for
+    nothing. Otherwise it is the shared ``NO_SPAN``: one gate check, no
+    clock read, no allocation. Names start with ``mdmm/``; a host
+    synchronisation's is ``mdmm/sync.<site>``."""
+    if _profiling():
+        return _HostEvent(name)
+    return NO_SPAN
 
 
 def grad_stats(grads):

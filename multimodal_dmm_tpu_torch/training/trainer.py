@@ -94,7 +94,7 @@ from ..parallel.mesh import (ColumnNoise, eval_columns, gather_columns,
 from ..tree import tree_leaves, tree_leaves_with_path, tree_map
 from . import checkpoint as ckpt
 from .device_loader import DeviceTrainData
-from .diagnostics import StepTimer, plot_grad_flow, profile_ctx
+from .diagnostics import StepTimer, plot_grad_flow, profile_ctx, span
 from .eval_engine import DeviceEvalData, compose_task
 from .flow_yaml import safe_load
 from .loader import BatchLoader
@@ -294,6 +294,20 @@ class _MeshReporter:
             raise StopTrial()
 
 
+def _copy_in(x, device):
+    """Host data on ``device``. To a GPU, a copy from pageable memory
+    waits for the device's stream: a host synchronisation."""
+    with span("mdmm/sync.batch_copy"):
+        return torch.as_tensor(x, device=device)
+
+
+def _to_host(x):
+    """A tensor's values as a numpy array; from a GPU, the read waits for
+    the device: a host synchronisation."""
+    with span("mdmm/sync.readback"):
+        return x.cpu().numpy()
+
+
 def summarize(metrics, n_timesteps):
     """An evaluation's summary: the mean and std (``key_std``) of each
     per-sequence metric (a list), each summed metric divided by
@@ -480,11 +494,14 @@ class Trainer:
         grads = [p.grad for p in self.leaves]
         if self.skip_nonfinite:
             finite = torch.stack([torch.isfinite(g).all() for g in grads])
-            if not bool(finite.all()):
+            with span("mdmm/sync.finite"):
+                finite = bool(finite.all())
+            if not finite:
                 return False
-        if self.clip_grad is not None and self.clip_grad > 0:
-            torch.nn.utils.clip_grad_norm_(self.leaves, self.clip_grad)
-        self.optimizer.step()
+        with span("mdmm/train.optimizer"):
+            if self.clip_grad is not None and self.clip_grad > 0:
+                torch.nn.utils.clip_grad_norm_(self.leaves, self.clip_grad)
+            self.optimizer.step()
         return True
 
     def train_step(self, inputs, targets, mask, kld_mult, n_data):
@@ -506,10 +523,13 @@ class Trainer:
         applied), as ``train_step``."""
         for p in self.leaves:
             p.grad = None
-        loss, new_state = self.model.step(
-            self.params, self.state, inputs, mask, kld_mult, self.rec_mults,
-            gen, targets=targets, train=train, **self.train_args)
-        (loss / n_data).backward()
+        with span("mdmm/train.forward"):
+            loss, new_state = self.model.step(
+                self.params, self.state, inputs, mask, kld_mult,
+                self.rec_mults, gen, targets=targets, train=train,
+                **self.train_args)
+        with span("mdmm/train.backward"):
+            (loss / n_data).backward()
         if reduce_grads is not None:
             reduce_grads()
         applied = self.apply_gradients()
@@ -524,64 +544,74 @@ class Trainer:
         KLD multiplier anneals linearly over ``kld_anneal`` epochs of
         batches. Each batch's loss is read back only after the next
         batch's step is queued. Returns the epoch's loss per step."""
-        self.rec_mults = dict(args.rec_mults)
-        self.train_args = dict(args.train_args)
-        loss_sum, data_num, kld_mult = 0.0, 0, 0.0
-        n_batches = len(loader)
-        timer = StepTimer(self.device)
-        pending = None  # (batch number, loss on the device, n steps)
+        with span("mdmm/train.epoch"):
+            self.rec_mults = dict(args.rec_mults)
+            self.train_args = dict(args.train_args)
+            loss_sum, data_num, kld_mult = 0.0, 0, 0.0
+            n_batches = len(loader)
+            # Per-step device times only for the profiled epoch's summary.
+            timer = StepTimer(self.device) if args.profile_dir else None
+            pending = None  # (batch number, loss on the device, n steps)
 
-        def drain(p):
-            nonlocal loss_sum, data_num
-            b_prev, loss_dev, n_prev = p
-            loss_sum += float(loss_dev)
-            data_num += n_prev
-            print('Batch: {:5d}\tLoss: {:10.1f}'.format(
-                b_prev, loss_sum / data_num))
+            def drain(p):
+                nonlocal loss_sum, data_num
+                b_prev, loss_dev, n_prev = p
+                with span("mdmm/sync.loss"):
+                    loss_sum += float(loss_dev)
+                data_num += n_prev
+                print('Batch: {:5d}\tLoss: {:10.1f}'.format(
+                    b_prev, loss_sum / data_num))
 
-        if isinstance(loader, DeviceTrainData):
-            batches = loader.epoch(args.seed * 100003 + epoch)
-        else:
-            def host_batches():
-                for targets, mask, lengths, _, _ in loader:
-                    inputs = mseq.burst_delete(targets, args.burst_frac,
-                                               lengths)
-                    yield (self._to_device(inputs), self._to_device(targets),
-                           torch.as_tensor(mask, device=self.device),
-                           lengths)
-            batches = host_batches()
+            if isinstance(loader, DeviceTrainData):
+                batches = loader.epoch(args.seed * 100003 + epoch)
+            else:
+                def host_batches():
+                    for targets, mask, lengths, _, _ in loader:
+                        with span("mdmm/train.batch"):
+                            inputs = mseq.burst_delete(
+                                targets, args.burst_frac, lengths)
+                            batch = (self._to_device(inputs),
+                                     self._to_device(targets),
+                                     _copy_in(mask, self.device), lengths)
+                        yield batch
+                batches = host_batches()
 
-        for b_num, (inputs, targets, mask, lengths) in enumerate(batches):
-            kld_mult = anneal(0.0, args.kld_mult, b_num + epoch * n_batches,
-                              args.kld_anneal * n_batches)
-            if self.mesh is not None:
-                inputs, _ = shard_batch(self.mesh, inputs, mask)
-                targets, mask = shard_batch(self.mesh, targets, mask)
-            timer.start()
-            loss, _ = self.train_step(inputs, targets, mask, kld_mult,
-                                      float(sum(lengths)))
-            timer.stop()
-            if args.gradients and self.is_root:
-                plot_grad_flow(tree_map(lambda p: p.grad, self.params),
-                               save_path=os.path.join(args.save_dir,
-                                                      'grad_flow.pdf'))
+            for b_num, (inputs, targets, mask, lengths) in enumerate(
+                    batches):
+                kld_mult = anneal(0.0, args.kld_mult,
+                                  b_num + epoch * n_batches,
+                                  args.kld_anneal * n_batches)
+                if self.mesh is not None:
+                    inputs, _ = shard_batch(self.mesh, inputs, mask)
+                    targets, mask = shard_batch(self.mesh, targets, mask)
+                if timer is not None:
+                    timer.start()
+                with span("mdmm/train.step"):
+                    loss, _ = self.train_step(inputs, targets, mask,
+                                              kld_mult, float(sum(lengths)))
+                if timer is not None:
+                    timer.stop()
+                if args.gradients and self.is_root:
+                    plot_grad_flow(tree_map(lambda p: p.grad, self.params),
+                                   save_path=os.path.join(args.save_dir,
+                                                          'grad_flow.pdf'))
+                if pending is not None:
+                    drain(pending)
+                pending = (b_num, loss, sum(lengths))
             if pending is not None:
                 drain(pending)
-            pending = (b_num, loss, sum(lengths))
-        if pending is not None:
-            drain(pending)
-        if args.profile_dir:
-            print('Step timing:', timer.summary())
-        loss = loss_sum / max(data_num, 1)
-        print('---')
-        print('Epoch: {}\tLoss: {:10.1f}\tKLD-Mult: {:0.3f}'.format(
-            epoch, loss, kld_mult))
-        return loss
+            if timer is not None:
+                print('Step timing:', timer.summary())
+            loss = loss_sum / max(data_num, 1)
+            print('---')
+            print('Epoch: {}\tLoss: {:10.1f}\tKLD-Mult: {:0.3f}'.format(
+                epoch, loss, kld_mult))
+            return loss
 
     # -- evaluation -----------------------------------------------------------
 
     def _to_device(self, batch):
-        return {m: torch.as_tensor(batch[m], device=self.device)
+        return {m: _copy_in(batch[m], self.device)
                 for m in batch if m in self.model.modalities}
 
     @staticmethod
@@ -610,59 +640,63 @@ class Trainer:
         Under a mesh each rank runs the forward on its columns of each
         batch (``_eval_split``), and every rank gets the whole batch's
         outputs and metrics; ``--visualize`` draws on rank 0 alone."""
-        collect_results = collect_results or args.visualize
-        if (not collect_results
-                and getattr(self, "compute_metrics_device", None)
-                is not None):
-            return self._evaluate_device(loader, args)
-        rec_mults, eval_args = self._eval_config(args)
-        n_timesteps, metrics = 0, None
-        results = {"seq_ids": [], "targets": [], "inputs": [], "recon": []}
-        for targets, mask, lengths, order, ids in loader:
-            inputs = mseq.rand_delete(targets, args.drop_frac, lengths)
-            inputs = mseq.keep_segment(inputs, args.start_frac,
-                                       args.stop_frac, lengths)
-            for m in args.drop_mods:
-                inputs[m][:] = float("nan")
-            for m in args.keep_mods:
-                inputs[m] = np.array(targets[m], copy=True)
-            b_dim = mask.shape[1]
-            cols, gen = self._eval_split(b_dim)
-            with torch.no_grad():
-                (infer, prior, recon), _ = self.model.forward(
-                    self.params, self.state, self._to_device(
+        with span("mdmm/eval.call"):
+            collect_results = collect_results or args.visualize
+            if (not collect_results
+                    and getattr(self, "compute_metrics_device", None)
+                    is not None):
+                return self._evaluate_device(loader, args)
+            rec_mults, eval_args = self._eval_config(args)
+            n_timesteps, metrics = 0, None
+            results = {"seq_ids": [], "targets": [], "inputs": [], "recon": []}
+            for targets, mask, lengths, order, ids in loader:
+                b_dim = mask.shape[1]
+                cols, gen = self._eval_split(b_dim)
+                with span("mdmm/eval.task"):
+                    inputs = mseq.rand_delete(targets, args.drop_frac, lengths)
+                    inputs = mseq.keep_segment(inputs, args.start_frac,
+                                               args.stop_frac, lengths)
+                    for m in args.drop_mods:
+                        inputs[m][:] = float("nan")
+                    for m in args.keep_mods:
+                        inputs[m] = np.array(targets[m], copy=True)
+                    dev_inputs = self._to_device(
                         inputs if cols is None else
-                        {m: v[:, cols] for m, v in inputs.items()}),
-                    gen=gen, **eval_args)
-            if cols is not None:
-                gather = lambda x: gather_columns(  # noqa: E731
-                    self.mesh, x, cols, b_dim)
-                infer, prior = (tuple(gather(x) for x in xs)
-                                for xs in (infer, prior))
-                recon = {m: tuple(gather(r) for r in rs)
-                         for m, rs in recon.items()}
-            n_timesteps += sum(lengths)
-            b_metrics = self.compute_metrics(
-                self.model, infer, prior, recon, targets, mask, lengths,
-                order, args, rec_mults=rec_mults)
-            metrics = (b_metrics if metrics is None else
-                       {k: metrics[k] + b_metrics[k] for k in metrics})
+                        {m: v[:, cols] for m, v in inputs.items()})
+                with torch.no_grad(), span("mdmm/eval.forward"):
+                    (infer, prior, recon), _ = self.model.forward(
+                        self.params, self.state, dev_inputs, gen=gen,
+                        **eval_args)
+                if cols is not None:
+                    gather = lambda x: gather_columns(  # noqa: E731
+                        self.mesh, x, cols, b_dim)
+                    infer, prior = (tuple(gather(x) for x in xs)
+                                    for xs in (infer, prior))
+                    recon = {m: tuple(gather(r) for r in rs)
+                             for m, rs in recon.items()}
+                n_timesteps += sum(lengths)
+                with span("mdmm/eval.metrics"):
+                    b_metrics = self.compute_metrics(
+                        self.model, infer, prior, recon, targets, mask,
+                        lengths, order, args, rec_mults=rec_mults)
+                metrics = (b_metrics if metrics is None else
+                           {k: metrics[k] + b_metrics[k] for k in metrics})
+                if collect_results:
+                    recon = {m: tuple(_to_host(r) for r in rs)
+                             for m, rs in recon.items()}
+                    results["seq_ids"] += [ids[i] for i in order]
+                    for k, v in (("targets", targets), ("inputs", inputs),
+                                 ("recon", recon)):
+                        results[k].append(mseq.seq_decoll_dict(v, lengths,
+                                                               order))
             if collect_results:
-                recon = {m: tuple(r.cpu().numpy() for r in rs)
-                         for m, rs in recon.items()}
-                results["seq_ids"] += [ids[i] for i in order]
-                for k, v in (("targets", targets), ("inputs", inputs),
-                             ("recon", recon)):
-                    results[k].append(mseq.seq_decoll_dict(v, lengths,
-                                                           order))
-        if collect_results:
-            for k in ("targets", "inputs", "recon"):
-                results[k] = {m: [seq for batch in results[k]
-                                  for seq in batch[m]]
-                              for m in results[k][0]}
-            if args.visualize and self.is_root:
-                self.visualize(results, metrics[args.viz_metric], args)
-        return results, self.summarize_metrics(metrics, n_timesteps)
+                for k in ("targets", "inputs", "recon"):
+                    results[k] = {m: [seq for batch in results[k]
+                                      for seq in batch[m]]
+                                  for m in results[k][0]}
+                if args.visualize and self.is_root:
+                    self.visualize(results, metrics[args.viz_metric], args)
+            return results, self.summarize_metrics(metrics, n_timesteps)
 
     def _evaluate_device(self, loader, args):
         """The metrics-only evaluation on the device: the eval set is
@@ -692,20 +726,24 @@ class Trainer:
             for b in data.batches:
                 b_dim = b.mask.shape[1]
                 cols, gen = self._eval_split(b_dim)
-                inputs = compose_task(
-                    b.targets, b.lengths_dev, self.gen, args.drop_frac,
-                    args.start_frac, args.stop_frac, tuple(args.drop_mods),
-                    tuple(args.keep_mods), modalities=self.model.modalities,
-                    cols=cols)
+                with span("mdmm/eval.task"):
+                    inputs = compose_task(
+                        b.targets, b.lengths_dev, self.gen, args.drop_frac,
+                        args.start_frac, args.stop_frac,
+                        tuple(args.drop_mods), tuple(args.keep_mods),
+                        modalities=self.model.modalities, cols=cols)
                 targets, mask, lengths = b.targets, b.mask, b.lengths_dev
                 if cols is not None:
                     targets = {m: v[:, cols] for m, v in targets.items()}
                     mask, lengths = mask[:, cols], lengths[cols]
-                (infer, prior, recon), _ = self.model.forward(
-                    self.params, self.state, inputs, gen=gen, **eval_args)
-                out = self.compute_metrics_device(
-                    self.model, infer, prior, recon, targets, mask, lengths,
-                    rec_mults)
+                with span("mdmm/eval.forward"):
+                    (infer, prior, recon), _ = self.model.forward(
+                        self.params, self.state, inputs, gen=gen,
+                        **eval_args)
+                with span("mdmm/eval.metrics"):
+                    out = self.compute_metrics_device(
+                        self.model, infer, prior, recon, targets, mask,
+                        lengths, rec_mults)
                 if cols is not None:
                     out = {k: sum_over_data(self.mesh, v) if v.dim() == 0
                            else gather_columns(self.mesh, v, cols, b_dim,
@@ -713,7 +751,7 @@ class Trainer:
                            for k, v in out.items()}
                 outs.append(out)
                 n_timesteps += sum(b.lengths)
-        outs = [{k: v.cpu().numpy() for k, v in out.items()} for out in outs]
+        outs = [{k: _to_host(v) for k, v in out.items()} for out in outs]
         metrics = None
         for b, out in zip(data.batches, outs):
             # Per-sequence values back in input order, real sequences
@@ -1103,12 +1141,12 @@ class Trainer:
         lengths_pad[:len(lengths)] = lengths
         mets = self.compute_metrics_device(
             model, infer, prior, recon,
-            {m: torch.as_tensor(np.asarray(targets[m]), device=dev)
-             for m in recon}, torch.as_tensor(np.asarray(mask), device=dev),
-            torch.as_tensor(lengths_pad, device=dev), args.rec_mults)
+            {m: _copy_in(np.asarray(targets[m]), dev) for m in recon},
+            _copy_in(np.asarray(mask), dev), _copy_in(lengths_pad, dev),
+            args.rec_mults)
         out = {}
         for k, v in mets.items():
-            v = v.cpu().numpy()
+            v = _to_host(v)
             out[k] = float(v) if v.ndim == 0 else [v[i] for i in order]
         return out
 
