@@ -40,7 +40,17 @@ imports nothing of JAX or of the JAX package. Phases:
    trainer's anneal): one step's loss and gradients on the kernels
    against the same step on the plain versions, then --steps optimizer
    steps through the kernels, with their launch counts and the median
-   step time;
+   step time; the training BatchNorm + ReLU kernels (``csrc/bn_relu.cu``)
+   over those steps: 4 launches at each of a step's 6 sites, counted from
+   0 just before the first step; each site of the first step, on the card
+   inputs recorded there (``BnSites``, ``check_bn_sites``), in the layout
+   it came in, against float64 (y and the statistics within 2e-6 of their
+   scale, dgamma and dbeta 1e-5, dx 2e-5: the card tests' limits; the
+   plain path's errors beside them), its ReLU mask flipped only within
+   rounding of 0, two runs bit for bit; then each kernel's device time
+   (torch.profiler), the plain path's and ``F.batch_norm`` + ``F.relu``'s
+   (CUDA events), L2 flushed before each call, beside the bound of bytes
+   once;
 5. the evaluation filter's two kernels (``csrc/poe_cell.cu``) against
    their plain versions: the PoE + sampling cell (the sampled pass's
    first step) at the evaluation's shapes ((M, K, B, D) = (3, 200, 25,
@@ -118,7 +128,10 @@ imports nothing of JAX or of the JAX package. Phases:
    200, 25, 256) and (2, 1, 25, 256); one BFVI step on
    the kernels against the plain versions (phase 4's checks, the batch
    in the codec-native layout); timed f32, bf16 and DKS f-mask steps with
-   their device busy time; then ``apps.vidtimit.main``: 2 epochs of
+   their device busy time and BatchNorm + ReLU launches (the f32 steps: 4
+   at each of 12 sites, counted from 0 after a warm-up step), phase 4's
+   BatchNorm + ReLU checks at the f32 warm-up step's sites; then
+   ``apps.vidtimit.main``: 2 epochs of
    ``--method bfvi`` with the 200-particle evaluation after each, the
    checkpoints, the launch counts (3 of each scan kernel a step, per
    evaluation one forward scan and the cell a batch and the step at each
@@ -254,8 +267,16 @@ two scans (``..._bf16_wgmma``: phase 16 (a)'s one launch at z = h = 768, K
 scans (``..._bf16_tiled``: the twin's time and error at z = h = 768,
 launches of phase 16 (c)'s step on the tiled kernels; ``launches_by_phase``
 of the bf16 rows adds phase 16 (b)'s ``bf16_gtf`` steps and (c)'s, each on
-its own). ``library_ms`` is null for the scans,
-the cell and the step (no PyTorch call computes them) and, for the weight
+its own), and the four BatchNorm + ReLU kernels (``bn_relu_stats``,
+``bn_relu_apply``, ``bn_relu_grad_sums``, ``bn_relu_grad_apply``, and
+``... (vidtimit)``: ``ms`` and ``bound_ms`` (bytes once) summed over a
+Weizmann or VidTIMIT step's sites, ``plain_ms`` and ``library_ms`` the
+plain path's and ``F.batch_norm`` + ``F.relu``'s forward or backward, the
+work of both kernels of that way (``plain_covers``), ``max_abs_err`` and
+``max_err_over_scale`` against float64, ``launches`` those of each kernel
+in phase 4's steps or phase 12's timed f32 steps). ``library_ms`` is null
+for the scans, the cell and the step (no PyTorch call computes them) and,
+for the weight
 gradients, the device time of four ``torch.mm`` (float32, or bf16 rows
 with ``out_dtype=torch.float32``) and the bias sums. For
 the scan kernels ``ms``, ``plain_ms`` and ``bound_ms`` are sums over the
@@ -2027,6 +2048,306 @@ def run_cli(seed, card, tmp):
     return launches, hist
 
 
+# -- phases 4 and 12: the training BatchNorm + ReLU kernels ------------------
+
+BN_SRC = "multimodal_dmm_tpu_torch/csrc/bn_relu.cu"
+BN_REPLACES = ("none: XLA runs the codecs' BatchNorm and ReLU "
+               "(multimodal_dmm_tpu/models/nn.py:batchnorm_apply)")
+# The four kernels (csrc/bn_relu.cu), each launched once a site: name ->
+# (the outputs it computes, the float32 bytes an element it must move: x
+# read; x read, y written; dy and x read; dy and x read, dx written).
+BN_KERNELS = {
+    "bn_relu_stats": (("mean", "inv_std", "new_mean", "new_var"), 4),
+    "bn_relu_apply": (("y",), 8),
+    "bn_relu_grad_sums": (("dgamma", "dbeta"), 8),
+    "bn_relu_grad_apply": (("dx",), 12),
+}
+# Each output's largest error against float64 over its scale: the limits
+# of tests/test_torch_bn_relu.py, which says why.
+BN_TOL = {"y": 2e-6, "mean": 2e-6, "inv_std": 2e-6, "new_mean": 2e-6,
+          "new_var": 2e-6, "dx": 2e-5, "dgamma": 1e-5, "dbeta": 1e-5}
+BN_SITES = {"weizmann": 6, "vidtimit": 12}  # BatchNorm sites a step
+BN_REPS = 10                # timed calls a site and path
+FLUSH_FLOATS = 64 * 2 ** 20  # 256 MB written before each timed call
+
+
+class BnSites:
+    """While open, records the inputs of every call that
+    ``models.nn.batchnorm_relu_apply`` sends to the kernels (x with its
+    strides, gamma, beta, the running state, eps, momentum), then makes
+    the call."""
+
+    def __enter__(self):
+        from multimodal_dmm_tpu_torch.models import nn as tnn
+        self.sites, self._nn, real = [], tnn, tnn.bn_relu_train_cuda
+
+        def recorded(x, gamma, beta, run_mean, run_var, eps, momentum):
+            self.sites.append(dict(
+                x=x.detach().clone(), gamma=gamma.detach().clone(),
+                beta=beta.detach().clone(), run_mean=run_mean.clone(),
+                run_var=run_var.clone(), eps=eps, momentum=momentum))
+            return real(x, gamma, beta, run_mean, run_var, eps, momentum)
+        self._real = real
+        tnn.bn_relu_train_cuda = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._nn.bn_relu_train_cuda = self._real
+
+
+def bn_outputs(site, dy):
+    """The kernels' forward and backward on a recorded site."""
+    from multimodal_dmm_tpu_torch.ops.cuda import bn_relu as tbn
+    s = site
+    y, mean, inv, new_mean, new_var = tbn.bn_relu_fwd_cuda(
+        s["x"], s["gamma"], s["beta"], s["run_mean"], s["run_var"], s["eps"],
+        s["momentum"])
+    dx, dgamma, dbeta = tbn.bn_relu_bwd_cuda(dy, s["x"], s["gamma"],
+                                             s["beta"], mean, inv)
+    return {"y": y, "mean": mean, "inv_std": inv, "new_mean": new_mean,
+            "new_var": new_var, "dx": dx, "dgamma": dgamma, "dbeta": dbeta}
+
+
+def bn_plain_args(site):
+    """Fresh copies of a recorded site's inputs for the plain path: x,
+    gamma and beta requiring gradients, the running state."""
+    s = site
+    return (s["x"].clone().requires_grad_(True),
+            s["gamma"].clone().requires_grad_(True),
+            s["beta"].clone().requires_grad_(True), s["run_mean"].clone(),
+            s["run_var"].clone(), s["eps"], s["momentum"])
+
+
+def bn_plain_run(args, library=False):
+    """The plain path on ``bn_plain_args``: (y, new mean, new var). The
+    plain path is ``batchnorm_apply`` (cuDNN's BatchNorm, ``var_mean``,
+    the running state's updates) and ``F.relu``; with ``library``,
+    cuDNN's ``F.batch_norm`` in training mode and ``F.relu`` alone, the
+    library yardstick."""
+    import torch.nn.functional as F
+    from multimodal_dmm_tpu_torch.models import nn as tnn
+    x, gamma, beta, mean, var, eps, momentum = args
+    if library:
+        return (F.relu(F.batch_norm(x, mean, var, gamma, beta, training=True,
+                                    momentum=momentum, eps=eps)), mean, var)
+    out, st = tnn.batchnorm_apply(
+        {"scale": gamma, "bias": beta},
+        {"mean": mean, "var": var, "eps": eps, "momentum": momentum}, x,
+        True)
+    return F.relu(out), st["mean"], st["var"]
+
+
+def bn_plain(site, dy):
+    """The plain path on a recorded site with autograd: y, the new running
+    state and the gradients."""
+    args = bn_plain_args(site)
+    y, mean, var = bn_plain_run(args)
+    y.backward(dy)
+    return {"y": y.detach(), "new_mean": mean, "new_var": var,
+            "dx": args[0].grad, "dgamma": args[1].grad,
+            "dbeta": args[2].grad}
+
+
+def bn_reference(site, dy, mask):
+    """The function in float64 from the site's float32 inputs, the
+    backward on ``mask`` (where the pre-activation is taken as > 0): each
+    output, its scale (the largest magnitude; for dgamma and dbeta the
+    sum of their terms' magnitudes) and the pre-activation."""
+    s = site
+    x, dy = s["x"].double(), dy.double()
+    axes = [0] + list(range(2, x.dim()))
+    shape = (1, -1) + (1,) * (x.dim() - 2)
+    n = x.numel() // x.shape[1]
+    var, mean = torch.var_mean(x, dim=axes, correction=0)
+    inv = 1.0 / torch.sqrt(var + s["eps"])
+    g, b, m = s["gamma"].double(), s["beta"].double(), s["momentum"]
+    xhat = (x - mean.reshape(shape)) * inv.reshape(shape)
+    pre = xhat * g.reshape(shape) + b.reshape(shape)
+    d = torch.where(mask, dy, torch.zeros_like(dy))
+    dbeta, dgamma = d.sum(axes), (d * xhat).sum(axes)
+    dx = (g * inv).reshape(shape) * (
+        d - (dbeta.reshape(shape) + xhat * dgamma.reshape(shape)) / n)
+    out = {"y": torch.relu(pre), "mean": mean, "inv_std": inv,
+           "new_mean": (1 - m) * s["run_mean"].double() + m * mean,
+           "new_var": ((1 - m) * s["run_var"].double()
+                       + m * var * n / max(n - 1, 1)),
+           "dx": dx, "dgamma": dgamma, "dbeta": dbeta}
+    scale = {k: float(v.abs().max()) for k, v in out.items()}
+    scale["dgamma"] = float((d * xhat).abs().sum(axes).max())
+    scale["dbeta"] = float(d.abs().sum(axes).max())
+    return out, scale, pre
+
+
+def bn_errors(got, ref, scale):
+    """Each output's largest absolute error against float64, and that
+    over its scale."""
+    out = {}
+    for k, v in got.items():
+        err = float((v.double() - ref[k]).abs().max())
+        out[k] = (err, err / max(scale[k], 1e-30))
+    return out
+
+
+def flushed_ms(fn, reps, flush, setup=None):
+    """Median device time of ``fn(setup())`` by CUDA events over ``reps``
+    calls, each after ``flush`` is written (L2 then holds none of the
+    inputs) and a spin kernel that keeps the card busy while the host
+    enqueues the call; two warm-up calls first."""
+    times = []
+    for i in range(reps + 2):
+        arg = setup() if setup else None
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(arg)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bn_kernel_ms(fn, reps, flush):
+    """Mean device time a launch of each of the four kernels that ``fn``
+    launches, under torch.profiler over ``reps`` calls, L2 flushed before
+    each call: the mean over the launches the profiler recorded (it has
+    missed some on this card); None if it recorded none of a kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    out, seen = {k: 0.0 for k in BN_KERNELS}, {k: 0 for k in BN_KERNELS}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k in BN_KERNELS:
+            if k + "_kernel" in e.name:
+                out[k] += e.time_range.elapsed_us() / 1e3 / reps
+                seen[k] += 1
+    if not all(seen.values()):
+        return None
+    if any(v != reps for v in seen.values()):
+        log("  (the profiler recorded %s launches of the kernels in %d "
+            "calls)" % (seen, reps))
+    return {k: v * reps / seen[k] for k, v in out.items()}
+
+
+def check_bn_sites(sites, app, seed, card):
+    """Every training BatchNorm + ReLU site that one step of ``app`` sent
+    to the kernels (``sites``, from ``BnSites``), on the card inputs
+    recorded there and a dy drawn from ``seed``: the kernels' y,
+    statistics, running state, dx, dgamma and dbeta against float64
+    within BN_TOL (the plain path's errors beside them), the ReLU's mask
+    flipped only within rounding of 0, two runs bit for bit; then each
+    kernel's device time (torch.profiler), the plain path's and the
+    library yardstick's (CUDA events), L2 flushed before each call,
+    summed over the step's sites, and the bytes-once bound. Returns
+    {kernel: record} for the kernels line."""
+    from multimodal_dmm_tpu_torch.ops.cuda import bn_relu as tbn
+    check(len(sites) == BN_SITES[app], "%s: %d BatchNorm sites in a step, "
+          "expected %d" % (app, len(sites), BN_SITES[app]))
+    dev = sites[0]["x"].device
+    flush = torch.empty(FLUSH_FLOATS, device=dev)
+    rec = {k: {"ms": 0.0, "bound_ms": 0.0, "err": 0.0, "err_over_scale": 0.0}
+           for k in BN_KERNELS}
+    plain = {"fwd": 0.0, "bwd": 0.0}
+    lib = {"fwd": 0.0, "bwd": 0.0}
+    for i, s in enumerate(sites):
+        x = s["x"]
+        layout = tbn.channels_last_layout(x)
+        check(layout is not None, "%s site %d: x of strides %s reached the "
+              "kernels" % (app, i, x.stride()))
+        gen = torch.Generator(device=dev).manual_seed(seed + i)
+        dy = torch.empty_like(x).normal_(generator=gen)
+        got = bn_outputs(s, dy)
+        again = bn_outputs(s, dy)
+        for k in got:
+            check(torch.equal(got[k], again[k]),
+                  "%s site %d: two runs' %s differ" % (app, i, k))
+        check(got["y"].stride() == x.stride()
+              and got["dx"].stride() == x.stride(),
+              "%s site %d: y or dx not in x's strides" % (app, i))
+        ref, scale, pre = bn_reference(s, dy, got["y"] > 0)
+        err = bn_errors(got, ref, scale)
+        flips = (got["y"] > 0) != (pre > 0)
+        n_flips = int(flips.sum())
+        flip_pre = float(pre[flips].abs().max()) if n_flips else 0.0
+        p = bn_plain(s, dy)
+        ref_p, scale_p, _ = bn_reference(s, dy, p["y"] > 0)
+        err_p = bn_errors(p, ref_p, scale_p)
+        bad = {k: (e[1], BN_TOL[k]) for k, e in err.items()
+               if not e[1] <= BN_TOL[k]}
+        check(not bad, "%s site %d %s: kernel error over scale, limit: %s"
+              % (app, i, tuple(x.shape), bad))
+        check(flip_pre < 1e-5 * max(scale["y"], 1.0),
+              "%s site %d: the mask flips at |pre| up to %.3g"
+              % (app, i, flip_pre))
+        log("  %s site %d: x %s %s; error over scale, kernels (plain): y "
+            "%.2e (%.2e), dx %.2e (%.2e), dgamma %.2e (%.2e), dbeta %.2e "
+            "(%.2e), new_var %.2e (%.2e); %d mask flips, |pre| <= %.2e"
+            % (app, i, tuple(x.shape),
+               "channels-last" if layout else "contiguous",
+               err["y"][1], err_p["y"][1], err["dx"][1], err_p["dx"][1],
+               err["dgamma"][1], err_p["dgamma"][1], err["dbeta"][1],
+               err_p["dbeta"][1], err["new_var"][1], err_p["new_var"][1],
+               n_flips, flip_pre))
+        del got, again, ref, pre, p, ref_p
+        ms = bn_kernel_ms(lambda: bn_outputs(s, dy), BN_REPS, flush)
+        with torch.no_grad():
+            pf, lf = (flushed_ms(lambda a, lib_=lib_: bn_plain_run(a, lib_),
+                                 BN_REPS, flush,
+                                 setup=lambda: bn_plain_args(s))
+                      for lib_ in (False, True))
+        pb, lb = (flushed_ms(lambda out: out[0].backward(dy), BN_REPS, flush,
+                             setup=lambda lib_=lib_: bn_plain_run(
+                                 bn_plain_args(s), lib_))
+                  for lib_ in (False, True))
+        plain["fwd"] += pf
+        plain["bwd"] += pb
+        lib["fwd"] += lf
+        lib["bwd"] += lb
+        for k, (outs, nbytes) in BN_KERNELS.items():
+            r = rec[k]
+            r["ms"] = None if ms is None or r["ms"] is None else (
+                r["ms"] + ms[k])
+            r["bound_ms"] += 1e3 * nbytes * x.numel() / PEAK_BYTES
+            r["err"] = max([r["err"]] + [err[o][0] for o in outs])
+            r["err_over_scale"] = max([r["err_over_scale"]]
+                                      + [err[o][1] for o in outs])
+    for k, r in rec.items():
+        way = "bwd" if "grad" in k else "fwd"
+        r.update(plain_ms=plain[way], library_ms=lib[way],
+                 plain_covers="the two %s kernels' work"
+                 % ("backward" if way == "bwd" else "forward"))
+        log("  %s %s: %s ms a step (%d sites), bound %.3f ms (bytes once) "
+            "[%s]" % (app, k, "not measured" if r["ms"] is None else
+                      "%.3f" % r["ms"], len(sites), r["bound_ms"], card))
+    log("  %s a step: plain path forward %.3f, backward %.3f ms; "
+        "F.batch_norm + F.relu forward %.3f, backward %.3f ms [%s]"
+        % (app, plain["fwd"], plain["bwd"], lib["fwd"], lib["bwd"], card))
+    return rec
+
+
+def bn_rows(rec, suffix, launches, by_phase):
+    """The kernels line's rows of the four kernels, from
+    ``check_bn_sites``'s record; ``launches`` and ``by_phase`` count the
+    sites' calls, each of which launches every kernel once."""
+    return [{"name": k + suffix, "route": "cuda", "source": BN_SRC,
+             "replaces": BN_REPLACES, "launches": launches,
+             "launches_by_phase": by_phase, "max_abs_err": r["err"],
+             "max_err_over_scale": r["err_over_scale"], "ms": r["ms"],
+             "plain_ms": r["plain_ms"], "plain_covers": r["plain_covers"],
+             "bound_ms": r["bound_ms"], "bound_by": "bytes",
+             "library_ms": r["library_ms"]} for k, r in rec.items()]
+
+
 # -- phases 9-11: the spirals app and the baselines ---------------------------
 
 def spirals_batch(seed, dev):
@@ -2408,6 +2729,7 @@ def check_vidtimit(scan, cell, seed, dev, tmp, card, profile_path=None):
     records, the cell record, the command line's launches)."""
     from multimodal_dmm_tpu_torch.apps import vidtimit
     from multimodal_dmm_tpu_torch.data.vidtimit import gen_synthetic
+    from multimodal_dmm_tpu_torch.ops.cuda import bn_relu
     data, small = os.path.join(tmp, "vidtimit"), os.path.join(tmp, "vt_3")
     t0 = time.perf_counter()
     gen_synthetic(data, n_subjects=VT_SUBJECTS, n_sentences=VT_SENTENCES,
@@ -2470,17 +2792,35 @@ def check_vidtimit(scan, cell, seed, dev, tmp, card, profile_path=None):
                                 model_args=dict(rnn_dir="fwd",
                                                 rnn_skip=False),
                                 train_args=dict(uni_loss=True))
+    bn_launches = {}
     for name, tr, x, y, kw in (
             ("bfvi f32", trainer, nat_in, nat_tg, step_kw),
             ("bfvi bf16", bf16, nat_in, nat_tg, step_kw),
             ("dks f-mask", dks, inputs, targets, {})):
         tr.train_args = dict(tr.train_args, **kw)
-        times = time_steps(tr, x, y, mask, n_data, 1 + VT_STEPS)[1:]
+        with BnSites() as sites:  # the warm-up step's BatchNorm sites
+            time_steps(tr, x, y, mask, n_data, 1)
+        if name == "bfvi f32":
+            bn_sites = sites
+        bn_relu.bn_relu_train_cuda.launches = 0
+        times = time_steps(tr, x, y, mask, n_data, VT_STEPS)
+        bn_launches[name] = bn_relu.bn_relu_train_cuda.launches
         step_ms[name] = statistics.median(times)
         log("  %s step (T = %d, B = %d): median %.2f ms over %d steps, %.1f "
-            "seqs/s; %s [%s]" % (name, t_batch, VT_B, step_ms[name],
-                                 len(times), VT_B / (step_ms[name] / 1e3),
-                                 busy_note(tr, (x, y, mask), 2), card))
+            "seqs/s; %s; BatchNorm + ReLU kernels %d a step, %d sites "
+            "[%s]" % (name, t_batch, VT_B, step_ms[name], len(times),
+                      VT_B / (step_ms[name] / 1e3),
+                      busy_note(tr, (x, y, mask), 2),
+                      bn_launches[name] // VT_STEPS, len(sites.sites), card))
+    check(bn_launches["bfvi f32"] == 4 * BN_SITES["vidtimit"] * VT_STEPS,
+          "the VidTIMIT f32 steps launched the BatchNorm + ReLU kernels %d "
+          "times in %d steps, expected 4 a site and %d sites a step"
+          % (bn_launches["bfvi f32"], VT_STEPS, BN_SITES["vidtimit"]))
+    log("  the training BatchNorm + ReLU sites of the f32 warm-up step, on "
+        "its card inputs:")
+    rec["bn_relu"] = check_bn_sites(bn_sites.sites, "vidtimit", seed, card)
+    rec["bn_relu_launches"] = bn_launches["bfvi f32"] // 4
+    del bn_sites, sites
     if profile_path:
         from torch.profiler import ProfilerActivity, profile
         trainer.train_args = dict(step_kw)
@@ -4030,7 +4370,7 @@ def main():
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from multimodal_dmm_tpu_torch.apps import weizmann
-    from multimodal_dmm_tpu_torch.ops.cuda import _build
+    from multimodal_dmm_tpu_torch.ops.cuda import _build, bn_relu
     from multimodal_dmm_tpu_torch.ops.cuda import bfvi_scan as scan
     from multimodal_dmm_tpu_torch.ops.cuda import poe_cell as cell
 
@@ -4112,11 +4452,18 @@ def main():
     wrappers = kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
+    bn_relu.bn_relu_train_cuda.launches = 0
     for i in range(n_warm + args.steps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        loss, applied = trainer.train_step(inputs, targets, mask, 1.0, n_data)
+        if i == 0:  # a warm-up step: its BatchNorm sites recorded
+            with BnSites() as bn_sites:
+                loss, applied = trainer.train_step(inputs, targets, mask,
+                                                   1.0, n_data)
+        else:
+            loss, applied = trainer.train_step(inputs, targets, mask, 1.0,
+                                               n_data)
         end.record()
         torch.cuda.synchronize()
         losses.append(loss.item())
@@ -4125,10 +4472,16 @@ def main():
         if i >= n_warm:
             times.append(start.elapsed_time(end))
     launches = {name: fn.launches for name, fn in wrappers.items()}
+    bn_launches = bn_relu.bn_relu_train_cuda.launches
     n_steps = n_warm + args.steps
     log("  losses / n_data: %s" % ", ".join("%.2f" % (v / n_data)
                                             for v in losses))
-    log("  launches over %d steps: %s" % (n_steps, launches))
+    log("  launches over %d steps: %s; BatchNorm + ReLU kernels %d"
+        % (n_steps, launches, bn_launches))
+    check(bn_launches == 4 * BN_SITES["weizmann"] * n_steps,
+          "the BatchNorm + ReLU kernels launched %d times in %d steps, "
+          "expected 4 a site and %d sites a step"
+          % (bn_launches, n_steps, BN_SITES["weizmann"]))
     for name in SCAN_KERNELS:
         check(launches[name] == 3 * n_steps, "%s launched %d times in %d "
               "steps, expected 3 per step" % (name, launches[name], n_steps))
@@ -4147,6 +4500,10 @@ def main():
         % (ms, len(times), B_DATA / (ms / 1e3), card))
     log("  peak device memory: %.2f GB"
         % (torch.cuda.max_memory_allocated() / 1e9))
+    log("  the training BatchNorm + ReLU sites of the first step, on its "
+        "card inputs:")
+    bn_rec = check_bn_sites(bn_sites.sites, "weizmann", args.seed, card)
+    del bn_sites
 
     if args.profile:
         from torch.profiler import profile, ProfilerActivity
@@ -4379,6 +4736,14 @@ def main():
         for key in keys:
             if key in r:
                 kernels[-1][key] = r[key]
+    # The training BatchNorm + ReLU kernels: phase 4's Weizmann sites and
+    # phase 12's VidTIMIT sites, each kernel's ms summed over a step's
+    # sites; launches those of each kernel in phase 4's steps and phase
+    # 12's timed f32 steps.
+    bn_phase = {"4": bn_launches // 4, "12": vt_rec["bn_relu_launches"]}
+    kernels += bn_rows(bn_rec, "", bn_phase["4"], bn_phase)
+    kernels += bn_rows(vt_rec["bn_relu"], " (vidtimit)", bn_phase["12"],
+                       bn_phase)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

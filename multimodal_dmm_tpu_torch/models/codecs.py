@@ -65,10 +65,9 @@ def _encoder_apply(ops, params, state, x, train, gauss_out, compute_dtype):
         h = ops[1](params["convs"][l], h, stride=2, padding=1,
                    compute_dtype=compute_dtype)
         if l < n_layers - 1:
-            h, bn_s = tnn.batchnorm_apply(params["bns"][l],
-                                          state["bns"][l], h, train)
+            h, bn_s = tnn.batchnorm_relu_apply(params["bns"][l],
+                                               state["bns"][l], h, train)
             new_bns.append(bn_s)
-            h = F.relu(h)
     feats = h.reshape(h.shape[0], -1)  # channel-major flatten order
     new_state = {"bns": new_bns}
     if not gauss_out:
@@ -108,10 +107,9 @@ def _decoder_apply(ops, params, state, z, train, feat_shape, logits,
         h = ops[3](params["deconvs"][l], h, stride=2, padding=1,
                    compute_dtype=compute_dtype)
         if l < n_layers - 1:
-            h, bn_s = tnn.batchnorm_apply(params["bns"][l],
-                                          state["bns"][l], h, train)
+            h, bn_s = tnn.batchnorm_relu_apply(params["bns"][l],
+                                               state["bns"][l], h, train)
             new_bns.append(bn_s)
-            h = F.relu(h)
     if logits:
         h = h.permute((0,) + tuple(range(2, h.dim())) + (1,))
     else:

@@ -20,6 +20,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..ops.cuda.bn_relu import bn_relu_train_cuda
+
 
 def _uniform(gen, shape, bound):
     return (torch.rand(shape, generator=gen, dtype=torch.float32)
@@ -375,3 +377,19 @@ def batchnorm_apply(p, state, x, train):
     out = F.batch_norm(x, state["mean"], state["var"], p["scale"],
                        p["bias"], training=False, eps=state["eps"])
     return out, state
+
+
+def batchnorm_relu_apply(p, state, x, train):
+    """``F.relu`` of ``batchnorm_apply``, as the codecs apply them: returns
+    (out, new_state). Single-rank training (``train`` true, with no
+    ``all_reduce``) on a CUDA tensor runs on the port's kernels
+    (``ops/cuda/bn_relu.py``), which take float32 alone and raise for any
+    other dtype; evaluation, ``SyncStats`` and CPU tensors take the plain
+    composition."""
+    if train and x.is_cuda and getattr(train, "all_reduce", None) is None:
+        out, mean, var = bn_relu_train_cuda(
+            x, p["scale"], p["bias"], state["mean"], state["var"],
+            state["eps"], state["momentum"])
+        return out, dict(state, mean=mean, var=var)
+    out, new_state = batchnorm_apply(p, state, x, train)
+    return F.relu(out), new_state

@@ -24,7 +24,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 SOURCES = {"bfvi_scan": "bfvi_scan.cu", "bfvi_scan_bf16": "bfvi_scan_bf16.cu",
            "f32_scan": "f32_scan.cu", "f32_wgrad": "f32_wgrad.cu",
-           "poe_cell": "poe_cell.cu"}
+           "poe_cell": "poe_cell.cu", "bn_relu": "bn_relu.cu"}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v"]
